@@ -1,0 +1,248 @@
+"""Hand-written CUDA kernels for the NestedLoRA EVD loss, and their packaging.
+
+Port of ``neuralsvd_tpu/ops/pallas_gram.py``.  Each wrapper replaces one
+Pallas kernel and keeps its plain PyTorch version beside it:
+
+==================  ==========================================  =====================
+wrapper             replaces (neuralsvd_tpu/ops/pallas_gram.py)  plain version
+==================  ==========================================  =====================
+masked_gram_pair    _masked_gram_kernel :64, pallas_call :102    masked_gram_pair_ref
+weighted_dot        _weighted_dot_kernel :137, pallas_call :161  weighted_dot_ref
+metric_grads        _metric_grads_kernel :184, pallas_call :208  metric_grads_ref
+==================  ==========================================  =====================
+
+Dispatch is by the tensors' device alone: CPU tensors take the plain
+version; CUDA tensors launch the kernel (``csrc/gram_kernels.cu``) or
+raise.  There is no fallback from a failed launch to the plain version.
+Each wrapper counts its launches in ``<wrapper>.launches``.
+
+Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32 without tensor cores): at
+the E4 shapes (half-batches of 256 rows, L = 16) each call moves 35-67 KB
+and does at most 0.27 MFLOP, so its bound is 10-20 ns, set by bytes; launch
+latency, microseconds, is what a call costs.  The kernels therefore favour
+being simple and exactly repeatable over speed (see csrc/gram_kernels.cu).
+
+Unlike the TPU kernels, nothing pads L to 128 or B to 512: any B >= 1 and
+L >= 1 are taken as they are.
+"""
+from __future__ import annotations
+
+import torch
+
+from neuralsvd_tpu_torch.ops.cuda_build import load_library
+from neuralsvd_tpu_torch.ops.gram import compute_loss_metric
+
+ROWS_PER_CHUNK = 128  # K1: rows one block sums before the fixed-order pass
+DOT_THREADS = 256
+DOT_ELEMS_PER_THREAD = 32
+DOT_MAX_BLOCKS = 264  # two per SM on an H100
+_MAX_ELEMS = 2 ** 31 - 2 ** 20  # int32 indexing in the kernels
+
+
+# ---------------------------------------------------------------------------
+# plain versions (the einsum math of ops/nestedlora.py)
+# ---------------------------------------------------------------------------
+
+def masked_gram_pair_ref(f1, f2, mmask):
+    """(Σ M⊙Λ1⊙Λ2, Λ1 = f1ᵀf1/B1, Λ2 = f2ᵀf2/B2)."""
+    return compute_loss_metric(f1, f2, mmask)
+
+
+def weighted_dot_ref(f, Tf, vmask):
+    """Σ_b Σ_l w_l f[b,l] Tf[b,l] (un-normalized)."""
+    return torch.einsum("l,bl,bl->", vmask, f, Tf)
+
+
+def metric_grads_ref(f1, f2, lam1, lam2, mmask, scale1: float,
+                     scale2: float):
+    """g1 = scale1·f1·(M⊙Λ2), g2 = scale2·f2·(M⊙Λ1)."""
+    g1 = scale1 * torch.einsum("lm,lm,bl->bm", mmask, lam2, f1)
+    g2 = scale2 * torch.einsum("lm,lm,bl->bm", mmask, lam1, f2)
+    return g1, g2
+
+
+# ---------------------------------------------------------------------------
+# dispatch helpers
+# ---------------------------------------------------------------------------
+
+def _on_cpu(*tensors) -> bool:
+    """True when every tensor is on the CPU; False when every one is on
+    the same CUDA device; raises on anything else."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return False
+
+
+def _check(name: str, t: torch.Tensor, shape) -> None:
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: expected float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def _check_sizes(B: int, L: int) -> None:
+    if B < 1 or L < 1 or B * L > _MAX_ELEMS:
+        raise ValueError(f"unsupported sizes B={B}, L={L}")
+
+
+def _launch(name: str, *args) -> None:
+    """Call a C launcher of csrc/gram_kernels.cu; raise if CUDA refused it."""
+    lib = load_library()
+    rc = getattr(lib, name)(*args)
+    if rc != 0:
+        msg = lib.gram_error_string(rc).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
+
+
+def _stream(t: torch.Tensor) -> int:
+    if t.device.index != torch.cuda.current_device():
+        raise ValueError(f"tensor on {t.device} but the current device is "
+                         f"cuda:{torch.cuda.current_device()}")
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# K1: fused pair-gram + masked metric loss
+# ---------------------------------------------------------------------------
+
+def masked_gram_pair(f1: torch.Tensor, f2: torch.Tensor, mmask: torch.Tensor):
+    """(metric_loss, lam1, lam2), normalized by the batch size.
+
+    f1, f2: (B, L) float32 half-batches (B1 must equal B2); mmask: (L, L).
+    """
+    if _on_cpu(f1, f2, mmask):
+        return masked_gram_pair_ref(f1, f2, mmask)
+    B, L = f1.shape
+    _check("f1", f1, (B, L))
+    _check("f2", f2, (B, L))
+    _check("mmask", mmask, (L, L))
+    _check_sizes(B, L)
+    nchunk = -(-B // ROWS_PER_CHUNK)
+    opts = dict(device=f1.device, dtype=torch.float32)
+    partial = torch.empty((nchunk, 2, L, L), **opts)
+    lam1 = torch.empty((L, L), **opts)
+    lam2 = torch.empty((L, L), **opts)
+    loss = torch.empty((), **opts)
+    _launch("gram_masked_gram_pair", f1.data_ptr(), f2.data_ptr(),
+            mmask.data_ptr(), partial.data_ptr(), lam1.data_ptr(),
+            lam2.data_ptr(), loss.data_ptr(), B, L, ROWS_PER_CHUNK,
+            _stream(f1))
+    masked_gram_pair.launches += 1
+    return loss, lam1, lam2
+
+
+masked_gram_pair.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K2: operator term, streaming weighted dot
+# ---------------------------------------------------------------------------
+
+def dot_blocks(n: int) -> int:
+    """Grid size of K2's first pass for n = B·L elements."""
+    return max(1, min(-(-n // (DOT_THREADS * DOT_ELEMS_PER_THREAD)),
+                      DOT_MAX_BLOCKS))
+
+
+def weighted_dot(f: torch.Tensor, Tf: torch.Tensor, vmask: torch.Tensor):
+    """Σ_b Σ_l w_l f[b,l] Tf[b,l] (un-normalized); f, Tf: (B, L), w: (L,)."""
+    if _on_cpu(f, Tf, vmask):
+        return weighted_dot_ref(f, Tf, vmask)
+    B, L = f.shape
+    _check("f", f, (B, L))
+    _check("Tf", Tf, (B, L))
+    _check("vmask", vmask, (L,))
+    _check_sizes(B, L)
+    nblocks = dot_blocks(B * L)
+    opts = dict(device=f.device, dtype=torch.float32)
+    out = torch.empty((), **opts)
+    partial = torch.empty((nblocks,), **opts) if nblocks > 1 else None
+    _launch("gram_weighted_dot", f.data_ptr(), Tf.data_ptr(),
+            vmask.data_ptr(), None if partial is None else partial.data_ptr(),
+            out.data_ptr(), B, L, nblocks, _stream(f))
+    weighted_dot.launches += 1
+    return out
+
+
+weighted_dot.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3: fused backward, both metric gradients
+# ---------------------------------------------------------------------------
+
+def metric_grads(f1, f2, lam1, lam2, mmask, scale1: float, scale2: float):
+    """g1[b,m] = scale1 Σ_l f1[b,l] (M⊙Λ2)[l,m];  g2 symmetric."""
+    if _on_cpu(f1, f2, lam1, lam2, mmask):
+        return metric_grads_ref(f1, f2, lam1, lam2, mmask, scale1, scale2)
+    B, L = f1.shape
+    _check("f1", f1, (B, L))
+    _check("f2", f2, (B, L))
+    for name, t in (("lam1", lam1), ("lam2", lam2), ("mmask", mmask)):
+        _check(name, t, (L, L))
+    _check_sizes(B, L)
+    g1 = torch.empty_like(f1)
+    g2 = torch.empty_like(f2)
+    _launch("gram_metric_grads", f1.data_ptr(), f2.data_ptr(),
+            lam1.data_ptr(), lam2.data_ptr(), mmask.data_ptr(),
+            float(scale1), float(scale2), g1.data_ptr(), g2.data_ptr(), B, L,
+            _stream(f1))
+    metric_grads.launches += 1
+    return g1, g2
+
+
+metric_grads.launches = 0
+
+KERNELS = (masked_gram_pair, weighted_dot, metric_grads)
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in KERNELS}
+
+
+# ---------------------------------------------------------------------------
+# packaged loss with the same custom-backward contract as ops/nestedlora.py
+# ---------------------------------------------------------------------------
+
+class NestedLoRAEVDLossKernels(torch.autograd.Function):
+    """Port of ``nestedlora_evd_loss_pallas`` (pallas_gram.py:239-261).
+
+    Forward: K1 and K2, loss = -2·op/B + metric.  Backward: -4/B·w⊙Tf to f,
+    nothing to Tf, and (g1, g2) from K3 with s = 2/B_half.  (B, L) only.
+    """
+
+    @staticmethod
+    def forward(ctx, f, Tf, f1, f2, vector_mask, matrix_mask):
+        metric_loss, lam1, lam2 = masked_gram_pair(f1, f2, matrix_mask)
+        op = weighted_dot(f, Tf, vector_mask)
+        loss = -2.0 * op / f.shape[0] + metric_loss
+        ctx.save_for_backward(Tf, f1, f2, lam1, lam2, vector_mask,
+                              matrix_mask)
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        Tf, f1, f2, lam1, lam2, vector_mask, matrix_mask = ctx.saved_tensors
+        operator_f = (-4.0 / Tf.shape[0]) * (vector_mask[None, :] * Tf)
+        g1, g2 = metric_grads(f1, f2, lam1, lam2, matrix_mask,
+                              2.0 / f1.shape[0], 2.0 / f2.shape[0])
+        return g * operator_f, None, g * g1, g * g2, None, None
+
+
+def nestedlora_evd_loss_kernels(f, Tf, f1, f2, vector_mask, matrix_mask):
+    """NestedLoRA EVD loss through K1-K3 (plain versions on the CPU)."""
+    return NestedLoRAEVDLossKernels.apply(f, Tf, f1, f2, vector_mask,
+                                          matrix_mask)

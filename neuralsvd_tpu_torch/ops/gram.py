@@ -1,0 +1,39 @@
+"""Gram/covariance contractions — the O(B·L²) core of every loss.
+
+Port of ``neuralsvd_tpu/ops/gram.py``.  Contractions run in float32; on the
+GPU ``torch.backends.cuda.matmul.allow_tf32`` must stay False (PyTorch's
+default) or eigenvalue estimates degrade the way bf16 grams do on the TPU.
+The ``axis_name`` (data-parallel pmean) argument of the JAX version is not
+ported yet (ROADMAP queue 1, item 14).
+"""
+from __future__ import annotations
+
+import torch
+
+
+def compute_lambda(f: torch.Tensor) -> torch.Tensor:
+    """E[f fᵀ] gram over the batch: (B, L[, O]) -> (L, L)."""
+    return torch.einsum("bl...,bm...->lm", f, f) / f.shape[0]
+
+
+def compute_loss_metric(f1: torch.Tensor, f2: torch.Tensor,
+                        matrix_mask: torch.Tensor):
+    """Masked metric loss  Σ_{lm} M_{lm} Λf1_{lm} Λf2_{lm}  plus the two grams.
+
+    f1 and f2 must be *independent* sample groups.
+    """
+    lam_f1 = compute_lambda(f1)
+    lam_f2 = compute_lambda(f2)
+    loss = torch.sum(matrix_mask * lam_f1 * lam_f2)
+    return loss, lam_f1, lam_f2
+
+
+def off_diagonal(x: torch.Tensor) -> torch.Tensor:
+    """Flattened off-diagonal entries of a square matrix (batched)."""
+    n, m = x.shape[-2], x.shape[-1]
+    if n != m:
+        raise ValueError("off_diagonal expects a square matrix")
+    batch_shape = x.shape[:-2]
+    flat = x.reshape(*batch_shape, n * n)[..., :-1]
+    return flat.reshape(*batch_shape, n - 1, n + 1)[..., 1:].reshape(
+        *batch_shape, -1)

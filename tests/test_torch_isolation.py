@@ -1,0 +1,97 @@
+"""The port stands alone: no JAX, no JAX package, no silent CPU fallback."""
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "neuralsvd_tpu_torch"
+BLOCKED = ("jax", "jaxlib", "optax", "flax", "orbax")
+
+
+def _port_sources():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "profile_torch_e4.py"]
+
+
+def _module_names():
+    return sorted(".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+                  for p in PORT.rglob("*.py"))
+
+
+def test_port_imports_with_jax_blocked():
+    """Every port module, chip_smoke and profile_torch_e4 import in a
+    process where the JAX stack cannot be imported at all."""
+    code = "\n".join([
+        "import importlib, importlib.util, sys",
+        f"for m in {BLOCKED!r}:",
+        "    sys.modules[m] = None",
+        f"for name in {_module_names()!r}:",
+        "    importlib.import_module(name)",
+        f"sys.path.insert(0, {str(ROOT)!r})",
+        "importlib.import_module('chip_smoke')",
+        "importlib.import_module('profile_torch_e4')",
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{BLOCKED + ('neuralsvd_tpu',)!r} and sys.modules[m] is not None)",
+        "assert not bad, bad",
+        "print('ok')",
+    ])
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: p.name)
+def test_sources_name_no_jax(path):
+    text = path.read_text()
+    assert "neuralsvd_tpu." not in text
+    assert not re.search(
+        r"^\s*(import|from)\s+(jax|jaxlib|optax|flax|orbax|neuralsvd_tpu)\b",
+        text, re.M)
+
+
+def test_entry_points_raise_without_cuda():
+    """With no GPU, the default device (CUDA) raises instead of falling
+    back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    from neuralsvd_tpu_torch.data.samplers import get_sampler
+    from neuralsvd_tpu_torch.device import resolve_device
+    from neuralsvd_tpu_torch.methods.spectrum import compute_spectrum_evd
+    from neuralsvd_tpu_torch.models.wavefunctions import make_wavefunctions
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_wavefunctions(2, 3, [4], parallel=True, apply_boundary=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        get_sampler("gaussian", 8, 1, 2, 1.0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        compute_spectrum_evd(lambda x: x, [], None)
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    from neuralsvd_tpu_torch.ops import cuda_build
+
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(cuda_build, "DEFAULT_NVCC", tmp_path / "nvcc")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cuda_build.build(tmp_path / "build")
+    assert not (tmp_path / "build").exists() or not any((tmp_path / "build").iterdir())
+
+
+def test_library_name_follows_sources(tmp_path):
+    from neuralsvd_tpu_torch.ops import cuda_build
+
+    name = cuda_build.library_path(tmp_path)
+    assert name.parent == tmp_path
+    assert re.fullmatch(r"libgram_kernels_[0-9a-f]{16}\.so", name.name)
+    assert cuda_build.library_path(tmp_path) == name
