@@ -7,45 +7,70 @@ CUDA toolkit (nvcc).  It imports nothing of JAX nor of the JAX package
 (neuralsvd_tpu).  Phases, each printing one JSON line with its elapsed
 seconds:
 
-1. device   the GPU's name and nvidia-smi's name/power-limit line;
-2. build    the hand-written kernels, one nvcc call into an emptied
-            neuralsvd_tpu_torch/csrc/build/;
-3. kernels  each kernel against its plain PyTorch version at three shapes,
-            and CUDA-event timings of kernel, plain version and library call;
-4. trainer  the hydrogen-2D E4 configuration at full width (L = 16,
-            B = 512, per-mode 128³ softplus towers, 1024 Fourier maps +
-            radial + 4 envelopes, gaussian_mixture sampling with √w
-            conjugation, exact nested-JVP Laplacian, operator_scale 100,
-            sequential nesting, RMSprop, EMA): kernel vs plain loss on one
-            batch, TRAIN_STEPS steps through the kernels with their launch
-            counts, steps/s, a GPU-vs-CPU check of the operator on a small
-            batch, and the EMA model's 16 Rayleigh eigenvalues.
+1. device     the GPU's name and nvidia-smi's name/power-limit line;
+2. build      the hand-written kernels, one nvcc call into an emptied
+              neuralsvd_tpu_torch/csrc/build/;
+3. kernels    each kernel against its plain PyTorch version at four shapes
+              (E4, two odd ones, and the CDK path's 4096 x 513 pair), and
+              CUDA-event timings of kernel, plain version and library call;
+4. trainer    the hydrogen-2D E4 configuration at full width (L = 16,
+              B = 512, per-mode 128³ softplus towers, 1024 Fourier maps +
+              radial + 4 envelopes, gaussian_mixture sampling with √w
+              conjugation, exact nested-JVP Laplacian, operator_scale 100,
+              sequential nesting, RMSprop, EMA): kernel vs plain loss on one
+              batch, TRAIN_STEPS steps through the kernels with their launch
+              counts, steps/s, a GPU-vs-CPU check of the operator on a small
+              batch, and the EMA model's 16 Rayleigh eigenvalues;
+5. cdk_loss   the CDK loss at the paper's width (B 4096, L 512 + the
+              constant mode) on the towers' outputs: kernel packaging vs
+              plain loss, with and without batch weights, ratios included;
+              the towers on the GPU vs a CPU copy on a small batch;
+6. cdk_train  the Sketchy CDK trainer (cli/sketchy.py::run_training) at the
+              paper's width (512-8192-512 lrelu0.2 towers, L 512, B 4096,
+              SGD momentum 0.9, lr 5e-3 warmup-cosine, grad clip 1.0, joint
+              nesting) on synthetic class-correlated 512-d features, two
+              epochs of CDK_STEPS steps, with retrieval, spectrum and the
+              truncation sweep; every loss finite, no skipped step, one
+              launch of each kernel per step; the run's seconds by part
+              (steps with loader and copies, eval, checkpoint, ratios,
+              spectrum, truncation sweep); then steps/s of the train step
+              alone on device-resident batches and its peak device memory.
 
-Then the {"kernels": [...]} line, the nvidia-smi line and, last,
-{"ok": true, "device": {...}}.  Any failed check raises: the exit code is
-then non-zero and the last line is never printed.  Without a GPU it raises
-before printing anything.
+Then the {"kernels": [...]} line (numbers at the CDK shape, launches of
+both main paths, per-path numbers under "paths"), the nvidia-smi line and,
+last, {"ok": true, "device": {...}}.  Any failed check raises: the exit
+code is then non-zero and the last line is never printed.  Without a GPU it
+raises before printing anything.
 """
+import copy
+import csv
 import json
+import os
 import shutil
 import statistics
 import subprocess
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+from neuralsvd_tpu_torch.cli.sketchy import get_args, make_trainer, run_training
 from neuralsvd_tpu_torch.data.samplers import get_sampler
+from neuralsvd_tpu_torch.data.sketchy import ArrayPairLoader
 from neuralsvd_tpu_torch.methods.nestedlora import NestedLoRA
 from neuralsvd_tpu_torch.methods.spectrum import compute_spectrum_evd
+from neuralsvd_tpu_torch.models.mlp import parse_dims
 from neuralsvd_tpu_torch.models.wavefunctions import make_wavefunctions
 from neuralsvd_tpu_torch.operators.problems import get_problem
 from neuralsvd_tpu_torch.ops import cuda_build, cuda_gram
+from neuralsvd_tpu_torch.ops.cuda_gram import nestedlora_cdk_loss_kernels
 from neuralsvd_tpu_torch.ops.masks import (
     joint_nesting_masks,
     sequential_nesting_masks,
     step_weights,
 )
+from neuralsvd_tpu_torch.ops.nestedlora import nestedlora_cdk_loss
 from neuralsvd_tpu_torch.training.optimizers import torch_rmsprop
 from neuralsvd_tpu_torch.training.train_operator import make_train_step
 from neuralsvd_tpu_torch.training.train_state import init_train_state
@@ -63,8 +88,23 @@ VAL_POINTS = 4096
 SEED = 0
 DEVICE = "cuda"
 
-# full batches (B, L); K1/K3 see the two halves (B/2, L), K2 the whole
-KERNEL_SHAPES = [("E4", BATCH, NEIGS), ("unaligned", 96, 5), ("wide", 2048, 64)]
+# CDK: the Sketchy paper's configuration (scripts/exps/sketchy.sh:15-36) on
+# synthetic features; joint nesting (the script's intent, see ROADMAP §3)
+CDK_ARGV = ["--network_dims", "8192,512", "--neigs", "512", "--batch_size", "4096",
+            "--optimizer", "sgd", "--momentum", "0.9", "--base_lr", "5e-3",
+            "--use_lr_scheduler", "--grad_clip", "1.0", "--mu", "16",
+            "--neuralsvd.step", "1", "--neuralsvd.set_first_mode_const", "true",
+            "--activation", "lrelu0.2", "--n_retrievals", "100", "--return_map_all",
+            "--randperm", "--trunc_dims", "1", "8", "64", "-64", "512", "--seed", "0"]
+CDK_DIM, CDK_CLASSES, CDK_B, CDK_L = 512, 25, 4096, 512
+CDK_STEPS, CDK_EPOCHS, CDK_EVAL = 16, 2, 8192  # steps an epoch, epochs, eval items
+CDK_TIMED, CDK_WARMUP = 50, 10
+CDK_TOWER_RTOL = 1e-4  # GPU vs CPU towers: f32 products of depth 8192
+
+# full batches (B, L); K1/K3 see the two halves (B/2, L), K2 the whole on
+# the EVD path and the two halves (f, g) on the CDK path
+KERNEL_SHAPES = [("E4", BATCH, NEIGS), ("unaligned", 96, 5), ("wide", 2048, 64),
+                 ("cdk", 2 * CDK_B, CDK_L + 1)]
 KERNEL_RTOL = 1e-5   # of the plain version on |inputs|: f32 rounding scale
 LOSS_RTOL = 1e-5     # kernel vs plain loss on one batch
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6  # atol in units of the largest entry
@@ -148,12 +188,14 @@ def phase_build():
          ptxas=ptxas)
 
 
-def _kernel_inputs(B, L, gen):
+def _kernel_inputs(label, B, L, gen):
     dev = DEVICE
     f = torch.randn(B, L, generator=gen, device=dev)
     Tf = torch.randn(B, L, generator=gen, device=dev)
-    if L == NEIGS:
+    if label == "E4":
         vmask, mmask = sequential_nesting_masks(L)
+    elif label == "cdk":
+        vmask, mmask = joint_nesting_masks(step_weights(L - 1), set_first_mode_const=True)
     else:
         vmask, mmask = joint_nesting_masks(step_weights(L))
     f1, f2 = torch.chunk(f, 2)
@@ -166,8 +208,11 @@ def phase_kernels():
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     rows = {k: [] for k in REPLACES}
     for label, B, L in KERNEL_SHAPES:
-        f, Tf, f1, f2, vmask, mmask = _kernel_inputs(B, L, gen)
+        f, Tf, f1, f2, vmask, mmask = _kernel_inputs(label, B, L, gen)
         Bh = B // 2
+        # K2's operands: (f, Tf) on the EVD path, the pair (f, g) on the CDK path
+        dot_a, dot_b = (f1, f2) if label == "cdk" else (f, Tf)
+        Bd = dot_a.shape[0]
         s = 2.0 / Bh
         lam1 = torch.einsum("bl,bm->lm", f1, f1) / Bh
         lam2 = torch.einsum("bl,bm->lm", f2, f2) / Bh
@@ -178,14 +223,16 @@ def phase_kernels():
                 scale=lambda: cuda_gram.masked_gram_pair_ref(f1.abs(), f2.abs(), mmask),
                 library=None,
                 nbytes=4 * (2 * Bh * L + L * L + 1 + 2 * L * L),
-                flops=2 * 2 * Bh * L * L + 3 * L * L),
+                # Λ1, Λ2 and M are symmetric: each gram needs only its
+                # L(L+1)/2 distinct entries (a SYRK), 2·Bh flops each
+                flops=2 * Bh * L * (L + 1) + 3 * L * L),
             "weighted_dot": dict(
-                run=lambda: cuda_gram.weighted_dot(f, Tf, vmask),
-                plain=lambda: cuda_gram.weighted_dot_ref(f, Tf, vmask),
-                scale=lambda: cuda_gram.weighted_dot_ref(f.abs(), Tf.abs(), vmask),
-                library=lambda: torch.einsum("l,bl,bl->", vmask, f, Tf),
-                nbytes=4 * (2 * B * L + L + 1),
-                flops=3 * B * L),
+                run=lambda: cuda_gram.weighted_dot(dot_a, dot_b, vmask),
+                plain=lambda: cuda_gram.weighted_dot_ref(dot_a, dot_b, vmask),
+                scale=lambda: cuda_gram.weighted_dot_ref(dot_a.abs(), dot_b.abs(), vmask),
+                library=lambda: torch.einsum("l,bl,bl->", vmask, dot_a, dot_b),
+                nbytes=4 * (2 * Bd * L + L + 1),
+                flops=3 * Bd * L),
             "metric_grads": dict(
                 run=lambda: cuda_gram.metric_grads(f1, f2, lam1, lam2, mmask, s, s),
                 plain=lambda: cuda_gram.metric_grads_ref(f1, f2, lam1, lam2, mmask, s, s),
@@ -316,6 +363,142 @@ def phase_trainer():
     return counts
 
 
+def _cdk_data():
+    """Synthetic class-correlated 512-d features, made in bulk from SEED
+    (the recipe of tests/test_cdk_retrieval.py:63-77): per-class centres
+    plus unit noise, CDK_CLASSES balanced classes."""
+    rng = np.random.default_rng(SEED)
+    centers_x = 3 * rng.standard_normal((CDK_CLASSES, CDK_DIM), dtype=np.float32)
+    centers_y = 3 * rng.standard_normal((CDK_CLASSES, CDK_DIM), dtype=np.float32)
+
+    def split(n, seed):
+        cls = np.arange(n) % CDK_CLASSES
+        x = centers_x[cls] + rng.standard_normal((n, CDK_DIM), dtype=np.float32)
+        y = centers_y[cls] + rng.standard_normal((n, CDK_DIM), dtype=np.float32)
+        return ArrayPairLoader(x, y, cls, batch_size=CDK_B, seed=seed)
+
+    return (split(CDK_STEPS * CDK_B, SEED), split(CDK_EVAL, SEED + 1),
+            split(CDK_EVAL, SEED + 2))
+
+
+def _cdk_args(log_dir):
+    return get_args(CDK_ARGV + ["--num_epochs", str(CDK_EPOCHS),
+                                "--log_dir", log_dir, "--device", DEVICE])
+
+
+def phase_cdk_loss(train):
+    """Kernel packaging vs plain CDK loss on the towers' outputs for one
+    full-width batch; the towers on the GPU vs a CPU copy."""
+    tr = make_trainer(_cdk_args(""), CDK_DIM, CDK_STEPS)
+    x, y, _ = next(iter(train))
+    x = torch.as_tensor(x, device=DEVICE)
+    y = torch.as_tensor(y, device=DEVICE)
+    with torch.no_grad():
+        fx, gy = tr.model(x, y)
+    check(fx.shape == (CDK_B, CDK_L) and torch.isfinite(fx).all().item(), "tower output")
+    vmask, mmask = tr.method.masks(DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    results = {}
+    for label, bw in (("no_weights", None),
+                      ("weights", torch.rand(CDK_B, 1, generator=gen, device=DEVICE) + 0.5)):
+        outs, grads = [], []
+        for fn in (nestedlora_cdk_loss_kernels, nestedlora_cdk_loss):
+            a, b = fx.clone().requires_grad_(), gy.clone().requires_grad_()
+            out = fn(True, a, b, vmask, mmask, bw, return_ratios=True)
+            grads.append(dict(zip("fg", torch.autograd.grad(out[0], [a, b]))))
+            outs.append(out)
+        rel = {}
+        for name, got, want in zip(("loss", "loss_operator", "loss_metric"),
+                                   outs[0], outs[1]):
+            rel[name] = abs(got.item() - want.item()) / abs(want.item())
+            check(rel[name] <= LOSS_RTOL, f"cdk {label} {name}: rel {rel[name]:.3g}")
+        for name, got, want in zip(("rs_joint", "rs_indep"), outs[0][3:], outs[1][3:]):
+            check(got.shape == want.shape, f"cdk {label} {name} shape")
+            rel[name] = ((got - want).abs().max() / want.abs().max()).item()
+            check(rel[name] <= LOSS_RTOL, f"cdk {label} {name}: rel {rel[name]:.3g}")
+        rel["grad_tol_used"] = _check_grads(grads[0], grads[1])
+        results[label] = rel
+    # the towers on the GPU vs a CPU copy of the same parameters, 64 rows
+    cpu_model = copy.deepcopy(tr.model).cpu()
+    with torch.no_grad():
+        ref = cpu_model(x[:64].cpu(), y[:64].cpu())
+    tower_rel = max(((a[:64].cpu() - r).abs().max() / r.abs().max()).item()
+                    for a, r in zip((fx, gy), ref))
+    check(tower_rel <= CDK_TOWER_RTOL, f"GPU vs CPU towers: rel {tower_rel:.3g}")
+    emit("cdk_loss", B=CDK_B, L=CDK_L, columns=CDK_L + 1, loss=outs[1][0].item(),
+         kernel_vs_plain=results, gpu_vs_cpu_towers_rel=tower_rel)
+
+
+def _csv_rows(log_dir):
+    rows = []
+    for name in sorted(os.listdir(log_dir)):
+        if name.endswith(".csv"):
+            with open(os.path.join(log_dir, name)) as fh:
+                rows.extend(csv.DictReader(fh))
+    return rows
+
+
+def phase_cdk_train(train, test, valid):
+    """The CDK trainer through its normal arguments, then the step's rate."""
+    with tempfile.TemporaryDirectory() as log_dir:
+        args = _cdk_args(log_dir)
+        torch.cuda.reset_peak_memory_stats()
+        cuda_gram.reset_launch_counts()
+        timings = {}
+        t0 = time.perf_counter()
+        _, trunc = run_training(args, train, test, valid, input_dim=CDK_DIM,
+                                timings=timings)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = cuda_gram.launch_counts()
+        run_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        rows = _csv_rows(log_dir)
+        stats = np.load(os.path.join(log_dir, "best_stats.npz"))
+        spectrum = stats["spectrum"]
+    steps = CDK_EPOCHS * train.max_steps
+    check(len(rows) == CDK_EPOCHS, f"{len(rows)} log rows")
+    check(all(np.isfinite(float(r["loss"])) for r in rows), "non-finite CDK loss")
+    check(int(rows[-1]["skips"]) == 0, f"{rows[-1]['skips']} skipped CDK steps")
+    check(all(n == steps for n in counts.values()),
+          f"CDK launch counts {counts} != {steps} each")
+    check(spectrum.shape == (CDK_L + 1,) and np.isfinite(spectrum).all(), "spectrum")
+    check(set(trunc) == set(args.trunc_dims), f"truncation sweep {sorted(trunc)}")
+    # the driver's steps, loader and host-to-device copies included; the
+    # last epoch, past the first steps' warm-up
+    driver_steps_per_s = train.max_steps / timings["steps"][-1]
+
+    # steps/s of the train step alone, on device-resident batches
+    tr = make_trainer(_cdk_args(""), CDK_DIM, CDK_STEPS)
+    batches = [tuple(torch.as_tensor(a, device=DEVICE) for a in b[:2])
+               for _, b in zip(range(4), train)]
+    params, opt_state = tr.params, tr.opt_state
+    skips = torch.zeros((), dtype=torch.int32, device=DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for i in range(CDK_WARMUP + CDK_TIMED):
+        if i == CDK_WARMUP:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        x, y = batches[i % len(batches)]
+        params, opt_state, _, loss, _, skips = tr.step(params, opt_state, {}, x, y, skips)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check(torch.isfinite(torch.stack(losses)).all().item() and int(skips) == 0,
+          "timed CDK steps")
+    emit("cdk_train", B=CDK_B, L=CDK_L, dims=[CDK_DIM] + parse_dims(args.network_dims),
+         classes=CDK_CLASSES,
+         epochs=CDK_EPOCHS, steps=steps, launches=counts, run_s=run_s,
+         run_parts_s=timings, run_other_s=run_s - sum(map(sum, timings.values())),
+         driver_steps_per_s=driver_steps_per_s, run_peak_mem_gib=run_peak_gib,
+         per_epoch=[{k: float(v) for k, v in r.items()} for r in rows],
+         trunc=trunc, spectrum_head=spectrum[:8].tolist(),
+         timed_steps=CDK_TIMED, steps_per_s=CDK_TIMED / seconds,
+         ms_per_step=seconds / CDK_TIMED * 1e3,
+         step_peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    return counts
+
+
 def main():
     # full f32 products: TF32 keeps ~3 digits and would break the tolerances
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -323,16 +506,27 @@ def main():
     name, smi = phase_device()
     phase_build()
     rows = phase_kernels()
-    counts = phase_trainer()
+    counts = {"e4": phase_trainer()}
+    train, test, valid = _cdk_data()
+    phase_cdk_loss(train)
+    counts["cdk"] = phase_cdk_train(train, test, valid)
     kernels = []
     for kname, results in rows.items():
-        e4 = results[0]
+        at = {r["shape"]: r for r in results}
+        paths = {path: {"launches": counts[path][kname],
+                        **{k: at[shape][k] for k in ("B", "L", "max_abs_err", "ms",
+                                                      "plain_ms", "bound_ms",
+                                                      "bound_by", "library_ms")}}
+                 for path, shape in (("e4", "E4"), ("cdk", "cdk"))}
+        cdk = paths["cdk"]
         kernels.append({
             "name": kname, "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": REPLACES[kname], "launches": counts[kname],
-            "max_abs_err": e4["max_abs_err"], "ms": e4["ms"],
-            "plain_ms": e4["plain_ms"], "bound_ms": e4["bound_ms"],
-            "bound_by": e4["bound_by"], "library_ms": e4["library_ms"]})
+            "replaces": REPLACES[kname],
+            "launches": sum(p["launches"] for p in paths.values()),
+            "max_abs_err": cdk["max_abs_err"], "ms": cdk["ms"],
+            "plain_ms": cdk["plain_ms"], "bound_ms": cdk["bound_ms"],
+            "bound_by": cdk["bound_by"], "library_ms": cdk["library_ms"],
+            "paths": paths})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,10 +1,14 @@
-"""Carry JAX wavefunction parameters into the port's modules.
+"""Carry JAX parameters into the port's modules.
 
 ``params_from_jax`` maps the JAX package's ParallelMLP wavefunction tree
 ``{"base": {"ws": [(L, h, d), ...], "bs": [(L, h, 1), ...],
-"feature_map": {}}}`` (leaves already converted to numpy) onto the state
-dict of ``models.wavefunctions.Wavefunction``, so that both packages
-compute the same function in the tests.  It imports nothing of JAX.
+"feature_map": {}}}`` onto the state dict of
+``models.wavefunctions.Wavefunction``; ``hetero_params_from_jax`` maps the
+two-tower tree ``{"x": {"layers": [{"w": (in, out), "b": (out,)}, ...]},
+"y": ...}`` onto that of ``models.two_tower.HeteroNetwork`` (the same
+(in, out) layout, so no transpose).  Leaves are already numpy arrays; so
+both packages compute the same function in the tests.  Nothing here
+imports JAX.
 """
 from __future__ import annotations
 
@@ -29,3 +33,23 @@ def params_from_jax(tree) -> Dict[str, torch.Tensor]:
                 np.asarray(leaf, dtype=np.float32))
     return out
 
+
+
+def hetero_params_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """-> {"x.layers.0.w": tensor, "x.layers.0.b": tensor, ...} (float32)."""
+    extra = set(tree) - {"x", "y"}
+    if extra:
+        raise NotImplementedError(
+            f"parameters {sorted(extra)} (online heads) are not ported yet "
+            "(ROADMAP queue 1, item 15)")
+    out = {}
+    for side in ("x", "y"):
+        for i, layer in enumerate(tree[side]["layers"]):
+            if set(layer) - {"w", "b"}:
+                raise NotImplementedError(
+                    "weight-normalized layers are not ported yet "
+                    "(ROADMAP queue 1, item 3)")
+            for name, leaf in layer.items():
+                out[f"{side}.layers.{i}.{name}"] = torch.tensor(
+                    np.asarray(leaf, dtype=np.float32))
+    return out

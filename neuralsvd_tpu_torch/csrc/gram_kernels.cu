@@ -13,13 +13,15 @@
 // returns cudaGetLastError().  Built by one nvcc call into a shared library
 // loaded with ctypes; no PyTorch header is included.
 //
-// What bounds them: at the main path's shapes (B = 256..512 rows, L = 16
-// modes, f32) each kernel moves 35-67 KB and does at most 0.27 MFLOP, so
-// the bound at 3.35 TB/s is 10-20 nanoseconds and launch latency (microseconds)
-// dominates.  The design is therefore simple and right: f32 FMAs through
-// 32x32 shared-memory tiles, no float atomics, and every cross-block sum
-// taken by a second pass in a fixed order, so results repeat bit for bit.
-// L is never padded: tiles mask their ragged edges.
+// What bounds them: on the E4 path (B = 256..512 rows, L = 16 modes, f32)
+// each kernel moves 35-67 KB and does at most 0.27 MFLOP, so the bound at
+// 3.35 TB/s is 10-20 nanoseconds and launch latency (microseconds)
+// dominates.  On the CDK path (f, g: 4096 x 513) K1 and K3 each do 4.3
+// GFLOP, bound by f32 arithmetic at ~64 us, and K2 moves 16.8 MB (~5 us).
+// The design is simple and right, not fast: f32 FMAs through 32x32
+// shared-memory tiles (4 FMAs per 5 shared loads), no float atomics, and
+// every cross-block sum taken by a later pass in a fixed order, so results
+// repeat bit for bit.  L is never padded: tiles mask their ragged edges.
 
 #include <cuda_runtime.h>
 
@@ -54,8 +56,14 @@ __device__ float block_sum(float v) {
 // ---------------------------------------------------------------------------
 // K1: masked pair-gram.  Pass 1: block (chunk c, tile (l0, m0), half z)
 // accumulates Σ_{b in chunk} f_z[b, l] f_z[b, m] over rows_per_chunk rows
-// and writes it to partial[c][z][l][m].  Pass 2: one block sums the chunks
-// in order, normalises, writes Λ1/Λ2 and the masked loss.
+// and writes it to partial[c][z][l][m].  Pass 2: one thread per (l, m)
+// sums the chunks in order, normalises, writes Λ1/Λ2, and each block
+// writes its share of the masked loss Σ M⊙Λ1⊙Λ2.  Pass 3 (skipped when
+// pass 2 is one block): one block sums those shares in order.
+//
+// Pass 2 was one block once; at 4096 x 513 it read the 67 MB of partials
+// on one SM in 4.3 ms, ten times pass 1.  Spread over L²/256 blocks it
+// reads them at the memory's rate.
 // ---------------------------------------------------------------------------
 
 __global__ void masked_gram_partial_kernel(const float* __restrict__ f1,
@@ -105,16 +113,17 @@ __global__ void masked_gram_partial_kernel(const float* __restrict__ f1,
   }
 }
 
-__global__ void masked_gram_finish_kernel(const float* __restrict__ partial,
+__global__ void masked_gram_reduce_kernel(const float* __restrict__ partial,
                                           const float* __restrict__ mmask,
                                           float* __restrict__ lam1,
                                           float* __restrict__ lam2,
-                                          float* __restrict__ loss,
+                                          float* __restrict__ loss_part,
                                           int L, int nchunk, float inv_b1,
                                           float inv_b2) {
   const size_t LL = (size_t)L * L;
+  const size_t i = (size_t)blockIdx.x * kReduceThreads + threadIdx.x;
   float local = 0.f;
-  for (size_t i = threadIdx.x; i < LL; i += kReduceThreads) {
+  if (i < LL) {
     float a = 0.f;
     float b = 0.f;
     for (int c = 0; c < nchunk; ++c) {
@@ -125,10 +134,10 @@ __global__ void masked_gram_finish_kernel(const float* __restrict__ partial,
     b *= inv_b2;
     lam1[i] = a;
     lam2[i] = b;
-    local = fmaf(mmask[i] * a, b, local);
+    local = mmask[i] * a * b;
   }
   const float total = block_sum(local);
-  if (threadIdx.x == 0) loss[0] = total;
+  if (threadIdx.x == 0) loss_part[blockIdx.x] = total;
 }
 
 // ---------------------------------------------------------------------------
@@ -223,11 +232,13 @@ __global__ void metric_grads_kernel(const float* __restrict__ f1,
 extern "C" {
 
 // partial: (nchunk, 2, L, L) scratch, nchunk = ceil(B / rows_per_chunk);
-// rows_per_chunk a multiple of 32.  loss: 1 float; lam1, lam2: (L, L).
+// rows_per_chunk a multiple of 32.  loss_part: reduce_blocks floats of
+// scratch, reduce_blocks = ceil(L² / 256), unused (may be null) when it is
+// 1.  loss: 1 float; lam1, lam2: (L, L).
 int gram_masked_gram_pair(const float* f1, const float* f2, const float* mmask,
-                          float* partial, float* lam1, float* lam2,
-                          float* loss, int B, int L, int rows_per_chunk,
-                          void* stream) {
+                          float* partial, float* loss_part, float* lam1,
+                          float* lam2, float* loss, int B, int L,
+                          int rows_per_chunk, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nchunk = (B + rows_per_chunk - 1) / rows_per_chunk;
   const int tiles = (L + kTile - 1) / kTile;
@@ -237,8 +248,15 @@ int gram_masked_gram_pair(const float* f1, const float* f2, const float* mmask,
                                                     rows_per_chunk);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  masked_gram_finish_kernel<<<1, kReduceThreads, 0, s>>>(
-      partial, mmask, lam1, lam2, loss, L, nchunk, 1.f / B, 1.f / B);
+  const int reduce_blocks =
+      static_cast<int>(((size_t)L * L + kReduceThreads - 1) / kReduceThreads);
+  float* first = reduce_blocks > 1 ? loss_part : loss;
+  masked_gram_reduce_kernel<<<reduce_blocks, kReduceThreads, 0, s>>>(
+      partial, mmask, lam1, lam2, first, L, nchunk, 1.f / B, 1.f / B);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || reduce_blocks == 1) return static_cast<int>(err);
+  sum_partials_kernel<<<1, kReduceThreads, 0, s>>>(loss_part, loss,
+                                                   reduce_blocks);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,21 +1,22 @@
-"""NestedLoRA (NeuralSVD) for self-adjoint operators — the EVD path.
+"""NestedLoRA (NeuralSVD): the EVD operator path and the CDK two-tower path.
 
 Port of ``neuralsvd_tpu/methods/nestedlora.py:59-127`` (``NestedLoRA``, the
-operator path).  The model is an ``nn.Module``; parameters travel as a
-name -> tensor dict and the model is applied with
-``torch.func.functional_call``, the counterpart of JAX's
+operator path) and ``:148-196`` (``NestedLoRAForCDK``).  The model is an
+``nn.Module``; parameters travel as a name -> tensor dict and the model is
+applied with ``torch.func.functional_call``, the counterpart of JAX's
 ``apply_fn(params, x)``, so EMA parameters evaluate the same module.
 
 Loss route (``use_pallas``, parsed like the JAX flag): "auto" (default)
 sends (B, L) outputs on a CUDA device through the hand-written kernels of
-ops/cuda_gram.py and everything else through the plain path; True always
-takes the kernel packaging (whose wrappers use their plain versions on
-the CPU); False always takes the plain path.  (B, L, O) outputs always
+ops/cuda_gram.py (the EVD or the CDK packaging) and everything else
+through the plain path; True always takes the kernel packaging (whose
+wrappers use their plain versions on the CPU); False always takes the
+plain path.  (B, L, O) outputs always
 take the plain path.  The JAX package's "auto" -> False was a TPU
 measurement and is not inherited.
 
 Not ported yet (ROADMAP queue 1, item 7): the kernel-operator path
-(``loss_and_grad_kernel``) and ``NestedLoRAForCDK``.
+(``loss_and_grad_kernel``) and the data-parallel ``axis_name``.
 """
 from __future__ import annotations
 
@@ -26,19 +27,39 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
-from neuralsvd_tpu_torch.ops.cuda_gram import nestedlora_evd_loss_kernels
+from neuralsvd_tpu_torch.ops.cuda_gram import (
+    nestedlora_cdk_loss_kernels,
+    nestedlora_evd_loss_kernels,
+)
 from neuralsvd_tpu_torch.ops.masks import (
     joint_nesting_masks,
     sequential_nesting_masks,
     step_weights,
 )
-from neuralsvd_tpu_torch.ops.nestedlora import nestedlora_evd_loss
+from neuralsvd_tpu_torch.ops.nestedlora import (
+    nestedlora_cdk_loss,
+    nestedlora_evd_loss,
+)
 
 
-def _build_masks(neigs: int, step: int, sequential: bool):
+def _build_masks(neigs: int, step: int, sequential: bool,
+                 set_first_mode_const: bool = False):
     if sequential:
-        return sequential_nesting_masks(neigs)
-    return joint_nesting_masks(step_weights(neigs, step))
+        return sequential_nesting_masks(neigs, set_first_mode_const)
+    return joint_nesting_masks(step_weights(neigs, step), set_first_mode_const)
+
+
+def _device_masks(np_masks, cache: dict, device) -> tuple:
+    """(vector_mask, matrix_mask) as float32 on ``device``, made once."""
+    device = torch.device(device)
+    if device not in cache:
+        cache[device] = tuple(torch.as_tensor(m, device=device)
+                              for m in np_masks)
+    return cache[device]
+
+
+def _use_kernels(use_pallas, t: torch.Tensor) -> bool:
+    return use_pallas is True or (use_pallas == "auto" and t.is_cuda)
 
 
 def _resolve_use_pallas(use_pallas):
@@ -58,9 +79,11 @@ class NestedLoRA:
     name = "nestedlora"
 
     def __init__(self, model: nn.Module, neigs: int, step: int = 1,
-                 sequential: bool = False, use_pallas="auto"):
+                 sequential: bool = False, sort: bool = False,
+                 use_pallas="auto"):
         self.model = model
         self.neigs = neigs
+        self.sort = sort  # read by callers, as in the JAX package
         self.use_pallas = _resolve_use_pallas(use_pallas)
         self._np_masks = _build_masks(neigs, step, sequential)
         self._masks: Dict[torch.device, tuple] = {}
@@ -69,17 +92,11 @@ class NestedLoRA:
 
     def masks(self, device) -> tuple:
         """(vector_mask (L,), matrix_mask (L, L)) as float32 on ``device``."""
-        device = torch.device(device)
-        if device not in self._masks:
-            self._masks[device] = tuple(
-                torch.as_tensor(m, device=device) for m in self._np_masks)
-        return self._masks[device]
+        return _device_masks(self._np_masks, self._masks, device)
 
     def _evd_loss(self, fs, Tf, f1, f2):
         vector_mask, matrix_mask = self.masks(fs.device)
-        kernels = (self.use_pallas is True
-                   or (self.use_pallas == "auto" and fs.is_cuda))
-        if kernels and fs.ndim == 2:
+        if _use_kernels(self.use_pallas, fs) and fs.ndim == 2:
             return nestedlora_evd_loss_kernels(fs, Tf, f1, f2, vector_mask,
                                                matrix_mask)
         return nestedlora_evd_loss(fs, Tf, f1, f2, vector_mask, matrix_mask)
@@ -119,3 +136,53 @@ class NestedLoRA:
                                     allow_unused=True, materialize_grads=True)
         return (loss.detach(), dict(zip(names, grads)),
                 dict(f=fs.detach(), Tf=Tf, eigvals=None), state)
+
+
+class NestedLoRAForCDK:
+    """NestedLoRA for the canonical dependence kernel from paired samples.
+
+    ``model(x, y) -> (f, g)`` is a two-tower module (models/two_tower.py),
+    applied to a name -> tensor parameter dict with ``functional_call``.
+    The masks have L+1 entries in const mode (a constant zeroth mode).
+    """
+
+    name = "nestedlora"
+
+    def __init__(self, model: nn.Module, neigs: int, step: int = 1,
+                 sequential: bool = False, set_first_mode_const: bool = True,
+                 use_pallas="auto"):
+        self.model = model
+        self.neigs = neigs
+        self.set_first_mode_const = set_first_mode_const
+        self.use_pallas = _resolve_use_pallas(use_pallas)
+        self._np_masks = _build_masks(neigs, step, sequential,
+                                      set_first_mode_const)
+        self._masks: Dict[torch.device, tuple] = {}
+
+    def masks(self, device) -> tuple:
+        """(vector_mask, matrix_mask) as float32 on ``device``."""
+        return _device_masks(self._np_masks, self._masks, device)
+
+    def init_state(self, params):
+        return {}
+
+    def _cdk_loss(self, fx, gy, batch_weights):
+        vector_mask, matrix_mask = self.masks(fx.device)
+        loss = (nestedlora_cdk_loss_kernels if _use_kernels(self.use_pallas, fx)
+                else nestedlora_cdk_loss)
+        return loss(self.set_first_mode_const, fx, gy, vector_mask,
+                    matrix_mask, batch_weights)
+
+    def loss_and_grad(self, params, state, x, y, batch_weights=None):
+        """(loss, grads {name: tensor}, aux {f, g, loss_operator,
+        loss_metric}, state).  The (B, B) density-ratio gram is not
+        computed here (cli/sketchy.py::make_density_ratio_fn does it once
+        an epoch)."""
+        fx, gy = functional_call(self.model, params, (x, y))
+        loss, loss_op, loss_met, _, _ = self._cdk_loss(fx, gy, batch_weights)
+        names = list(params)
+        grads = torch.autograd.grad(loss, [params[k] for k in names],
+                                    allow_unused=True, materialize_grads=True)
+        aux = dict(f=fx.detach(), g=gy.detach(), loss_operator=loss_op,
+                   loss_metric=loss_met)
+        return loss.detach(), dict(zip(names, grads)), aux, state

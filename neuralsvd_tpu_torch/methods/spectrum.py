@@ -1,12 +1,14 @@
-"""Post-hoc spectrum estimation from validation batches (EVD path).
+"""Post-hoc spectrum estimation from validation batches.
 
 Port of ``neuralsvd_tpu/methods/spectrum.py:50-148``
 (``compute_spectrum_evd``): accumulate cov = E[φφᵀ] and quad = E[φ(Tφ)ᵀ]
 over a dataloader with train→val importance reweighting, then take the
-Rayleigh quotients.  The accumulation runs on the device without autograd;
+Rayleigh quotients; and of ``:152-193`` (``compute_spectrum_svd``): the
+singular values and orthogonality of a two-tower (CDK) model from its two
+marginal grams.  The accumulation runs on the device without autograd;
 the (L, L) results go to numpy.  Not ported yet (ROADMAP queue 1, item 9):
-``post_align``, ``compute_spectrum_svd`` and the numpy diagnostics
-(``mode_health``, ``grouped_rayleigh``, ``spectrum_report``).
+``post_align`` and the numpy diagnostics (``mode_health``,
+``grouped_rayleigh``, ``spectrum_report``).
 """
 from __future__ import annotations
 
@@ -101,3 +103,42 @@ def compute_spectrum_evd(
         outputs["quad"] = outputs["quad"][np.ix_(idx, idx)]
         outputs["norms"] = outputs["norms"][idx]
     return outputs
+
+
+def compute_spectrum_svd(apply_fn, dataloader, sort: bool = False,
+                         set_first_mode_const: bool = False, device=None):
+    """(spectrum, orthogonality_x, orthogonality_y) of a two-tower model.
+
+    ``apply_fn(x, y) -> (f, g)``; ``dataloader`` yields (x, y[, cls])
+    batches (numpy or tensors), moved to ``device`` (default: the GPU).
+    spectrum_l = √(E[f_l²]·E[g_l²]); orthogonality is each gram
+    normalised by its diagonal.
+    """
+    dev = resolve_device(device)
+    n = 0
+    mx = my = 0.0
+    with torch.no_grad():
+        for batch in dataloader:
+            x = torch.as_tensor(batch[0], dtype=torch.float32, device=dev)
+            y = torch.as_tensor(batch[1], dtype=torch.float32, device=dev)
+            fx, gy = apply_fn(x, y)
+            if set_first_mode_const:
+                ones = torch.ones((fx.shape[0], 1), dtype=fx.dtype, device=dev)
+                fx = torch.cat([ones, fx], dim=1)
+                gy = torch.cat([ones, gy], dim=1)
+            mx = mx + torch.einsum("bl,bm->lm", fx, fx)
+            my = my + torch.einsum("bl,bm->lm", gy, gy)
+            n += x.shape[0]
+    mx = mx.cpu().numpy() / n
+    my = my.cpu().numpy() / n
+    dx = np.diag(mx)[:, None]
+    dy = np.diag(my)[:, None]
+    spectrum = np.sqrt(dx * dy).ravel()
+    orth_x = mx / np.sqrt(dx @ dx.T)
+    orth_y = my / np.sqrt(dy @ dy.T)
+    if sort:
+        idx = np.argsort(spectrum)[::-1]
+        spectrum = spectrum[idx]
+        orth_x = orth_x[np.ix_(idx, idx)]
+        orth_y = orth_y[np.ix_(idx, idx)]
+    return spectrum, orth_x, orth_y

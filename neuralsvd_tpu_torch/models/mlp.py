@@ -1,12 +1,15 @@
-"""Eigenfunction networks: the per-mode ParallelMLP.
+"""Eigenfunction networks: the plain MLP and the per-mode ParallelMLP.
 
 Port of ``neuralsvd_tpu/models/mlp.py``: ``get_activation`` (:37),
-``make_parallel_mlp`` (:184) and the ``parallel`` branch of
-``make_mlp_eigfuncs`` (:295).  L independent MLPs run as one batched
-product chain with weights laid out (L, h_out, h_in), as in the JAX package;
-the products go to ``torch.einsum`` (cuBLAS), as the JAX package leaves
-them to XLA.  Not ported yet (ROADMAP queue 1, items 3 and 16): the
-shared-trunk ``make_mlp``, ``compute_dtype`` and ``matmul_precision``.
+``make_mlp`` (:73, as ``MLP``), ``make_parallel_mlp`` (:184), the
+``parallel`` branch of ``make_mlp_eigfuncs`` (:295) and ``parse_dims``
+(:330).  L independent MLPs run as one batched product chain with weights
+laid out (L, h_out, h_in), as in the JAX package; the products go to
+``torch.einsum``/``torch.matmul`` (cuBLAS), as the JAX package leaves them
+to XLA.  Not ported yet (ROADMAP queue 1, items 3 and 16): the shared-trunk
+eigenfunction branch (``parallel=False``), ``MLP`` without biases, with
+weight normalization or a feature map, ``compute_dtype`` and
+``matmul_precision``.
 """
 from __future__ import annotations
 
@@ -52,6 +55,57 @@ def get_activation(nonlinearity: str) -> Callable[[torch.Tensor], torch.Tensor]:
     if nonlinearity == "linear":
         return lambda x: x
     raise NotImplementedError(f"unknown nonlinearity: {nonlinearity}")
+
+
+def parse_dims(dims_str: str):
+    """'512,512' -> [512, 512]."""
+    return [int(d) for d in dims_str.split(",")] if dims_str else []
+
+
+class Dense(nn.Module):
+    """``x @ w + b`` with ``w`` laid out (in, out), the JAX package's layout,
+    so parameters carry across unchanged."""
+
+    def __init__(self, fan_in: int, fan_out: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        bound = math.sqrt(1.0 / fan_in)
+        self.w = nn.Parameter(_uniform((fan_in, fan_out), bound, generator))
+        self.b = nn.Parameter(_uniform((fan_out,), bound, generator))
+
+    def forward(self, x):
+        return torch.matmul(x, self.w) + self.b
+
+
+def _uniform(shape, bound, generator):
+    return (torch.rand(shape, generator=generator) * 2 - 1) * bound
+
+
+class MLP(nn.Module):
+    """Plain MLP ``sizes[0] -> ... -> sizes[-1]`` with biases, no final
+    activation.
+
+    Init: U(-1/√fan_in, 1/√fan_in) weights and biases (torch.nn.Linear's
+    default, the JAX package's ``_kaiming_uniform``) drawn from
+    ``generator``: the distribution of the JAX init, not its numbers.
+    """
+
+    def __init__(self, sizes: Sequence[int], nonlinearity: str = "relu",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        sizes = list(sizes)
+        self.act = get_activation(nonlinearity)
+        self.layers = nn.ModuleList(
+            Dense(sizes[i], sizes[i + 1], generator)
+            for i in range(len(sizes) - 1))
+
+    def forward(self, x):
+        last = len(self.layers) - 1
+        for i, layer in enumerate(self.layers):
+            x = layer(x)
+            if i < last:
+                x = self.act(x)
+        return x
 
 
 class ParallelMLP(nn.Module):

@@ -1,4 +1,4 @@
-"""Hand-written CUDA kernels for the NestedLoRA EVD loss, and their packaging.
+"""Hand-written CUDA kernels for the NestedLoRA losses, and their packaging.
 
 Port of ``neuralsvd_tpu/ops/pallas_gram.py``.  Each wrapper replaces one
 Pallas kernel and keeps its plain PyTorch version beside it:
@@ -16,11 +16,17 @@ version; CUDA tensors launch the kernel (``csrc/gram_kernels.cu``) or
 raise.  There is no fallback from a failed launch to the plain version.
 Each wrapper counts its launches in ``<wrapper>.launches``.
 
+Two packagings run them: ``nestedlora_evd_loss_kernels`` (the E4 path)
+and ``nestedlora_cdk_loss_kernels`` (the CDK two-tower path).
+
 Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32 without tensor cores): at
 the E4 shapes (half-batches of 256 rows, L = 16) each call moves 35-67 KB
 and does at most 0.27 MFLOP, so its bound is 10-20 ns, set by bytes; launch
-latency, microseconds, is what a call costs.  The kernels therefore favour
-being simple and exactly repeatable over speed (see csrc/gram_kernels.cu).
+latency, microseconds, is what a call costs.  At the CDK shape (f, g: 4096
+x 513) K1 and K3 do 4.3 GFLOP each (bound ~64 us, operations) and K2 moves
+16.8 MB (~5 us, bytes).  The kernels favour being simple and exactly
+repeatable over speed (see csrc/gram_kernels.cu).  K1's partial buffer is
+(ceil(B/128), 2, L, L) floats: 67 MB at the CDK shape.
 
 Unlike the TPU kernels, nothing pads L to 128 or B to 512: any B >= 1 and
 L >= 1 are taken as they are.
@@ -31,8 +37,14 @@ import torch
 
 from neuralsvd_tpu_torch.ops.cuda_build import load_library
 from neuralsvd_tpu_torch.ops.gram import compute_loss_metric
+from neuralsvd_tpu_torch.ops.nestedlora import (
+    cdk_backward,
+    cdk_inputs,
+    density_ratios,
+)
 
 ROWS_PER_CHUNK = 128  # K1: rows one block sums before the fixed-order pass
+REDUCE_THREADS = 256  # K1's second pass: one thread per (l, m)
 DOT_THREADS = 256
 DOT_ELEMS_PER_THREAD = 32
 DOT_MAX_BLOCKS = 264  # two per SM on an H100
@@ -126,15 +138,19 @@ def masked_gram_pair(f1: torch.Tensor, f2: torch.Tensor, mmask: torch.Tensor):
     _check("mmask", mmask, (L, L))
     _check_sizes(B, L)
     nchunk = -(-B // ROWS_PER_CHUNK)
+    reduce_blocks = -(-L * L // REDUCE_THREADS)
     opts = dict(device=f1.device, dtype=torch.float32)
     partial = torch.empty((nchunk, 2, L, L), **opts)
+    loss_part = (torch.empty((reduce_blocks,), **opts)
+                 if reduce_blocks > 1 else None)
     lam1 = torch.empty((L, L), **opts)
     lam2 = torch.empty((L, L), **opts)
     loss = torch.empty((), **opts)
     _launch("gram_masked_gram_pair", f1.data_ptr(), f2.data_ptr(),
-            mmask.data_ptr(), partial.data_ptr(), lam1.data_ptr(),
-            lam2.data_ptr(), loss.data_ptr(), B, L, ROWS_PER_CHUNK,
-            _stream(f1))
+            mmask.data_ptr(), partial.data_ptr(),
+            None if loss_part is None else loss_part.data_ptr(),
+            lam1.data_ptr(), lam2.data_ptr(), loss.data_ptr(), B, L,
+            ROWS_PER_CHUNK, _stream(f1))
     masked_gram_pair.launches += 1
     return loss, lam1, lam2
 
@@ -246,3 +262,49 @@ def nestedlora_evd_loss_kernels(f, Tf, f1, f2, vector_mask, matrix_mask):
     """NestedLoRA EVD loss through K1-K3 (plain versions on the CPU)."""
     return NestedLoRAEVDLossKernels.apply(f, Tf, f1, f2, vector_mask,
                                           matrix_mask)
+
+
+class NestedLoRACDKLossKernels(torch.autograd.Function):
+    """Port of ``nestedlora_cdk_loss_pallas`` (pallas_gram.py:276-326).
+
+    Forward: const padding and batch weights (ops/nestedlora.py), then K1
+    on (f, g) and K2 on (f, g); loss = -2·op/B + metric.  Backward: K3
+    with s = 2/B plus the -2/B·w⊙g and -2/B·w⊙f terms, the constant column
+    stripped.  The density-ratio gram stays a ``torch.matmul``, as it sits
+    outside any kernel in the JAX package, and runs only on request.
+    """
+
+    @staticmethod
+    def forward(ctx, f, g, vector_mask, matrix_mask, batch_weights,
+                set_first_mode_const, return_ratios):
+        f, g = cdk_inputs(f, g, set_first_mode_const, batch_weights)
+        B = f.shape[0]
+        loss_metric, lam_f, lam_g = masked_gram_pair(f, g, matrix_mask)
+        loss_operator = -2.0 * weighted_dot(f, g, vector_mask) / B
+        loss = loss_operator + loss_metric
+        rs = density_ratios(f, g) if return_ratios else (None, None)
+        ctx.save_for_backward(f, g, lam_f, lam_g, vector_mask, matrix_mask)
+        ctx.set_first_mode_const = set_first_mode_const
+        ctx.mark_non_differentiable(loss_operator, loss_metric,
+                                    *(r for r in rs if r is not None))
+        return loss, loss_operator, loss_metric, *rs
+
+    @staticmethod
+    def backward(ctx, gout, *_):
+        f, g, lam_f, lam_g, vector_mask, matrix_mask = ctx.saved_tensors
+        B = f.shape[0]
+        metric_f, metric_g = metric_grads(f, g, lam_f, lam_g, matrix_mask,
+                                          2.0 / B, 2.0 / B)
+        grad_f, grad_g = cdk_backward(f, g, metric_f, metric_g, vector_mask,
+                                      ctx.set_first_mode_const, gout)
+        return grad_f, grad_g, None, None, None, None, None
+
+
+def nestedlora_cdk_loss_kernels(set_first_mode_const, f, g, vector_mask,
+                                matrix_mask, batch_weights=None,
+                                return_ratios: bool = False):
+    """NestedLoRA CDK loss through K1-K3 (plain versions on the CPU); the
+    signature and outputs of ``ops.nestedlora.nestedlora_cdk_loss``."""
+    return NestedLoRACDKLossKernels.apply(f, g, vector_mask, matrix_mask,
+                                          batch_weights, set_first_mode_const,
+                                          return_ratios)

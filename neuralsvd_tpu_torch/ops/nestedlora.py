@@ -1,6 +1,8 @@
-"""NestedLoRA EVD loss with its hand-derived backward (plain PyTorch path).
+"""NestedLoRA EVD and CDK losses with their hand-derived backwards (plain
+PyTorch path).
 
-Port of ``neuralsvd_tpu/ops/nestedlora.py:54-101``.
+Port of ``neuralsvd_tpu/ops/nestedlora.py:54-101`` (EVD) and ``:156-235``
+(CDK, the ``axis_name=None`` case).
 
 IMPORTANT SEMANTICS (do not "fix"): the backward deliberately differs from
 the gradient of the forward scalar.  The operator term's forward is
@@ -9,15 +11,15 @@ the gradient of the forward scalar.  The operator term's forward is
 operator this is the functional gradient, and the operator application
 never enters the backward graph.
 
-The f1/f2 sample groups MUST be statistically independent.  The SVD and
-CDK losses and the data-parallel ``axis_name`` are not ported yet
-(ROADMAP queue 1, items 1 and 14).
+The f1/f2 sample groups MUST be statistically independent.  The SVD loss
+and the data-parallel ``axis_name`` are not ported yet (ROADMAP queue 1,
+items 1 and 14).
 """
 from __future__ import annotations
 
 import torch
 
-from neuralsvd_tpu_torch.ops.gram import compute_loss_metric
+from neuralsvd_tpu_torch.ops.gram import compute_loss_metric, off_diagonal
 
 
 class NestedLoRAEVDLoss(torch.autograd.Function):
@@ -52,3 +54,90 @@ class NestedLoRAEVDLoss(torch.autograd.Function):
 def nestedlora_evd_loss(f, Tf, f1, f2, vector_mask, matrix_mask):
     """NestedLoRA EVD loss (operator term + metric term)."""
     return NestedLoRAEVDLoss.apply(f, Tf, f1, f2, vector_mask, matrix_mask)
+
+
+# ---------------------------------------------------------------------------
+# CDK (canonical dependence kernel, paired samples) loss
+# ---------------------------------------------------------------------------
+
+def cdk_inputs(f, g, set_first_mode_const: bool, batch_weights=None):
+    """The (f, g) the CDK loss sees: a constant-1 zeroth column in front
+    (const mode), then both rows scaled by ``batch_weights`` (B, 1).
+    Both results are contiguous."""
+    if set_first_mode_const:
+        ones = torch.ones((f.shape[0], 1), dtype=f.dtype, device=f.device)
+        f = torch.cat([ones, f], dim=1)
+        g = torch.cat([ones, g], dim=1)
+    if batch_weights is not None:
+        f = f * batch_weights
+        g = g * batch_weights
+    return f.contiguous(), g.contiguous()
+
+
+def density_ratios(f, g):
+    """(rs_joint, rs_indep): diagonal and off-diagonal of the (B, B)
+    density-ratio gram f·gᵀ.  8.6 GFLOP and 67 MB at B = 4096, so it is
+    computed only on request (diagnostics), never in the hot step."""
+    gram = torch.matmul(f, g.T)
+    return torch.diagonal(gram).clone(), off_diagonal(gram)
+
+
+def cdk_backward(f, g, metric_f, metric_g, vector_mask, set_first_mode_const,
+                 gout):
+    """Input gradients from the metric gradients (2/B)·f@(M⊙Λg) and
+    (2/B)·g@(M⊙Λf): add the operator terms -2/B·w⊙g and -2/B·w⊙f and strip
+    the constant column."""
+    B = f.shape[0]
+    grad_f = metric_f + (-2.0 / B) * (vector_mask[None, :] * g)
+    grad_g = metric_g + (-2.0 / B) * (vector_mask[None, :] * f)
+    if set_first_mode_const:
+        grad_f = grad_f[:, 1:]
+        grad_g = grad_g[:, 1:]
+    return gout * grad_f, gout * grad_g
+
+
+class NestedLoRACDKLoss(torch.autograd.Function):
+    """(f, g, vector_mask, matrix_mask, batch_weights, set_first_mode_const,
+    return_ratios) -> (loss, loss_operator, loss_metric, rs_joint, rs_indep).
+
+    Only ``loss`` carries a gradient, as in the reference.  The gradient
+    handed to f and g is the one taken at the padded and weighted (f, g):
+    nothing chains through ``batch_weights`` (the JAX backward gives them
+    zeros).  rs_joint/rs_indep are None unless ``return_ratios``.
+    """
+
+    @staticmethod
+    def forward(ctx, f, g, vector_mask, matrix_mask, batch_weights,
+                set_first_mode_const, return_ratios):
+        f, g = cdk_inputs(f, g, set_first_mode_const, batch_weights)
+        loss_metric, lam_f, lam_g = compute_loss_metric(f, g, matrix_mask)
+        op = torch.einsum("l,bl,bl->b", vector_mask, f, g)
+        loss_operator = -2.0 * op.mean()
+        loss = loss_operator + loss_metric
+        rs = density_ratios(f, g) if return_ratios else (None, None)
+        ctx.save_for_backward(f, g, lam_f, lam_g, vector_mask, matrix_mask)
+        ctx.set_first_mode_const = set_first_mode_const
+        ctx.mark_non_differentiable(loss_operator, loss_metric,
+                                    *(r for r in rs if r is not None))
+        return loss, loss_operator, loss_metric, *rs
+
+    @staticmethod
+    def backward(ctx, gout, *_):
+        f, g, lam_f, lam_g, vector_mask, matrix_mask = ctx.saved_tensors
+        B = f.shape[0]
+        metric_f = (2.0 / B) * torch.einsum("il,il,bi->bl", matrix_mask, lam_g, f)
+        metric_g = (2.0 / B) * torch.einsum("il,il,bi->bl", matrix_mask, lam_f, g)
+        grad_f, grad_g = cdk_backward(f, g, metric_f, metric_g, vector_mask,
+                                      ctx.set_first_mode_const, gout)
+        return grad_f, grad_g, None, None, None, None, None
+
+
+def nestedlora_cdk_loss(set_first_mode_const, f, g, vector_mask, matrix_mask,
+                        batch_weights=None, return_ratios: bool = False):
+    """NestedLoRA loss for the canonical dependence kernel p(x,y)/p(x)p(y)
+    from paired samples: -2·E[fᵀ(M)g] operator term plus the masked metric
+    term of the two marginal grams.  ``vector_mask``/``matrix_mask`` have
+    L+1 entries in const mode."""
+    return NestedLoRACDKLoss.apply(f, g, vector_mask, matrix_mask,
+                                   batch_weights, set_first_mode_const,
+                                   return_ratios)

@@ -1,17 +1,24 @@
-"""RMSprop with the update order of ``torch.optim.RMSprop``, written out.
+"""Optimizers and schedules, written out as functional ``init``/``update``.
 
-Port of ``neuralsvd_tpu/training/optimizers.py:26-50`` (``torch_rmsprop``):
+Port of ``neuralsvd_tpu/training/optimizers.py``: ``torch_rmsprop``
+(:26-50), ``warmup_cosine_schedule`` (:70-82) and ``build_optimizer``
+(:198-245) for "rmsprop", "adam" and "sgd".  RMSprop has the update order
+of ``torch.optim.RMSprop``:
     v <- alpha*v + (1-alpha)*g²;  update = -lr · g / (sqrt(v) + eps)
-(eps outside the sqrt), with optional momentum.  It is written out as a
-functional ``init``/``update`` pair, like the optax transformation it
-ports, so the train step can keep the old state where a step is skipped
-without a host sync (training/train_operator.py); it computes what
-``torch.optim.RMSprop(lr, alpha, eps, momentum)`` computes.  The other
-optimizers and schedules are not ported yet (ROADMAP queue 1, item 8).
+(eps outside the sqrt), with optional momentum.  "sgd" is optax's chain
+``add_decayed_weights`` -> ``trace`` -> -lr·schedule(count); "adam" is
+``scale_by_adam`` (eps 1e-7) -> -lr·schedule(count).
+
+Every update is written out over dicts of tensors, like the optax
+transformations it ports, so a train step can keep the old state where a
+step is skipped without a host sync (``select_state``): schedule counts
+are device tensors and are kept too, as the JAX step keeps every array
+leaf of its optimizer state.  Not ported yet (ROADMAP queue 1, item 8):
+"adamw", "lars", ``cosine_annealing``, ``reject_spikes``, ``per_mode_lr``.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
@@ -51,3 +58,147 @@ def torch_rmsprop(learning_rate: float, alpha: float = 0.999,
         return updates, TorchRMSpropState(nu=nu, momentum=buf)
 
     return TorchRMSprop(init, update)
+
+
+class Optimizer(NamedTuple):
+    init: Callable    # params -> state
+    update: Callable  # (grads, state, params) -> (updates, state)
+
+
+def warmup_cosine_schedule(base_lr: float, warmup_lr: float, final_lr: float,
+                           warmup_steps: int, total_steps: int):
+    """Linear warmup then cosine decay; ``step`` is a device tensor and the
+    result a float32 tensor beside it (no host sync)."""
+
+    def schedule(step):
+        step = torch.as_tensor(step).to(torch.float32)
+        warm = warmup_lr + (base_lr - warmup_lr) * step / max(warmup_steps, 1)
+        decay_steps = max(total_steps - warmup_steps, 1)
+        t = (step - warmup_steps) / decay_steps
+        cos = final_lr + 0.5 * (base_lr - final_lr) * (1 + torch.cos(torch.pi * t))
+        return torch.where(step < warmup_steps, warm, cos)
+
+    return schedule
+
+
+def _count(params):
+    device = next(iter(params.values())).device
+    return torch.zeros((), dtype=torch.int32, device=device)
+
+
+def _chain(*parts: Optimizer) -> Optimizer:
+    def init(params):
+        return tuple(p.init(params) for p in parts)
+
+    def update(grads, state, params=None):
+        new_state = []
+        for part, sub in zip(parts, state):
+            grads, sub = part.update(grads, sub, params)
+            new_state.append(sub)
+        return grads, tuple(new_state)
+
+    return Optimizer(init, update)
+
+
+def _add_decayed_weights(weight_decay: float) -> Optimizer:
+    return Optimizer(
+        lambda params: (),
+        lambda grads, state, params: (
+            {k: g + weight_decay * params[k] for k, g in grads.items()}, state))
+
+
+def _trace(decay: float) -> Optimizer:
+    def init(params):
+        return {k: torch.zeros_like(p) for k, p in params.items()}
+
+    def update(grads, state, params=None):
+        new = {k: g + decay * state[k] for k, g in grads.items()}
+        return new, new
+
+    return Optimizer(init, update)
+
+
+def _scale_by_adam(b1: float = 0.9, b2: float = 0.999,
+                   eps: float = 1e-7) -> Optimizer:
+    def init(params):
+        return {"count": _count(params),
+                "mu": {k: torch.zeros_like(p) for k, p in params.items()},
+                "nu": {k: torch.zeros_like(p) for k, p in params.items()}}
+
+    def update(grads, state, params=None):
+        mu = {k: (1 - b1) * g + b1 * state["mu"][k] for k, g in grads.items()}
+        nu = {k: (1 - b2) * (g * g) + b2 * state["nu"][k]
+              for k, g in grads.items()}
+        count = state["count"] + 1
+        c = count.to(torch.float32)
+        mu_fix = 1 - torch.pow(b1, c)
+        nu_fix = 1 - torch.pow(b2, c)
+        updates = {k: (mu[k] / mu_fix) / (torch.sqrt(nu[k] / nu_fix) + eps)
+                   for k in grads}
+        return updates, {"count": count, "mu": mu, "nu": nu}
+
+    return Optimizer(init, update)
+
+
+def _scale_by_lr(learning_rate) -> Optimizer:
+    """-lr·u, with lr a constant or ``schedule(count)`` (count a device
+    tensor incremented after use, as optax's ``scale_by_schedule``)."""
+    if not callable(learning_rate):
+        return Optimizer(
+            lambda params: (),
+            lambda grads, state, params: (
+                {k: -learning_rate * g for k, g in grads.items()}, state))
+
+    def init(params):
+        return {"count": _count(params)}
+
+    def update(grads, state, params=None):
+        step_size = -learning_rate(state["count"])
+        return ({k: step_size * g for k, g in grads.items()},
+                {"count": state["count"] + 1})
+
+    return Optimizer(init, update)
+
+
+def build_optimizer(name: str, learning_rate: float, momentum: float = 0.0,
+                    weight_decay: float = 0.0, rmsprop_decay: float = 0.999,
+                    adam_eps: float = 1e-7,
+                    lr_schedule: Optional[Callable] = None) -> Optimizer:
+    """"sgd", "adam" or "rmsprop"; ``lr_schedule(count)`` replaces the
+    constant ``learning_rate`` where given."""
+    lr = lr_schedule if lr_schedule is not None else learning_rate
+    if name == "rmsprop":
+        rms = torch_rmsprop(1.0 if callable(lr) else lr, alpha=rmsprop_decay,
+                            eps=1e-10, momentum=momentum)
+        core = Optimizer(rms.init,
+                         lambda grads, state, params=None: rms.update(grads, state))
+        if not callable(lr):
+            return core
+        # torch_rmsprop(1.0) gives -u; scale it by +lr(count)
+        return _chain(core, _scale_by_lr(lambda c: -lr(c)))
+    if name == "adam":
+        return _chain(_scale_by_adam(eps=adam_eps), _scale_by_lr(lr))
+    if name == "sgd":
+        parts = []
+        if weight_decay:
+            parts.append(_add_decayed_weights(weight_decay))
+        if momentum:
+            parts.append(_trace(momentum))
+        parts.append(_scale_by_lr(lr))
+        return _chain(*parts)
+    raise NotImplementedError(
+        f"optimizer {name!r} is not ported yet (ROADMAP queue 1, item 8)")
+
+
+def select_state(keep_new, new, old):
+    """``new`` where ``keep_new`` (a device bool) else ``old``, for every
+    tensor of an optimizer state built from tuples, NamedTuples and dicts;
+    non-tensor leaves come from ``new``."""
+    if isinstance(new, torch.Tensor):
+        return torch.where(keep_new, new, old)
+    if isinstance(new, dict):
+        return {k: select_state(keep_new, v, old[k]) for k, v in new.items()}
+    if isinstance(new, tuple):
+        items = (select_state(keep_new, n, o) for n, o in zip(new, old))
+        return type(new)(*items) if hasattr(new, "_fields") else tuple(items)
+    return new

@@ -19,6 +19,7 @@ from typing import Callable, Optional
 
 import torch
 
+from neuralsvd_tpu_torch.training.optimizers import select_state
 from neuralsvd_tpu_torch.training.train_state import TrainState, ema_update
 
 
@@ -53,7 +54,7 @@ def make_train_step(method, operator, optimizer, sampler: Callable,
             updates, opt_state = optimizer.update(grads, ts.opt_state)
             for k, p in ts.params.items():
                 p.copy_(torch.where(finite, p + updates[k], p))
-            opt_state = _select(finite, opt_state, ts.opt_state)
+            opt_state = select_state(finite, opt_state, ts.opt_state)
             ts.ema_params = ema_update(ts.ema_params, ts.params, ema_decay,
                                        step=ts.step)
         ts.opt_state = opt_state
@@ -65,12 +66,3 @@ def make_train_step(method, operator, optimizer, sampler: Callable,
 
     return step
 
-
-def _select(finite, new, old):
-    """Keep ``old`` where the step is skipped, for every tensor of an
-    optimizer state built from NamedTuples and dicts of tensors."""
-    if isinstance(new, torch.Tensor):
-        return torch.where(finite, new, old)
-    if isinstance(new, dict):
-        return {k: _select(finite, v, old[k]) for k, v in new.items()}
-    return type(new)(*(_select(finite, n, o) for n, o in zip(new, old)))

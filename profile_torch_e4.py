@@ -1,8 +1,11 @@
-"""Time and profile the port's E4 train step on one GPU.
+"""Time and profile the port on one GPU: a train step, or the gram kernels.
 
-    python3 profile_torch_e4.py [--steps 100] [--profile-steps 10] [--out FILE]
+    python3 profile_torch_e4.py [--path e4|cdk] [--steps N] [--profile-steps 10] [--out FILE]
+    python3 profile_torch_e4.py --path kernels [--out FILE]
 
-Builds the E4 configuration exactly as chip_smoke.py does (full width) and
+``--path e4`` builds the E4 configuration and ``--path cdk`` the CDK
+two-tower configuration (Sketchy paper width, synthetic features), each
+exactly as chip_smoke.py does (full width), and
 
 1. times the train step with the loss on the plain path and on the
    hand-written kernels, in turns (plain, kernels, kernels, plain), each
@@ -11,6 +14,12 @@ Builds the E4 configuration exactly as chip_smoke.py does (full width) and
    reports the device's busy share (kernel time over wall time), device
    time and launches per step, K1-K3's device time per call, and the
    kernels that take the most device time.
+
+``--path kernels`` calls K1-K3 on random pairs f, g of the CDK path's
+shape (4096 x 513), checks each against its plain version, and reports
+the device time of every CUDA kernel each wrapper launches (K1 launches
+two or three passes, K2 one or two), per call, over KERNEL_CALLS calls
+under torch.profiler.
 
 Prints one JSON line; --out also writes the profiler's table.  Needs a GPU.
 """
@@ -23,40 +32,72 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-import chip_smoke as e4
+import chip_smoke as smoke
+from neuralsvd_tpu_torch.cli.sketchy import make_trainer
 from neuralsvd_tpu_torch.methods.nestedlora import NestedLoRA
+from neuralsvd_tpu_torch.ops import cuda_gram
+from neuralsvd_tpu_torch.ops.masks import joint_nesting_masks, step_weights
 from neuralsvd_tpu_torch.training.optimizers import torch_rmsprop
 from neuralsvd_tpu_torch.training.train_operator import make_train_step
 from neuralsvd_tpu_torch.training.train_state import init_train_state
 
-OUR_KERNELS = ("masked_gram_partial_kernel", "masked_gram_finish_kernel",
+OUR_KERNELS = ("masked_gram_partial_kernel", "masked_gram_reduce_kernel",
                "weighted_dot_partial_kernel", "sum_partials_kernel",
                "metric_grads_kernel")
+WARMUP = 10
+# the CDK path's f, g: (B, L + the constant mode), as chip_smoke's "cdk" shape
+KERNEL_B, KERNEL_L = smoke.CDK_B, smoke.CDK_L + 1
+KERNEL_CALLS = 20
 
 
-def build(use_pallas):
-    model, operator, _, sampler, importance = e4._e4_setup("cuda")
-    method = NestedLoRA(model, neigs=e4.NEIGS, sequential=True,
+def e4_runner(use_pallas):
+    """advance(n): n E4 train steps; returns the last loss."""
+    model, operator, _, sampler, importance = smoke._e4_setup("cuda")
+    method = NestedLoRA(model, neigs=smoke.NEIGS, sequential=True,
                         use_pallas=use_pallas)
-    optimizer = torch_rmsprop(e4.LR, alpha=e4.ALPHA)
-    ts = init_train_state(model, optimizer, method)
+    optimizer = torch_rmsprop(smoke.LR, alpha=smoke.ALPHA)
+    state = {"ts": init_train_state(model, optimizer, method)}
     step = make_train_step(method, operator, optimizer, sampler,
-                           importance=importance, ema_decay=e4.EMA_DECAY)
-    return ts, step, torch.Generator(device="cuda").manual_seed(e4.SEED)
+                           importance=importance, ema_decay=smoke.EMA_DECAY)
+    gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
+
+    def advance(n):
+        for _ in range(n):
+            state["ts"], metrics = step(state["ts"], gen)
+        return metrics["loss"]
+
+    return advance
 
 
-def steps_per_s(ts, step, gen, n, warmup=10):
-    for _ in range(warmup):
-        ts, _ = step(ts, gen)
+def cdk_runner(use_pallas, batches):
+    """advance(n): n CDK train steps cycling over device batches."""
+    args = smoke._cdk_args("")
+    args.use_pallas = use_pallas
+    tr = make_trainer(args, smoke.CDK_DIM, smoke.CDK_STEPS)
+    state = {"params": tr.params, "opt": tr.opt_state, "i": 0,
+             "skips": torch.zeros((), dtype=torch.int32, device="cuda")}
+
+    def advance(n):
+        for _ in range(n):
+            x, y = batches[state["i"] % len(batches)]
+            state["i"] += 1
+            state["params"], state["opt"], _, loss, _, state["skips"] = tr.step(
+                state["params"], state["opt"], {}, x, y, state["skips"])
+        return loss
+
+    return advance
+
+
+def steps_per_s(advance, n):
+    advance(WARMUP)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(n):
-        ts, metrics = step(ts, gen)
+    loss = advance(n)
     torch.cuda.synchronize()
     rate = n / (time.perf_counter() - t0)
-    if not torch.isfinite(metrics["loss"]):
+    if not torch.isfinite(loss):
         raise RuntimeError("non-finite loss")
-    return ts, rate
+    return rate
 
 
 def _device_us(evt):
@@ -66,41 +107,44 @@ def _device_us(evt):
     raise RuntimeError("profiler event without device time")
 
 
-def main():
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--steps", type=int, default=100)
-    ap.add_argument("--profile-steps", type=int, default=10)
-    ap.add_argument("--out", default=None)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: this script needs a GPU")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-
-    runs = {"plain": build(False), "kernels": build("auto")}
-    rates = {"plain": [], "kernels": []}
-    for name in ("plain", "kernels", "kernels", "plain"):
-        ts, step, gen = runs[name]
-        ts, rate = steps_per_s(ts, step, gen, args.steps)
-        runs[name] = (ts, step, gen)
-        rates[name].append(rate)
-
-    ts, step, gen = runs["kernels"]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(args.profile_steps):
-            ts, _ = step(ts, gen)
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
+def _cuda_events(prof):
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
         raise RuntimeError("the profiler recorded no CUDA kernel")
+    return kernels
+
+
+def _write_table(path, smi, prof, kernels):
+    sort_by = ("self_device_time_total"
+               if hasattr(kernels[0], "self_device_time_total")
+               else "self_cuda_time_total")
+    with open(path, "w") as fh:
+        fh.write(smi + "\n")
+        fh.write(prof.key_averages().table(sort_by=sort_by, row_limit=60))
+
+
+def profile_train(args, smi):
+    if args.path == "e4":
+        runs = {"plain": e4_runner(False), "kernels": e4_runner("auto")}
+    else:
+        train, _, _ = smoke._cdk_data()
+        batches = [tuple(torch.as_tensor(a, device="cuda") for a in b[:2])
+                   for _, b in zip(range(4), train)]
+        runs = {"plain": cdk_runner("false", batches),
+                "kernels": cdk_runner("auto", batches)}
+    rates = {"plain": [], "kernels": []}
+    for name in ("plain", "kernels", "kernels", "plain"):
+        rates[name].append(steps_per_s(runs[name], args.steps))
+
+    advance = runs["kernels"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        advance(args.profile_steps)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    kernels = _cuda_events(prof)
     device_us = sum(_device_us(e) for e in kernels)
     n_launch = sum(e.count for e in kernels)
     per = args.profile_steps
@@ -113,7 +157,7 @@ def main():
                                               if count else None)}
     top = sorted(kernels, key=_device_us, reverse=True)[:12]
     row = {
-        "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+        "path": args.path, "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
         "steps": args.steps, "steps_per_s": rates,
         "steps_per_s_median": {k: statistics.median(v) for k, v in rates.items()},
         "profiled_steps": per,
@@ -128,12 +172,72 @@ def main():
     }
     print(json.dumps(row), flush=True)
     if args.out:
-        sort_by = ("self_device_time_total"
-                   if hasattr(kernels[0], "self_device_time_total")
-                   else "self_cuda_time_total")
-        with open(args.out, "w") as fh:
-            fh.write(smi + "\n")
-            fh.write(prof.key_averages().table(sort_by=sort_by, row_limit=60))
+        _write_table(args.out, smi, prof, kernels)
+
+
+def profile_kernels(args, smi):
+    B, L = KERNEL_B, KERNEL_L
+    gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
+    f = torch.randn(B, L, generator=gen, device="cuda")
+    g = torch.randn(B, L, generator=gen, device="cuda")
+    vmask, mmask = (torch.as_tensor(m, device="cuda") for m in
+                    joint_nesting_masks(step_weights(L - 1), set_first_mode_const=True))
+    s = 2.0 / B
+    lam_f = f.T @ f / B
+    lam_g = g.T @ g / B
+    wrappers = {
+        "masked_gram_pair": (lambda: cuda_gram.masked_gram_pair(f, g, mmask),
+                             lambda: cuda_gram.masked_gram_pair_ref(f, g, mmask)),
+        "weighted_dot": (lambda: cuda_gram.weighted_dot(f, g, vmask),
+                         lambda: cuda_gram.weighted_dot_ref(f, g, vmask)),
+        "metric_grads": (lambda: cuda_gram.metric_grads(f, g, lam_f, lam_g, mmask, s, s),
+                         lambda: cuda_gram.metric_grads_ref(f, g, lam_f, lam_g, mmask, s, s)),
+    }
+    rows = {}
+    for name, (run, plain) in wrappers.items():
+        got, want = run(), plain()
+        got, want = (x if isinstance(x, tuple) else (x,) for x in (got, want))
+        rel = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(got, want))
+        for _ in range(3):
+            run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(KERNEL_CALLS):
+                run()
+            torch.cuda.synchronize()
+        kernels = _cuda_events(prof)
+        rows[name] = {
+            "rel_err_of_max": rel,
+            "device_us_per_call": sum(_device_us(e) for e in kernels) / KERNEL_CALLS,
+            "kernels": [{"name": e.key[:80], "launches_per_call": e.count / KERNEL_CALLS,
+                         "device_us_per_launch": _device_us(e) / e.count}
+                        for e in kernels]}
+        if args.out:
+            _write_table(f"{args.out}.{name}", smi, prof, kernels)
+    print(json.dumps({"path": "kernels", "device": torch.cuda.get_device_name(0),
+                      "nvidia_smi": smi, "B": B, "L": L, "calls": KERNEL_CALLS,
+                      "wrappers": rows}), flush=True)
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--path", choices=("e4", "cdk", "kernels"), default="e4")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--profile-steps", type=int, default=10)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: this script needs a GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    if args.path == "kernels":
+        profile_kernels(args, smi)
+    else:
+        profile_train(args, smi)
 
 
 if __name__ == "__main__":

@@ -10,6 +10,8 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "neuralsvd_tpu_torch"
 BLOCKED = ("jax", "jaxlib", "optax", "flax", "orbax")
+# the card's machine has no matplotlib: no module of the port may need it
+ABSENT = BLOCKED + ("matplotlib",)
 
 
 def _port_sources():
@@ -23,11 +25,12 @@ def _module_names():
 
 
 def test_port_imports_with_jax_blocked():
-    """Every port module, chip_smoke and profile_torch_e4 import in a
-    process where the JAX stack cannot be imported at all."""
+    """Every port module (the CDK trainer included), chip_smoke and
+    profile_torch_e4 import in a process where the JAX stack and
+    matplotlib cannot be imported at all."""
     code = "\n".join([
         "import importlib, importlib.util, sys",
-        f"for m in {BLOCKED!r}:",
+        f"for m in {ABSENT!r}:",
         "    sys.modules[m] = None",
         f"for name in {_module_names()!r}:",
         "    importlib.import_module(name)",
@@ -35,7 +38,7 @@ def test_port_imports_with_jax_blocked():
         "importlib.import_module('chip_smoke')",
         "importlib.import_module('profile_torch_e4')",
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        f"{BLOCKED + ('neuralsvd_tpu',)!r} and sys.modules[m] is not None)",
+        f"{ABSENT + ('neuralsvd_tpu',)!r} and sys.modules[m] is not None)",
         "assert not bad, bad",
         "print('ok')",
     ])
@@ -74,6 +77,28 @@ def test_entry_points_raise_without_cuda():
         get_sampler("gaussian", 8, 1, 2, 1.0)
     with pytest.raises(RuntimeError, match="CUDA"):
         compute_spectrum_evd(lambda x: x, [], None)
+
+
+def test_cdk_entry_points_raise_without_cuda():
+    """The CDK trainer, retrieval and spectrum default to the GPU too."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    import numpy as np
+
+    from neuralsvd_tpu_torch.cli.sketchy import get_args, make_trainer
+    from neuralsvd_tpu_torch.data.sketchy import ArrayPairLoader
+    from neuralsvd_tpu_torch.eval.retrieval import Retrieval, top_k_retrievals
+    from neuralsvd_tpu_torch.methods.spectrum import compute_spectrum_svd
+
+    z = np.zeros((4, 2), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_trainer(get_args(["--network_dims", "4,2", "--neigs", "2"]), 3, 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Retrieval(ArrayPairLoader(z, z, np.arange(4), batch_size=2))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        top_k_retrievals(z, z, K=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        compute_spectrum_svd(lambda x, y: (x, y), [])
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
