@@ -9,9 +9,11 @@ seconds:
 
 1. device     the GPU's name and nvidia-smi's name/power-limit line;
 2. build      the hand-written kernels, one nvcc call into an emptied
-              neuralsvd_tpu_torch/csrc/build/;
-3. kernels    each kernel against its plain PyTorch version at four shapes
-              (E4, two odd ones, and the CDK path's 4096 x 513 pair), and
+              neuralsvd_tpu_torch/csrc/build/, and each kernel's registers,
+              shared memory and spills from ptxas (no spill allowed);
+3. kernels    each kernel against its plain PyTorch version at five shapes
+              (E4, two odd ones, 1000 x 129 halves one column past K1's
+              64-wide tiles, and the CDK path's 4096 x 513 pair), and
               CUDA-event timings of kernel, plain version and library call;
 4. trainer    the hydrogen-2D E4 configuration at full width (L = 16,
               B = 512, per-mode 128³ softplus towers, 1024 Fourier maps +
@@ -104,7 +106,7 @@ CDK_TOWER_RTOL = 1e-4  # GPU vs CPU towers: f32 products of depth 8192
 # full batches (B, L); K1/K3 see the two halves (B/2, L), K2 the whole on
 # the EVD path and the two halves (f, g) on the CDK path
 KERNEL_SHAPES = [("E4", BATCH, NEIGS), ("unaligned", 96, 5), ("wide", 2048, 64),
-                 ("cdk", 2 * CDK_B, CDK_L + 1)]
+                 ("edge", 2000, 129), ("cdk", 2 * CDK_B, CDK_L + 1)]
 KERNEL_RTOL = 1e-5   # of the plain version on |inputs|: f32 rounding scale
 LOSS_RTOL = 1e-5     # kernel vs plain loss on one batch
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6  # atol in units of the largest entry
@@ -115,6 +117,10 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 
 KERNEL_SOURCE = "neuralsvd_tpu_torch/csrc/gram_kernels.cu"
+# the kernels of csrc/gram_kernels.cu, as ptxas names them (mangled)
+CUDA_KERNELS = ("masked_gram_syrk_kernel", "masked_gram_finish_kernel",
+                "weighted_dot_partial_kernel", "sum_partials_kernel",
+                "metric_grads_kernel")
 REPLACES = {
     "masked_gram_pair": "neuralsvd_tpu/ops/pallas_gram.py:64",
     "weighted_dot": "neuralsvd_tpu/ops/pallas_gram.py:137",
@@ -176,6 +182,31 @@ def phase_device():
     return name, smi
 
 
+def ptxas_report(log_lines):
+    """Registers, shared memory and spills of each kernel entry in nvcc's
+    -Xptxas -v output; a template's copy width is kept as <1> or <4>."""
+    report, current = [], None
+    for ln in log_lines:
+        if "Compiling entry function" in ln:
+            mangled = ln.split("'")[1]
+            short = next((k for k in CUDA_KERNELS if k in mangled), mangled)
+            for vec in ("1", "4"):
+                if f"ILi{vec}E" in mangled:
+                    short += f"<{vec}>"
+            current = {"kernel": short}
+            report.append(current)
+        elif current is not None and "spill stores" in ln:
+            words = ln.replace(",", " ").split()
+            current["spill_stores"] = int(words[words.index("spill") - 2])
+            current["spill_loads"] = int(words[-4])
+        elif current is not None and "Used" in ln and "registers" in ln:
+            words = ln.replace(",", " ").split()
+            current["registers"] = int(words[words.index("registers") - 1])
+            current["smem_bytes"] = (int(words[words.index("smem") - 2])
+                                     if "smem" in words else 0)
+    return report
+
+
 def phase_build():
     shutil.rmtree(cuda_build.BUILD_DIR, ignore_errors=True)
     t0 = time.perf_counter()
@@ -183,16 +214,21 @@ def phase_build():
     seconds = time.perf_counter() - t0
     cuda_build.load_library()
     log = lib.with_name(lib.name + ".log").read_text().splitlines()
-    ptxas = [ln.strip() for ln in log if "registers" in ln or "Compiling entry" in ln]
+    report = ptxas_report(log)
+    for name in CUDA_KERNELS:
+        check(any(r["kernel"].startswith(name) for r in report),
+              f"ptxas reported no entry for {name}")
+    spills = [r for r in report if r.get("spill_stores") or r.get("spill_loads")]
+    check(not spills, f"kernels spill registers: {spills}")
     emit("build", seconds=round(seconds, 3), library=lib.name, nvcc_calls=1,
-         ptxas=ptxas)
+         ptxas=report)
 
 
 def _kernel_inputs(label, B, L, gen):
     dev = DEVICE
     f = torch.randn(B, L, generator=gen, device=dev)
     Tf = torch.randn(B, L, generator=gen, device=dev)
-    if label == "E4":
+    if label in ("E4", "edge"):
         vmask, mmask = sequential_nesting_masks(L)
     elif label == "cdk":
         vmask, mmask = joint_nesting_masks(step_weights(L - 1), set_first_mode_const=True)
@@ -214,17 +250,18 @@ def phase_kernels():
         dot_a, dot_b = (f1, f2) if label == "cdk" else (f, Tf)
         Bd = dot_a.shape[0]
         s = 2.0 / Bh
-        lam1 = torch.einsum("bl,bm->lm", f1, f1) / Bh
-        lam2 = torch.einsum("bl,bm->lm", f2, f2) / Bh
+        mlam1 = mmask * torch.einsum("bl,bm->lm", f1, f1) / Bh
+        mlam2 = mmask * torch.einsum("bl,bm->lm", f2, f2) / Bh
         cases = {
             "masked_gram_pair": dict(
                 run=lambda: cuda_gram.masked_gram_pair(f1, f2, mmask),
                 plain=lambda: cuda_gram.masked_gram_pair_ref(f1, f2, mmask),
                 scale=lambda: cuda_gram.masked_gram_pair_ref(f1.abs(), f2.abs(), mmask),
                 library=None,
-                nbytes=4 * (2 * Bh * L + L * L + 1 + 2 * L * L),
-                # Λ1, Λ2 and M are symmetric: each gram needs only its
-                # L(L+1)/2 distinct entries (a SYRK), 2·Bh flops each
+                # reads f1, f2, M; writes the loss, Λ1, Λ2, M⊙Λ1, M⊙Λ2
+                nbytes=4 * (2 * Bh * L + L * L + 1 + 4 * L * L),
+                # Λ1, Λ2 are symmetric: each gram needs only its L(L+1)/2
+                # distinct entries (a SYRK), 2·Bh flops each
                 flops=2 * Bh * L * (L + 1) + 3 * L * L),
             "weighted_dot": dict(
                 run=lambda: cuda_gram.weighted_dot(dot_a, dot_b, vmask),
@@ -234,13 +271,14 @@ def phase_kernels():
                 nbytes=4 * (2 * Bd * L + L + 1),
                 flops=3 * Bd * L),
             "metric_grads": dict(
-                run=lambda: cuda_gram.metric_grads(f1, f2, lam1, lam2, mmask, s, s),
-                plain=lambda: cuda_gram.metric_grads_ref(f1, f2, lam1, lam2, mmask, s, s),
+                run=lambda: cuda_gram.metric_grads(f1, f2, mlam1, mlam2, s, s),
+                plain=lambda: cuda_gram.metric_grads_ref(f1, f2, mlam1, mlam2, s, s),
                 scale=lambda: cuda_gram.metric_grads_ref(
-                    f1.abs(), f2.abs(), lam1.abs(), lam2.abs(), mmask, s, s),
+                    f1.abs(), f2.abs(), mlam1.abs(), mlam2.abs(), s, s),
                 library=None,
-                nbytes=4 * (2 * Bh * L + 3 * L * L + 2 * Bh * L),
-                flops=2 * 2 * Bh * L * L + 2 * 2 * L * L),
+                # reads f1, f2, M⊙Λ1, M⊙Λ2; writes g1, g2
+                nbytes=4 * (2 * Bh * L + 2 * L * L + 2 * Bh * L),
+                flops=2 * 2 * Bh * L * L + 2 * Bh * L),
         }
         for name, c in cases.items():
             got = c["run"]()

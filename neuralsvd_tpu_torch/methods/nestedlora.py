@@ -13,7 +13,11 @@ through the plain path; True always takes the kernel packaging (whose
 wrappers use their plain versions on the CPU); False always takes the
 plain path.  (B, L, O) outputs always
 take the plain path.  The JAX package's "auto" -> False was a TPU
-measurement and is not inherited.
+measurement and is not inherited: on an NVIDIA H100 80GB HBM3 (700 W), the
+CDK step at the Sketchy width ran 104.3-104.5 steps/s through the kernels
+against 103.4-103.6 through the plain path, in turns in one process
+(profile_torch_e4.py --path cdk), and the E4 step is host bound either
+way.
 
 Not ported yet (ROADMAP queue 1, item 7): the kernel-operator path
 (``loss_and_grad_kernel``) and the data-parallel ``axis_name``.

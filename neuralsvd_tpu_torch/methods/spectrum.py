@@ -88,17 +88,22 @@ def compute_spectrum_evd(
     quad = (quad / n).cpu().numpy()
     outputs = {"eigfuncs": np.concatenate(eigfuncs, axis=0), "cov": cov,
                "quad": quad}
+    # eigfuncs hold the L learned modes only; with set_first_mode_const the
+    # matrices hold the constant mode first (L + 1).  The JAX package
+    # normalises and sorts eigfuncs by all L + 1 modes and raises there
+    # (ROADMAP §3); here eigfuncs take the non-constant modes' norms and order.
+    first = 1 if set_first_mode_const else 0
     with np.errstate(divide="ignore", invalid="ignore"):
         outputs["eigvals"] = eigvals = np.diag(quad) / np.diag(cov)
         outputs["norms"] = norms = np.diag(cov)
         if normalize:
             sn = np.sqrt(np.maximum(norms, 1e-300))[:, None]
             outputs["cov"] = cov / (sn @ sn.T)
-            outputs["eigfuncs"] = outputs["eigfuncs"] / sn.T
+            outputs["eigfuncs"] = outputs["eigfuncs"] / sn[first:].T
     if sort:
         idx = np.argsort(eigvals)[::-1]
         outputs["eigvals"] = outputs["eigvals"][idx]
-        outputs["eigfuncs"] = outputs["eigfuncs"][:, idx]
+        outputs["eigfuncs"] = outputs["eigfuncs"][:, np.argsort(eigvals[first:])[::-1]]
         outputs["cov"] = outputs["cov"][np.ix_(idx, idx)]
         outputs["quad"] = outputs["quad"][np.ix_(idx, idx)]
         outputs["norms"] = outputs["norms"][idx]

@@ -15,11 +15,13 @@ exactly as chip_smoke.py does (full width), and
    time and launches per step, K1-K3's device time per call, and the
    kernels that take the most device time.
 
-``--path kernels`` calls K1-K3 on random pairs f, g of the CDK path's
-shape (4096 x 513), checks each against its plain version, and reports
-the device time of every CUDA kernel each wrapper launches (K1 launches
-two or three passes, K2 one or two), per call, over KERNEL_CALLS calls
-under torch.profiler.
+``--path kernels`` calls K1-K3 at the E4, edge and CDK shapes of
+chip_smoke.py (half-batches 256 x 16, 1000 x 129 and the CDK pair f, g of
+4096 x 513) and at the CDK pair one column narrower (4096 x 512, whose
+rows take 16-byte copies where 513's take 4-byte ones), checks each
+against its plain version, and reports the device time of every CUDA
+kernel each wrapper launches (K1 launches two or three passes, K2 one or
+two), per call, over KERNEL_CALLS calls under torch.profiler.
 
 Prints one JSON line; --out also writes the profiler's table.  Needs a GPU.
 """
@@ -36,17 +38,16 @@ import chip_smoke as smoke
 from neuralsvd_tpu_torch.cli.sketchy import make_trainer
 from neuralsvd_tpu_torch.methods.nestedlora import NestedLoRA
 from neuralsvd_tpu_torch.ops import cuda_gram
-from neuralsvd_tpu_torch.ops.masks import joint_nesting_masks, step_weights
 from neuralsvd_tpu_torch.training.optimizers import torch_rmsprop
 from neuralsvd_tpu_torch.training.train_operator import make_train_step
 from neuralsvd_tpu_torch.training.train_state import init_train_state
 
-OUR_KERNELS = ("masked_gram_partial_kernel", "masked_gram_reduce_kernel",
-               "weighted_dot_partial_kernel", "sum_partials_kernel",
-               "metric_grads_kernel")
+OUR_KERNELS = smoke.CUDA_KERNELS
 WARMUP = 10
-# the CDK path's f, g: (B, L + the constant mode), as chip_smoke's "cdk" shape
-KERNEL_B, KERNEL_L = smoke.CDK_B, smoke.CDK_L + 1
+# (label, full batch, L): chip_smoke's E4, edge and CDK shapes, and the CDK
+# shape one column narrower
+KERNEL_SHAPES = [s for s in smoke.KERNEL_SHAPES if s[0] in ("E4", "edge", "cdk")]
+KERNEL_SHAPES.append(("cdk512", 2 * smoke.CDK_B, smoke.CDK_L))
 KERNEL_CALLS = 20
 
 
@@ -176,47 +177,48 @@ def profile_train(args, smi):
 
 
 def profile_kernels(args, smi):
-    B, L = KERNEL_B, KERNEL_L
     gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
-    f = torch.randn(B, L, generator=gen, device="cuda")
-    g = torch.randn(B, L, generator=gen, device="cuda")
-    vmask, mmask = (torch.as_tensor(m, device="cuda") for m in
-                    joint_nesting_masks(step_weights(L - 1), set_first_mode_const=True))
-    s = 2.0 / B
-    lam_f = f.T @ f / B
-    lam_g = g.T @ g / B
-    wrappers = {
-        "masked_gram_pair": (lambda: cuda_gram.masked_gram_pair(f, g, mmask),
-                             lambda: cuda_gram.masked_gram_pair_ref(f, g, mmask)),
-        "weighted_dot": (lambda: cuda_gram.weighted_dot(f, g, vmask),
-                         lambda: cuda_gram.weighted_dot_ref(f, g, vmask)),
-        "metric_grads": (lambda: cuda_gram.metric_grads(f, g, lam_f, lam_g, mmask, s, s),
-                         lambda: cuda_gram.metric_grads_ref(f, g, lam_f, lam_g, mmask, s, s)),
-    }
-    rows = {}
-    for name, (run, plain) in wrappers.items():
-        got, want = run(), plain()
-        got, want = (x if isinstance(x, tuple) else (x,) for x in (got, want))
-        rel = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(got, want))
-        for _ in range(3):
-            run()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(KERNEL_CALLS):
+    shapes = {}
+    for label, B, L in KERNEL_SHAPES:
+        f, Tf, f1, f2, vmask, mmask = smoke._kernel_inputs(label, B, L, gen)
+        # K2's operands: (f, Tf) on the EVD path, the pair (f, g) on the CDK path
+        dot_a, dot_b = (f1, f2) if label == "cdk" else (f, Tf)
+        s = 2.0 / f1.shape[0]
+        _, _, _, mlam1, mlam2 = cuda_gram.masked_gram_pair_ref(f1, f2, mmask)
+        wrappers = {
+            "masked_gram_pair": (lambda: cuda_gram.masked_gram_pair(f1, f2, mmask),
+                                 lambda: cuda_gram.masked_gram_pair_ref(f1, f2, mmask)),
+            "weighted_dot": (lambda: cuda_gram.weighted_dot(dot_a, dot_b, vmask),
+                             lambda: cuda_gram.weighted_dot_ref(dot_a, dot_b, vmask)),
+            "metric_grads": (lambda: cuda_gram.metric_grads(f1, f2, mlam1, mlam2, s, s),
+                             lambda: cuda_gram.metric_grads_ref(f1, f2, mlam1, mlam2, s, s)),
+        }
+        rows = {}
+        for name, (run, plain) in wrappers.items():
+            got, want = run(), plain()
+            got, want = (x if isinstance(x, tuple) else (x,) for x in (got, want))
+            rel = max(((a - b).abs().max() / b.abs().max()).item()
+                      for a, b in zip(got, want))
+            for _ in range(3):
                 run()
             torch.cuda.synchronize()
-        kernels = _cuda_events(prof)
-        rows[name] = {
-            "rel_err_of_max": rel,
-            "device_us_per_call": sum(_device_us(e) for e in kernels) / KERNEL_CALLS,
-            "kernels": [{"name": e.key[:80], "launches_per_call": e.count / KERNEL_CALLS,
-                         "device_us_per_launch": _device_us(e) / e.count}
-                        for e in kernels]}
-        if args.out:
-            _write_table(f"{args.out}.{name}", smi, prof, kernels)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(KERNEL_CALLS):
+                    run()
+                torch.cuda.synchronize()
+            kernels = _cuda_events(prof)
+            rows[name] = {
+                "rel_err_of_max": rel,
+                "device_us_per_call": sum(_device_us(e) for e in kernels) / KERNEL_CALLS,
+                "kernels": [{"name": e.key[:120], "launches_per_call": e.count / KERNEL_CALLS,
+                             "device_us_per_launch": _device_us(e) / e.count}
+                            for e in kernels]}
+            if args.out:
+                _write_table(f"{args.out}.{label}.{name}", smi, prof, kernels)
+        shapes[label] = {"B": f1.shape[0], "L": L, "wrappers": rows}
     print(json.dumps({"path": "kernels", "device": torch.cuda.get_device_name(0),
-                      "nvidia_smi": smi, "B": B, "L": L, "calls": KERNEL_CALLS,
-                      "wrappers": rows}), flush=True)
+                      "nvidia_smi": smi, "calls": KERNEL_CALLS, "shapes": shapes}),
+          flush=True)
 
 
 def main():

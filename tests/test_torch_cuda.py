@@ -8,14 +8,19 @@ machine without JAX:
 Every test is marked ``cuda`` and skips where torch sees no GPU.  Shapes
 are the CDK path's at the Sketchy paper width: f and g of 4096 rows and
 L = 512 + the constant mode = 513 columns (not a multiple of the kernels'
-32-wide tiles).
+64-wide tiles, nor of the 4 floats of a 16-byte copy), and a sweep of
+widths on both sides of the tile edges.
 """
 import pytest
 import torch
 
 from neuralsvd_tpu_torch.ops import cuda_gram
 from neuralsvd_tpu_torch.ops.cuda_gram import nestedlora_cdk_loss_kernels
-from neuralsvd_tpu_torch.ops.masks import joint_nesting_masks, step_weights
+from neuralsvd_tpu_torch.ops.masks import (
+    joint_nesting_masks,
+    sequential_nesting_masks,
+    step_weights,
+)
 from neuralsvd_tpu_torch.ops.nestedlora import nestedlora_cdk_loss
 
 B, L = 4096, 512
@@ -60,10 +65,10 @@ def test_kernels_match_plain_versions_at_cdk_shape(cuda_device):
     dot = cuda_gram.weighted_dot(f, g, vmask)
     assert ((dot - cuda_gram.weighted_dot_ref(f, g, vmask)).abs()
             <= KERNEL_RTOL * cuda_gram.weighted_dot_ref(f.abs(), g.abs(), vmask)).item()
-    _, lam_f, lam_g = want
-    got = cuda_gram.metric_grads(f, g, lam_f, lam_g, mmask, s, s)
-    want = cuda_gram.metric_grads_ref(f, g, lam_f, lam_g, mmask, s, s)
-    scale = cuda_gram.metric_grads_ref(f.abs(), g.abs(), lam_f.abs(), lam_g.abs(), mmask, s, s)
+    mlam_f, mlam_g = want[3:]
+    got = cuda_gram.metric_grads(f, g, mlam_f, mlam_g, s, s)
+    want = cuda_gram.metric_grads_ref(f, g, mlam_f, mlam_g, s, s)
+    scale = cuda_gram.metric_grads_ref(f.abs(), g.abs(), mlam_f.abs(), mlam_g.abs(), s, s)
     for a, b, sc in zip(got, want, scale):
         assert ((a - b).abs().max() <= KERNEL_RTOL * sc.abs().max()).item()
     torch.cuda.synchronize()
@@ -78,6 +83,54 @@ def test_masked_gram_pair_repeats_bit_for_bit(cuda_device):
     _, mmask = _masks(cuda_device)
     first = cuda_gram.masked_gram_pair(f, g, mmask)
     second = cuda_gram.masked_gram_pair(f, g, mmask)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def _within(got, want, scale):
+    """Each output within KERNEL_RTOL of the largest entry of its plain
+    version on |inputs|."""
+    for a, b, sc in zip(got, want, scale):
+        err = (a - b).abs().max().item()
+        assert err <= KERNEL_RTOL * sc.abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nesting", ["joint", "sequential"])
+@pytest.mark.parametrize("rows", [33, 1000, 4096])
+@pytest.mark.parametrize("width", [1, 5, 16, 63, 64, 65, 127, 128, 129, 513])
+def test_k1_k3_match_plain_versions_across_tile_edges(cuda_device, width, rows,
+                                                      nesting):
+    """K1 and K3 at widths on both sides of the 64-wide tiles (and of the
+    16-byte copies) and at row counts that leave partial chunks; the
+    sequential mask is upper triangular, so neither kernel may take M or
+    M⊙Λ as symmetric."""
+    gen = torch.Generator(device=cuda_device).manual_seed(width * 10007 + rows)
+    f1 = torch.randn(rows, width, generator=gen, device=cuda_device)
+    f2 = torch.randn(rows, width, generator=gen, device=cuda_device)
+    masks = (joint_nesting_masks(step_weights(width)) if nesting == "joint"
+             else sequential_nesting_masks(width))
+    mmask = torch.as_tensor(masks[1], device=cuda_device)
+    got = cuda_gram.masked_gram_pair(f1, f2, mmask)
+    want = cuda_gram.masked_gram_pair_ref(f1, f2, mmask)
+    _within(got, want, cuda_gram.masked_gram_pair_ref(f1.abs(), f2.abs(), mmask))
+    assert torch.equal(got[1], got[1].T) and torch.equal(got[2], got[2].T)
+    s1, s2 = 2.0 / rows, 3.0 / rows
+    mlam1, mlam2 = want[3:]
+    got = cuda_gram.metric_grads(f1, f2, mlam1, mlam2, s1, s2)
+    want = cuda_gram.metric_grads_ref(f1, f2, mlam1, mlam2, s1, s2)
+    _within(got, want, cuda_gram.metric_grads_ref(f1.abs(), f2.abs(), mlam1.abs(),
+                                                  mlam2.abs(), s1, s2))
+
+
+@pytest.mark.cuda
+def test_metric_grads_repeat_bit_for_bit(cuda_device):
+    """No float atomics in K3 either: the same inputs give the same bits."""
+    f, g = _pair(cuda_device, seed=3)
+    _, mmask = _masks(cuda_device)
+    _, _, _, mlam_f, mlam_g = cuda_gram.masked_gram_pair(f, g, mmask)
+    first = cuda_gram.metric_grads(f, g, mlam_f, mlam_g, 2.0 / B, 2.0 / B)
+    second = cuda_gram.metric_grads(f, g, mlam_f, mlam_g, 2.0 / B, 2.0 / B)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
 

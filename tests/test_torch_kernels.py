@@ -35,8 +35,10 @@ from neuralsvd_tpu_torch.ops.cuda_gram import (
 )
 from neuralsvd_tpu_torch.ops.nestedlora import nestedlora_evd_loss as torch_evd_loss
 
-# (B, L, nesting): B = 96, L = 5 is unaligned on purpose; 512 x 16 is E4
-CASES = [(96, 5, "joint"), (512, 16, "sequential")]
+# (B, L, nesting): B = 96, L = 5 is unaligned on purpose; 512 x 16 is E4;
+# L = 65 and 129 straddle the CUDA kernels' 64-wide tiles by one column
+CASES = [(96, 5, "joint"), (512, 16, "sequential"), (200, 65, "joint"),
+         (130, 129, "sequential")]
 
 
 def _data(B, L, nesting, seed=0):
@@ -61,10 +63,13 @@ def test_masked_gram_pair_matches_pallas(B, L, nesting):
     with pltpu.force_tpu_interpret_mode():
         jl, jl1, jl2 = jax_masked_gram_pair(jnp.asarray(f1), jnp.asarray(f2),
                                             jnp.asarray(mmask))
-    tl, tl1, tl2 = masked_gram_pair(_t(f1), _t(f2), _t(mmask))
+    tl, tl1, tl2, tc1, tc2 = masked_gram_pair(_t(f1), _t(f2), _t(mmask))
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-5)
     np.testing.assert_allclose(tl1.numpy(), np.asarray(jl1), rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(tl2.numpy(), np.asarray(jl2), rtol=1e-5, atol=1e-6)
+    # the backward's coefficients M⊙Λ, which the JAX kernel forms later
+    np.testing.assert_allclose(tc1.numpy(), mmask * np.asarray(jl1), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(tc2.numpy(), mmask * np.asarray(jl2), rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("B,L,nesting", CASES)
@@ -86,7 +91,7 @@ def test_metric_grads_match_pallas(B, L, nesting):
     with pltpu.force_tpu_interpret_mode():
         j1, j2 = jax_metric_grads(*(jnp.asarray(a) for a in (f1, f2, lam1, lam2, mmask)),
                                   s1, s2)
-    t1, t2 = metric_grads(*(_t(a) for a in (f1, f2, lam1, lam2, mmask)), s1, s2)
+    t1, t2 = metric_grads(*(_t(a) for a in (f1, f2, mmask * lam1, mmask * lam2)), s1, s2)
     np.testing.assert_allclose(t1.numpy(), np.asarray(j1), rtol=1e-4, atol=1e-6)
     np.testing.assert_allclose(t2.numpy(), np.asarray(j2), rtol=1e-4, atol=1e-6)
 
@@ -203,6 +208,35 @@ def test_launch_counts_reset():
         "masked_gram_pair": 0, "weighted_dot": 0, "metric_grads": 0}
 
 
+@pytest.mark.parametrize("L", [1, 5, 16, 63, 64, 65, 513])
+def test_upper_tile_table_covers_each_pair_once(L):
+    """K1 computes only the tiles of the upper triangle: together they hold
+    each (l <= m) exactly once, and no tile lies below the diagonal."""
+    tiles = cuda_gram.upper_tiles(L)
+    T = cuda_gram.K1_TILE
+    assert tiles.dtype == np.int32 and (tiles[:, 0] <= tiles[:, 1]).all()
+    count = np.zeros((L, L), dtype=int)
+    for l0, m0 in tiles:
+        count[l0:l0 + T, m0:m0 + T] += 1
+    upper = np.triu(np.ones((L, L), dtype=bool))
+    assert (count[upper] == 1).all()
+
+
+def test_k1_plan_at_the_cdk_shape():
+    """4096 x 513: the partials stay in L2 (at most 17 MB, from 67 MB) and
+    the grid fills two waves of 132 SMs."""
+    plan = cuda_gram.k1_plan(4096, 513)
+    assert plan.scratch_bytes <= 17e6
+    assert plan.blocks >= 2 * cuda_gram.NUM_SMS
+    assert plan.nchunk * plan.rows_per_chunk >= 4096
+    assert plan.rows_per_chunk % cuda_gram.K1_BK == 0
+
+
+def test_k1_plan_at_the_e4_shape():
+    """A half-batch of E4 (256 x 16): no more than two CUDA kernels a call."""
+    assert cuda_gram.k1_plan(256, 16).launches <= 2
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -222,19 +256,19 @@ def test_cuda_kernels_match_plain_versions(cuda_device, B, L):
     mmask = torch.triu(torch.ones(L, L, device=cuda_device))
     vmask = torch.rand(L, generator=g, device=cuda_device)
     before = cuda_gram.launch_counts()
-    loss, lam1, lam2 = masked_gram_pair(f1, f2, mmask)
-    rl, rl1, rl2 = cuda_gram.masked_gram_pair_ref(f1, f2, mmask)
-    sl, sl1, _ = cuda_gram.masked_gram_pair_ref(f1.abs(), f2.abs(), mmask)
+    loss, lam1, lam2, _, _ = masked_gram_pair(f1, f2, mmask)
+    rl, rl1, rl2, rc1, rc2 = cuda_gram.masked_gram_pair_ref(f1, f2, mmask)
+    sl, sl1, _, _, _ = cuda_gram.masked_gram_pair_ref(f1.abs(), f2.abs(), mmask)
     assert (loss - rl).abs() <= 1e-5 * sl
     assert (lam1 - rl1).abs().max() <= 1e-5 * sl1.max()
     assert (lam2 - rl2).abs().max() <= 1e-5 * sl1.max()
     out = weighted_dot(f, Tf, vmask)
     assert (out - cuda_gram.weighted_dot_ref(f, Tf, vmask)).abs() <= (
         1e-5 * cuda_gram.weighted_dot_ref(f.abs(), Tf.abs(), vmask))
-    g1, g2 = metric_grads(f1, f2, rl1, rl2, mmask, 2.0 / B, 3.0 / B)
-    r1, r2 = cuda_gram.metric_grads_ref(f1, f2, rl1, rl2, mmask, 2.0 / B, 3.0 / B)
-    s1, s2 = cuda_gram.metric_grads_ref(f1.abs(), f2.abs(), rl1.abs(), rl2.abs(),
-                                        mmask, 2.0 / B, 3.0 / B)
+    g1, g2 = metric_grads(f1, f2, rc1, rc2, 2.0 / B, 3.0 / B)
+    r1, r2 = cuda_gram.metric_grads_ref(f1, f2, rc1, rc2, 2.0 / B, 3.0 / B)
+    s1, s2 = cuda_gram.metric_grads_ref(f1.abs(), f2.abs(), rc1.abs(), rc2.abs(),
+                                        2.0 / B, 3.0 / B)
     assert ((g1 - r1).abs() <= 1e-5 * s1.max()).all()
     assert ((g2 - r2).abs() <= 1e-5 * s2.max()).all()
     after = cuda_gram.launch_counts()
