@@ -18,16 +18,26 @@ seconds:
 4. trainer    the hydrogen-2D E4 configuration at full width (L = 16,
               B = 512, per-mode 128³ softplus towers, 1024 Fourier maps +
               radial + 4 envelopes, gaussian_mixture sampling with √w
-              conjugation, exact nested-JVP Laplacian, operator_scale 100,
-              sequential nesting, RMSprop, EMA): kernel vs plain loss on one
-              batch, TRAIN_STEPS steps through the kernels with their launch
-              counts, steps/s, a GPU-vs-CPU check of the operator on a small
-              batch, and the EMA model's 16 Rayleigh eigenvalues;
-5. cdk_loss   the CDK loss at the paper's width (B 4096, L 512 + the
+              conjugation, the exact Laplacian by the forward-Laplacian
+              engine (the JAX default, laplacian_mode="forward"),
+              operator_scale 100, sequential nesting, RMSprop, EMA): kernel
+              vs plain loss on one batch, forward vs nested-JVP Laplacian,
+              gradient and fs on that batch, a GPU-vs-CPU check of the
+              operator on a small batch, TRAIN_STEPS steps through the
+              kernels with their launch counts and the engine's fallback
+              count (0), steps/s, the EMA model's 16 Rayleigh eigenvalues,
+              and steps/s of the same number of steps on the nested-JVP
+              Laplacian;
+5. hutchinson the Hutchinson Laplacian (Rademacher probes through the same
+              engine) at that width: the mean of HUTCH_DRAWS estimates
+              against the exact Laplacian on one batch, within HUTCH_Z
+              standard errors at every entry, and HUTCH_STEPS train steps
+              with laplacian_probes=2, every loss finite;
+6. cdk_loss   the CDK loss at the paper's width (B 4096, L 512 + the
               constant mode) on the towers' outputs: kernel packaging vs
               plain loss, with and without batch weights, ratios included;
               the towers on the GPU vs a CPU copy on a small batch;
-6. cdk_train  the Sketchy CDK trainer (cli/sketchy.py::run_training) at the
+7. cdk_train  the Sketchy CDK trainer (cli/sketchy.py::run_training) at the
               paper's width (512-8192-512 lrelu0.2 towers, L 512, B 4096,
               SGD momentum 0.9, lr 5e-3 warmup-cosine, grad clip 1.0, joint
               nesting) on synthetic class-correlated 512-d features, two
@@ -39,7 +49,8 @@ seconds:
               alone on device-resident batches and its peak device memory.
 
 Then the {"kernels": [...]} line (numbers at the CDK shape, launches of
-both main paths, per-path numbers under "paths"), the nvidia-smi line and,
+both main paths, per-path numbers under "paths", every shape's under
+"shapes"), the nvidia-smi line and,
 last, {"ok": true, "device": {...}}.  Any failed check raises: the exit
 code is then non-zero and the last line is never printed.  Without a GPU it
 raises before printing anything.
@@ -64,8 +75,9 @@ from neuralsvd_tpu_torch.methods.nestedlora import NestedLoRA
 from neuralsvd_tpu_torch.methods.spectrum import compute_spectrum_evd
 from neuralsvd_tpu_torch.models.mlp import parse_dims
 from neuralsvd_tpu_torch.models.wavefunctions import make_wavefunctions
+from neuralsvd_tpu_torch.operators.diff_ops import VectorizedLaplacian
 from neuralsvd_tpu_torch.operators.problems import get_problem
-from neuralsvd_tpu_torch.ops import cuda_build, cuda_gram
+from neuralsvd_tpu_torch.ops import cuda_build, cuda_gram, forward_laplacian
 from neuralsvd_tpu_torch.ops.cuda_gram import nestedlora_cdk_loss_kernels
 from neuralsvd_tpu_torch.ops.masks import (
     joint_nesting_masks,
@@ -111,6 +123,14 @@ KERNEL_RTOL = 1e-5   # of the plain version on |inputs|: f32 rounding scale
 LOSS_RTOL = 1e-5     # kernel vs plain loss on one batch
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6  # atol in units of the largest entry
 OPERATOR_RTOL = 1e-4  # GPU vs CPU Tf, fs: f32 second derivatives
+# forward engine vs nested JVPs (tests/test_torch_operators.py): rtol, and
+# atol in units of the largest entry of each output
+LAP_RTOL, LAP_ATOL = 1e-4, 1e-5
+# Hutchinson: mean of HUTCH_DRAWS estimates (HUTCH_PROBES probes each) vs
+# the exact Laplacian, within HUTCH_Z standard errors of the mean (a t
+# variable of 63 degrees of freedom passes 6 with odds ~1e-7 an entry, so
+# ~1e-3 for the 8192 entries) plus LAP_ATOL of the largest entry (f32)
+HUTCH_PROBES, HUTCH_DRAWS, HUTCH_Z, HUTCH_STEPS = 2, 64, 6.0, 20
 
 # H100 SXM peaks (NVIDIA data sheet, at a 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -119,7 +139,7 @@ F32_FLOP_PER_S = 67e12
 KERNEL_SOURCE = "neuralsvd_tpu_torch/csrc/gram_kernels.cu"
 # the kernels of csrc/gram_kernels.cu, as ptxas names them (mangled)
 CUDA_KERNELS = ("masked_gram_syrk_kernel", "masked_gram_finish_kernel",
-                "weighted_dot_partial_kernel", "sum_partials_kernel",
+                "sum_partials_kernel", "weighted_dot_kernel",
                 "metric_grads_kernel")
 REPLACES = {
     "masked_gram_pair": "neuralsvd_tpu/ops/pallas_gram.py:64",
@@ -304,7 +324,7 @@ def phase_kernels():
     return rows
 
 
-def _e4_setup(device):
+def _e4_setup(device, laplacian_mode="forward", laplacian_probes=0):
     model = make_wavefunctions(
         ndim=NDIM, neigs=NEIGS, mlp_hidden_dims=HIDDEN,
         nonlinearity="softplus", parallel=True, use_fourier_feature=True,
@@ -313,20 +333,61 @@ def _e4_setup(device):
         apply_boundary=False, seed=SEED, device=device)
     operator, ground_truth, _ = get_problem(
         problem="sch", potential_type="hydrogen", ndim=NDIM, neigs=NEIGS,
-        laplacian_eps=-1.0, laplacian_mode="jvp", operator_scale=OPERATOR_SCALE)
+        laplacian_eps=-1.0, laplacian_mode=laplacian_mode,
+        laplacian_probes=laplacian_probes, operator_scale=OPERATOR_SCALE)
     sampler, importance = get_sampler("gaussian_mixture", BATCH, 1, NDIM,
                                       MIX_SCALES, device=device)
     return model, operator, ground_truth, sampler, importance
 
 
+def _excess(got, ref, rtol, atol):
+    """Largest |got - ref| over (rtol·|ref| + atol·max|ref|)."""
+    tol = rtol * ref.abs() + atol * ref.abs().max()
+    return ((got - ref).abs() / tol).max().item()
+
+
 def _check_grads(got, ref):
     worst = 0.0
     for k, r in ref.items():
-        tol = GRAD_RTOL * r.abs() + GRAD_ATOL * r.abs().max()
-        excess = ((got[k] - r).abs() / tol).max().item()
+        excess = _excess(got[k], r, GRAD_RTOL, GRAD_ATOL)
         check(excess <= 1.0, f"kernel vs plain gradient of {k}: {excess:.3g}x tolerance")
         worst = max(worst, excess)
     return worst
+
+
+def _forward_vs_jvp(model, x, importance):
+    """Laplacian, gradient and fs of the forward engine against nested JVPs
+    on one batch, under √w conjugation."""
+    out = {}
+    with torch.no_grad():
+        fwd = VectorizedLaplacian(eps=-1.0, exact_mode="forward")(
+            model, x, importance, return_grad=True)
+        ref = VectorizedLaplacian(eps=-1.0, exact_mode="jvp")(
+            model, x, importance, return_grad=True)
+    for name, a, b in zip(("lap", "grad", "fs"), fwd, ref):
+        out[name] = _excess(a, b, LAP_RTOL, LAP_ATOL)
+        check(out[name] <= 1.0, f"forward vs jvp {name}: {out[name]:.3g}x tolerance")
+    return out
+
+
+def _steps_per_s(step, ts, gen, n, warmup):
+    """Run n train steps: (steps/s over the last n - warmup, losses).
+    Fails on a non-finite loss or a skipped step."""
+    losses, skipped = [], []
+    for i in range(n):
+        if i == warmup:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        ts, metrics = step(ts, gen)
+        losses.append(metrics["loss"])
+        skipped.append(metrics["skipped"])
+    torch.cuda.synchronize()
+    rate = (n - warmup) / (time.perf_counter() - t0)
+    losses = torch.stack(losses).cpu().numpy()
+    n_skipped = int(torch.stack(skipped).sum().item())
+    check(np.isfinite(losses).all(), "non-finite training loss")
+    check(n_skipped == 0, f"{n_skipped} skipped steps")
+    return rate, losses
 
 
 def phase_trainer():
@@ -346,6 +407,7 @@ def phase_trainer():
     loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
     check(loss_rel <= LOSS_RTOL, f"kernel vs plain loss: rel {loss_rel:.3g}")
     grad_excess = _check_grads(grads_k, grads_p)
+    lap_excess = _forward_vs_jvp(model, x, importance)
 
     # GPU vs CPU on a small batch: the same operator on a CPU copy
     cpu_model, cpu_op, _, _, cpu_imp = _e4_setup("cpu")
@@ -357,28 +419,17 @@ def phase_trainer():
                  for a, b in ((Tf_g, Tf_c), (fs_g, fs_c)))
     check(op_rel <= OPERATOR_RTOL, f"GPU vs CPU operator: rel {op_rel:.3g}")
 
-    # the main path: TRAIN_STEPS steps through the kernels
+    # the main path: TRAIN_STEPS steps through the kernels and the engine
     step = make_train_step(method, operator, optimizer, sampler,
                            importance=importance, ema_decay=EMA_DECAY)
     cuda_gram.reset_launch_counts()
-    losses, skipped = [], []
-    for i in range(TRAIN_STEPS):
-        if i == WARMUP_STEPS:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-        ts, metrics = step(ts, gen)
-        losses.append(metrics["loss"])
-        skipped.append(metrics["skipped"])
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
+    forward_laplacian.fallback_rule.calls = 0
+    steps_per_s, losses = _steps_per_s(step, ts, gen, TRAIN_STEPS, WARMUP_STEPS)
     counts = cuda_gram.launch_counts()
-    losses = torch.stack(losses).cpu().numpy()
-    n_skipped = int(torch.stack(skipped).sum().item())
-    check(np.isfinite(losses).all(), "non-finite training loss")
-    check(n_skipped == 0, f"{n_skipped} skipped steps")
+    fallbacks = forward_laplacian.fallback_rule.calls
     check(all(n == TRAIN_STEPS for n in counts.values()),
           f"launch counts {counts} != {TRAIN_STEPS} each")
-    steps_per_s = (TRAIN_STEPS - WARMUP_STEPS) / seconds
+    check(fallbacks == 0, f"{fallbacks} fallback-rule calls on the E4 path")
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
     # spectrum of the EMA model on one validation batch
@@ -391,14 +442,58 @@ def phase_trainer():
     eigvals = np.asarray(out["eigvals"])
     check(eigvals.shape == (NEIGS,) and np.isfinite(eigvals).all(),
           f"eigenvalues {eigvals}")
+
+    # the same number of steps on the nested-JVP Laplacian, for its rate
+    _, jvp_op, _, _, _ = _e4_setup(DEVICE, laplacian_mode="jvp")
+    jvp_step = make_train_step(method, jvp_op, optimizer, sampler,
+                               importance=importance, ema_decay=EMA_DECAY)
+    jvp_steps_per_s, _ = _steps_per_s(jvp_step, ts, gen, TRAIN_STEPS, WARMUP_STEPS)
     emit("trainer", L=NEIGS, B=BATCH, hidden=HIDDEN, feature_dim=feature_dim,
+         laplacian_mode="forward",
          kernel_vs_plain_loss_rel=loss_rel, kernel_vs_plain_grad_tol_used=grad_excess,
+         forward_vs_jvp_tol_used=lap_excess,
          gpu_vs_cpu_operator_rel=op_rel, steps=TRAIN_STEPS,
          first_loss=float(losses[0]), last_loss=float(losses[-1]),
-         skipped=n_skipped, launches=counts, steps_per_s=steps_per_s,
+         skipped=0, launches=counts, fallback_calls=fallbacks,
+         steps_per_s=steps_per_s, jvp_steps_per_s=jvp_steps_per_s,
          timed_steps=TRAIN_STEPS - WARMUP_STEPS, peak_mem_gib=peak_gib,
          eigvals=eigvals.tolist(), ground_truth=np.asarray(ground_truth).tolist())
-    return counts
+    return counts, model, importance, x
+
+
+def phase_hutchinson(model, importance, x):
+    """The Hutchinson Laplacian against the exact one at full width, and a
+    short training run on it."""
+    exact = VectorizedLaplacian(eps=-1.0, exact_mode="forward")
+    hutch = VectorizedLaplacian(eps=-1.0, exact_mode="forward", num_probes=HUTCH_PROBES)
+    check(hutch.needs_key and not exact.needs_key, "needs_key")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    with torch.no_grad():
+        lap, _, _ = exact(model, x, importance)
+        draws = torch.stack([hutch(model, x, importance, generator=gen)[0]
+                             for _ in range(HUTCH_DRAWS)])
+    mean = draws.mean(0)
+    se = draws.std(0) / HUTCH_DRAWS ** 0.5
+    z = ((mean - lap).abs() / (se + LAP_ATOL * lap.abs().max())).max().item()
+    check(z <= HUTCH_Z, f"Hutchinson mean vs exact: {z:.3g} standard errors")
+    check((draws[0] != draws[1]).any().item(), "Hutchinson draws do not vary")
+    mean_rel = ((mean - lap).abs().mean() / lap.abs().mean()).item()
+
+    model, operator, _, sampler, importance = _e4_setup(
+        DEVICE, laplacian_probes=HUTCH_PROBES)
+    check(operator.needs_key, "the probe operator does not ask for probes")
+    method = NestedLoRA(model, neigs=NEIGS, sequential=True)
+    optimizer = torch_rmsprop(LR, alpha=ALPHA)
+    step = make_train_step(method, operator, optimizer, sampler,
+                           importance=importance, ema_decay=EMA_DECAY)
+    ts = init_train_state(model, optimizer, method)
+    rate, losses = _steps_per_s(step, ts, torch.Generator(device=DEVICE).manual_seed(SEED),
+                                HUTCH_STEPS, HUTCH_STEPS // 4)
+    emit("hutchinson", probes=HUTCH_PROBES, draws=HUTCH_DRAWS, max_z=z,
+         z_limit=HUTCH_Z, mean_abs_err_over_mean_abs=mean_rel,
+         draw_rel_spread=(draws.std(0).mean() / lap.abs().mean()).item(),
+         train_steps=HUTCH_STEPS, first_loss=float(losses[0]),
+         last_loss=float(losses[-1]), steps_per_s=rate)
 
 
 def _cdk_data():
@@ -544,7 +639,9 @@ def main():
     name, smi = phase_device()
     phase_build()
     rows = phase_kernels()
-    counts = {"e4": phase_trainer()}
+    e4_counts, model, importance, x = phase_trainer()
+    counts = {"e4": e4_counts}
+    phase_hutchinson(model, importance, x)
     train, test, valid = _cdk_data()
     phase_cdk_loss(train)
     counts["cdk"] = phase_cdk_train(train, test, valid)
@@ -564,7 +661,7 @@ def main():
             "max_abs_err": cdk["max_abs_err"], "ms": cdk["ms"],
             "plain_ms": cdk["plain_ms"], "bound_ms": cdk["bound_ms"],
             "bound_by": cdk["bound_by"], "library_ms": cdk["library_ms"],
-            "paths": paths})
+            "paths": paths, "shapes": results})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -17,7 +17,8 @@
 //
 // What bounds them.  On the E4 path (B = 256..512 rows, L = 16 modes, f32)
 // each kernel moves 35-67 KB and does at most 0.27 MFLOP: bound 10-20 ns by
-// bytes, and launch latency (microseconds) is what a call costs.  On the
+// bytes, and launch latency (microseconds) is what a call costs, so each
+// wrapper call is as few launches as the kernel allows (K2: one).  On the
 // CDK path (f, g: 4096 x 513) K1's two symmetric grams need 2.16 GFLOP and
 // K3's two products 4.3 GFLOP, bound by f32 arithmetic at 67 TFLOP/s (32
 // and 64 us); K2 moves 16.8 MB (5 us, bytes).
@@ -319,25 +320,129 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// K2: weighted dot.  Grid-stride product w[l]·f·Tf over the flat (B, L)
-// arrays, one partial per block; a one-block second pass sums the partials
-// in order (skipped when the grid is one block).
+// K2: weighted dot, Σ_b Σ_l w_l f[b,l] Tf[b,l], in one launch.
+//
+// Bytes bound it: it reads f and Tf once (16.8 MB at 4096 x 513, 5 us at
+// 3.35 TB/s) and does 3 flops a pair.  A warp's lanes lie along a row, so
+// its loads are coalesced, and each lane works out its column(s) once and
+// keeps its weights in registers: the row loop has no division.  Rows of
+// at most 32 vectors (kVec floats each: 4 where L % 4 == 0 and the
+// pointers are 16-byte aligned, else 1) put 32 / cols whole rows in a warp
+// (8 rows of 16 floats at E4); wider rows are cut into chunks of 32
+// vectors, a warp per (chunk, slot).  Slot s of a chunk takes row groups
+// s, s + slots, ..., kDotUnroll at a time, with no branch around the loads
+// (rows past B re-read row B - 1 and are not summed), so a lane has up to
+// 2·kDotUnroll loads in flight.  The wrapper sizes the grid (k2_plan): one
+// block where whole-row warps need at most two rounds (E4: 8 warps of 8
+// row groups), else one round a warp where that fits in DOT_MAX_BLOCKS
+// blocks, else the most blocks, whole chunks (527 at 4096 x 513).
+//
+// A grid of more than one block ends by a ticket: each block writes its
+// partial, fences, and takes an integer ticket (atomicInc, which wraps the
+// counter back to 0 for the next launch); the block that draws the last
+// ticket sums the partials in index order.  No float atomics and a grid
+// fixed by (B, L, kVec): results repeat bit for bit, and the launch leaves
+// the counter as it found it, so it can be replayed in a CUDA graph.
 // ---------------------------------------------------------------------------
 
-__global__ void weighted_dot_partial_kernel(const float* __restrict__ f,
-                                            const float* __restrict__ tf,
-                                            const float* __restrict__ w,
-                                            float* __restrict__ out,
-                                            int n, int L) {
+constexpr int kDotUnroll = 4;
+
+template <int kVec>
+struct DotVec;
+template <>
+struct DotVec<4> {
+  using T = float4;
+  __device__ static float dot3(const float4 w, const float4 a, const float4 b,
+                               float acc) {
+    acc = fmaf(w.x * a.x, b.x, acc);
+    acc = fmaf(w.y * a.y, b.y, acc);
+    acc = fmaf(w.z * a.z, b.z, acc);
+    return fmaf(w.w * a.w, b.w, acc);
+  }
+  __device__ static float4 zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+};
+template <>
+struct DotVec<1> {
+  using T = float;
+  __device__ static float dot3(const float w, const float a, const float b,
+                               float acc) {
+    return fmaf(w * a, b, acc);
+  }
+  __device__ static float zero() { return 0.f; }
+};
+
+template <int kVec>
+__global__ void __launch_bounds__(kThreads)
+    weighted_dot_kernel(const float* __restrict__ f,
+                        const float* __restrict__ tf,
+                        const float* __restrict__ w,
+                        float* __restrict__ partial,
+                        unsigned* __restrict__ ticket, float* __restrict__ out,
+                        int B, int L, int slots) {
+  using Ops = DotVec<kVec>;
+  using V = typename Ops::T;
+  const int lane = threadIdx.x & 31;
+  const int warp = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  const int cols = L / kVec;  // vectors a row: L % kVec == 0
+  int rows_per_group, r, vc, slot;
+  if (cols <= 32) {  // whole rows in a warp
+    rows_per_group = 32 / cols;
+    r = lane / cols;
+    vc = lane - r * cols;
+    slot = warp;
+  } else {  // a chunk of 32 vectors of one row
+    const int nchunks = (cols + 31) / 32;
+    rows_per_group = 1;
+    r = 0;
+    vc = (warp % nchunks) * 32 + lane;
+    slot = warp / nchunks;
+  }
   float acc = 0.f;
-  for (int i = blockIdx.x * kReduceThreads + threadIdx.x; i < n;
-       i += gridDim.x * kReduceThreads) {
-    acc = fmaf(w[i % L] * f[i], tf[i], acc);
+  if (r < rows_per_group && vc < cols && slot < slots) {
+    const V wv = reinterpret_cast<const V*>(w)[vc];
+    const int groups = (B + rows_per_group - 1) / rows_per_group;
+    const V* __restrict__ fv = reinterpret_cast<const V*>(f) + vc;
+    const V* __restrict__ tv = reinterpret_cast<const V*>(tf) + vc;
+    for (int g0 = slot; g0 < groups; g0 += kDotUnroll * slots) {
+      V a[kDotUnroll], b[kDotUnroll];
+      bool ok[kDotUnroll];
+#pragma unroll
+      for (int u = 0; u < kDotUnroll; ++u) {
+        const int row = (g0 + u * slots) * rows_per_group + r;
+        ok[u] = row < B;
+        const int at = min(row, B - 1) * cols;  // B·L < 2^31 (wrapper)
+        a[u] = fv[at];
+        b[u] = tv[at];
+      }
+#pragma unroll
+      for (int u = 0; u < kDotUnroll; ++u) {
+        if (ok[u]) acc = Ops::dot3(wv, a[u], b[u], acc);
+      }
+    }
   }
   const float total = block_sum(acc);
-  if (threadIdx.x == 0) out[blockIdx.x] = total;
+  if (gridDim.x == 1) {  // a one-block grid (E4) takes no ticket
+    if (threadIdx.x == 0) *out = total;
+    return;
+  }
+  __shared__ bool last;
+  if (threadIdx.x == 0) {
+    partial[blockIdx.x] = total;
+    __threadfence();
+    last = atomicInc(ticket, gridDim.x - 1) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  float sum = 0.f;
+  for (int i = threadIdx.x; i < (int)gridDim.x; i += kThreads) {
+    sum += __ldcg(partial + i);
+  }
+  const float all = block_sum(sum);
+  if (threadIdx.x == 0) *out = all;
 }
 
+// K1's pass 3: one block sums the finish pass's loss shares in order.
 __global__ void sum_partials_kernel(const float* __restrict__ partial,
                                     float* __restrict__ out, int n) {
   float acc = 0.f;
@@ -538,18 +643,21 @@ int gram_masked_gram_pair(const float* f1, const float* f2, const float* mmask,
   return static_cast<int>(cudaGetLastError());
 }
 
-// partial: nblocks floats when nblocks > 1 (unused, may be null, otherwise);
-// out: 1 float.
+// partial: nblocks floats of scratch; ticket: one unsigned, 0 before the
+// first launch (each launch leaves it 0); out: 1 float.  slots: warps per
+// row chunk, as k2_plan in ops/cuda_gram.py sets it.  vec: 4 when
+// L % 4 == 0 and f, tf, w are 16-byte aligned, else 1.
 int gram_weighted_dot(const float* f, const float* tf, const float* w,
-                      float* partial, float* out, int B, int L, int nblocks,
-                      void* stream) {
+                      float* partial, unsigned* ticket, float* out, int B,
+                      int L, int slots, int nblocks, int vec, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* first = nblocks > 1 ? partial : out;
-  weighted_dot_partial_kernel<<<nblocks, kReduceThreads, 0, s>>>(
-      f, tf, w, first, B * L, L);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || nblocks == 1) return static_cast<int>(err);
-  sum_partials_kernel<<<1, kReduceThreads, 0, s>>>(partial, out, nblocks);
+  if (vec == 4) {
+    weighted_dot_kernel<4><<<nblocks, kThreads, 0, s>>>(
+        f, tf, w, partial, ticket, out, B, L, slots);
+  } else {
+    weighted_dot_kernel<1><<<nblocks, kThreads, 0, s>>>(
+        f, tf, w, partial, ticket, out, B, L, slots);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

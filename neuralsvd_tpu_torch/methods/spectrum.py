@@ -25,7 +25,7 @@ def _accumulate_evd(f, operator, x, importance_train, importance_val,
     sqrt_ws_train = torch.sqrt(importance_train(x)) if importance_train else 1.0
     sqrt_ws_val = torch.sqrt(importance_val(x)) if importance_val else 1.0
     sqrt_ws = sqrt_ws_train / sqrt_ws_val
-    Tphi, phi = operator(f, x, importance_train)
+    Tphi, phi = operator(f, x, importance_train)  # no generator: exact Laplacian
     eigfuncs = sqrt_ws_train * phi
     phi = sqrt_ws * phi
     Tphi = sqrt_ws * Tphi

@@ -1,6 +1,7 @@
 """Operator protocol helpers.
 
-Port of ``neuralsvd_tpu/operators/base.py:7-37`` (``OperatorWrapper``).
+Port of ``neuralsvd_tpu/operators/base.py:7-37`` (``OperatorWrapper``);
+``generator=`` takes the place of JAX's ``key=``.
 ``MatrixOperator`` and ``KernelOperator`` are not ported yet (ROADMAP
 queue 1, item 6).
 """
@@ -28,8 +29,17 @@ class OperatorWrapper:
         T(phi) at the origin only for singular potentials)."""
         return getattr(self.operator, "singular_at_origin", False)
 
-    def __call__(self, f, x, importance=None):
-        Tf, fs = self.operator(f, x, importance)
+    @property
+    def needs_key(self) -> bool:
+        """Forwarded: True for stochastic operators (the Hutchinson
+        Laplacian), which want a probe generator bound by the train step."""
+        return getattr(self.operator, "needs_key", False)
+
+    def __call__(self, f, x, importance=None, generator=None):
+        if generator is not None and self.needs_key:
+            Tf, fs = self.operator(f, x, importance, generator=generator)
+        else:
+            Tf, fs = self.operator(f, x, importance)
         with torch.no_grad():
             Tf = self.scale * Tf + self.shift * fs
         return Tf, fs

@@ -7,6 +7,10 @@ Port of ``neuralsvd_tpu/operators/diff_ops.py``.
   oracle (``laplacian_mode="jvp"``).
 - ``batched_fd_laplacian``: central differences, all 2D+1 probe points
   stacked into one model call.
+- ``VectorizedLaplacian`` routes the exact Laplacian to the
+  forward-Laplacian engine (``exact_mode="forward"``, the default,
+  ``ops/forward_laplacian.py``) or to ``exact_laplacian`` ("jvp"), and,
+  with ``num_probes > 0`` and a ``generator``, to the Hutchinson estimator.
 
 In the port the Laplacian never carries an autograd graph: it is computed
 under ``torch.no_grad()`` (forward-mode tangents are still computed there),
@@ -14,10 +18,6 @@ because the EVD loss sends no gradient through Tf (ops/nestedlora.py).
 ``fs`` is computed by a separate model call in the ambient grad mode, as
 ``(√w·f(x)) / clip(√w, 1e-5)`` under importance conjugation, so gradients
 reach the parameters through it.
-
-Not ported yet (ROADMAP queue 1, item 5): the forward-Laplacian engine
-(``exact_mode="forward"``, the JAX default) and the Hutchinson estimator
-(``num_probes > 0``); both raise.
 """
 from __future__ import annotations
 
@@ -25,6 +25,11 @@ from typing import Callable, Optional
 
 import torch
 from torch.func import jvp, vmap
+
+from neuralsvd_tpu_torch.ops.forward_laplacian import (
+    forward_laplacian,
+    hutchinson_laplacian,
+)
 
 
 def batched_fd_laplacian(f: Callable, xs: torch.Tensor, eps: float,
@@ -86,47 +91,62 @@ def exact_laplacian(f: Callable, xs: torch.Tensor, return_grad: bool = False):
 class VectorizedLaplacian:
     """Laplacian with optional importance-weighted conjugation.
 
-    eps > 0 selects finite differences; eps <= 0 the exact Laplacian, whose
-    ``exact_mode`` must be "jvp" in this port.  With a sampling density w
-    the Laplacian of g = √w·f is taken and √w (clipped at 1e-5) divided out.
+    eps > 0 selects finite differences; eps <= 0 the exact Laplacian, by
+    the forward-Laplacian engine (``exact_mode="forward"``, the default:
+    one pass carrying value, D directional derivatives and the Laplacian)
+    or by nested JVPs ("jvp", the independent oracle).  ``num_probes`` > 0
+    (with eps <= 0) selects the unbiased Hutchinson estimator: its
+    Rademacher probes seed the same engine and come from a
+    ``torch.Generator`` the caller passes (``needs_key``); a call without
+    one (the spectrum eval) takes the exact engine.  With a sampling
+    density w the Laplacian of g = √w·f is taken and √w (clipped at 1e-5)
+    divided out.
     """
 
     def __init__(self, eps: float = 1e-5, exact_mode: str = "forward",
                  num_probes: int = 0):
         if exact_mode not in ("forward", "jvp"):
             raise ValueError(f"unknown exact_mode {exact_mode!r}")
-        if eps <= 0 and exact_mode == "forward":
-            raise NotImplementedError(
-                "the forward-Laplacian engine (exact_mode='forward', "
-                "ops/forward_laplacian.py) is not ported yet (ROADMAP queue 1, "
-                "item 5); use exact_mode='jvp'")
-        if eps <= 0 and num_probes > 0:
-            raise NotImplementedError(
-                "the Hutchinson Laplacian (num_probes > 0) is not ported yet "
-                "(ROADMAP queue 1, item 5)")
         self.eps = eps
         self.exact_mode = exact_mode
         self.num_probes = num_probes
 
-    def _lap(self, f, xs, return_grad):
+    @property
+    def needs_key(self) -> bool:
+        """True for the stochastic (Hutchinson) Laplacian, which wants a
+        probe generator per call."""
+        return self.eps <= 0 and self.num_probes > 0
+
+    def _lap(self, f, xs, return_grad, generator=None):
         """(lap, grad or 0.) without an autograd graph; fs is left to the
         caller, which computes it in the ambient grad mode."""
         with torch.no_grad():
             if self.eps > 0:
                 lap, grad, _ = batched_fd_laplacian(f, xs, self.eps, return_grad)
                 return lap, grad
+            if self.needs_key and generator is not None:
+                if return_grad:
+                    raise ValueError(
+                        "the Hutchinson Laplacian carries probe derivatives, "
+                        "not the gradient; use an exact mode for return_grad")
+                lap, _ = hutchinson_laplacian(f, xs, generator, self.num_probes)
+                return lap, 0.0
+            if self.exact_mode == "forward":
+                lap, grad, _ = forward_laplacian(f, xs, return_grad)
+                return lap, grad
             lap, grads = _nested_jvp_laplacian(f, xs)
         return lap, (torch.movedim(grads, 0, -1) if return_grad else 0.0)
 
     def __call__(self, f: Callable, xs: torch.Tensor,
                  importance: Optional[Callable] = None,
-                 return_grad: bool = False):
+                 return_grad: bool = False,
+                 generator: Optional[torch.Generator] = None):
         xs = xs.reshape(xs.shape[0], -1)
         if importance is None:
-            lap, grad = self._lap(f, xs, return_grad)
+            lap, grad = self._lap(f, xs, return_grad, generator)
             return lap, grad, f(xs)
         g = lambda x: torch.sqrt(importance(x)) * f(x)  # noqa: E731
-        lap_g, grad_g = self._lap(g, xs, return_grad)
+        lap_g, grad_g = self._lap(g, xs, return_grad, generator)
         sqrt_ws = torch.clamp(torch.sqrt(importance(xs)), min=1e-5)  # (B, 1)
         lap = lap_g / sqrt_ws
         fs = g(xs) / sqrt_ws

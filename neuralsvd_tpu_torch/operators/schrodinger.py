@@ -2,8 +2,9 @@
 
 Port of ``neuralsvd_tpu/operators/schrodinger.py``: ``hydrogen_potential``
 (:21), ``harmonic_oscillator_potential`` and ``NegativeHamiltonian``
-(:82-113).  The other potentials are not ported yet (ROADMAP queue 1,
-item 6).
+(:82-113), whose ``needs_key`` operators (the Hutchinson Laplacian) take
+a ``generator=`` where JAX's take ``key=``.  The other potentials are
+not ported yet (ROADMAP queue 1, item 6).
 """
 from __future__ import annotations
 
@@ -44,8 +45,16 @@ class NegativeHamiltonian:
         self.scale_kinetic = scale_kinetic
         self.n_particles = n_particles
 
-    def __call__(self, f, xs, importance: Optional[Callable] = None):
-        lap, _, fs = self.laplacian(f, xs, importance)
+    @property
+    def needs_key(self) -> bool:
+        """True when the Laplacian is the stochastic Hutchinson estimator:
+        the train step then binds a probe generator; the spectrum eval
+        passes none and gets the exact engine."""
+        return self.laplacian.needs_key
+
+    def __call__(self, f, xs, importance: Optional[Callable] = None,
+                 generator: Optional[torch.Generator] = None):
+        lap, _, fs = self.laplacian(f, xs, importance, generator=generator)
         with torch.no_grad():
             kinetic = -self.scale_kinetic * lap
             V = self.local_potential_ftn(

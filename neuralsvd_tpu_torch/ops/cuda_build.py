@@ -37,7 +37,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "gram_masked_gram_pair": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _P],
-    "gram_weighted_dot": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "gram_weighted_dot": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gram_metric_grads": [_P, _P, _P, _P, _F, _F, _P, _P, _I, _I, _I, _P],
 }
 

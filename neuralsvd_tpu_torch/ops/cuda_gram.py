@@ -24,7 +24,10 @@ the E4 shapes (half-batches of 256 rows, L = 16) each call moves 35-67 KB
 and does at most 0.27 MFLOP, so its bound is 10-20 ns, set by bytes; launch
 latency, microseconds, is what a call costs.  At the CDK shape (f, g: 4096
 x 513) K1's symmetric grams need 2.16 GFLOP (bound 32 us, operations), K3
-4.3 GFLOP (64 us) and K2 moves 16.8 MB (5 us, bytes).  K1 and K3 are
+4.3 GFLOP (64 us) and K2 moves 16.8 MB (5 us, bytes).  K2 is one launch
+at every shape: warps along the rows, weights in registers, and the
+block that draws the last integer ticket sums the blocks' partials in
+order (``k2_plan``; csrc/gram_kernels.cu).  K1 and K3 are
 register-blocked f32 FFMA tiles fed by a cp.async ring; K1 computes only
 the upper 64x64 tiles of each gram (a SYRK, from the table
 ``upper_tiles``) over a few fixed row chunks (``k1_plan``, a function of B
@@ -63,9 +66,9 @@ K1_SCRATCH_BYTES = 16 * 2 ** 20  # partial buffer, kept well inside the 50 MB L2
 # fill, tile store) and a chunk's cost in the finish pass
 K1_BLOCK_OVERHEAD_ROWS = 64
 K1_FINISH_ROWS_PER_CHUNK = 32
-DOT_THREADS = 256
-DOT_ELEMS_PER_THREAD = 32
-DOT_MAX_BLOCKS = 264  # two per SM on an H100
+DOT_WARPS = 8  # warps a block (csrc kThreads / 32)
+DOT_UNROLL = 4  # row groups a warp loads at once (csrc kDotUnroll)
+DOT_MAX_BLOCKS = 4 * NUM_SMS  # enough loads in flight to stream 4096 x 513
 _MAX_ELEMS = 2 ** 31 - 2 ** 20  # int32 indexing in the kernels
 
 
@@ -137,8 +140,9 @@ def _launch(name: str, *args) -> None:
 
 
 def _vec(L: int, *tensors) -> int:
-    """Floats per cp.async copy: 4 (16 bytes) when every row of L floats
-    starts 16-byte aligned, else 1 (4 bytes; L = 513 rows are 2052 bytes)."""
+    """Floats per copy (cp.async in K1/K3, a load in K2): 4 (16 bytes) when
+    every row of L floats starts 16-byte aligned, else 1 (4 bytes; L = 513
+    rows are 2052 bytes)."""
     aligned = L % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
     return 4 if aligned else 1
 
@@ -253,10 +257,43 @@ masked_gram_pair.launches = 0
 # K2: operator term, streaming weighted dot
 # ---------------------------------------------------------------------------
 
-def dot_blocks(n: int) -> int:
-    """Grid size of K2's first pass for n = B·L elements."""
-    return max(1, min(-(-n // (DOT_THREADS * DOT_ELEMS_PER_THREAD)),
-                      DOT_MAX_BLOCKS))
+class K2Plan(NamedTuple):
+    slots: int  # warps per row chunk
+    blocks: int
+
+
+@functools.cache
+def k2_plan(B: int, L: int, vec: int) -> K2Plan:
+    """K2's grid, a function of (B, L, vec) alone (so results repeat bit
+    for bit).  Rows of at most 32 vectors of ``vec`` floats fill a warp
+    with whole rows (a row group), wider rows are cut into chunks of 32
+    vectors; each (chunk, slot) warp takes DOT_UNROLL row groups a round.
+    One block where whole-row warps need at most two rounds (a one-block
+    grid skips the ticket), else one round a warp where that fits in
+    DOT_MAX_BLOCKS blocks, else the most warps that hold whole chunks.
+    E4 (512 x 16, vec 4): 8 slots, 1 block; 4096 x 513 (vec 1): 17
+    chunks x 248 slots, 527 blocks."""
+    cols = L // vec
+    nchunks = 1 if cols <= 32 else _cdiv(cols, 32)
+    groups = _cdiv(B, max(1, 32 // cols)) if cols <= 32 else B
+    if nchunks == 1 and _cdiv(groups, DOT_WARPS * DOT_UNROLL) <= 2:
+        slots = min(DOT_WARPS, _cdiv(groups, DOT_UNROLL))  # one block
+    else:
+        slots = min(_cdiv(groups, DOT_UNROLL),
+                    DOT_MAX_BLOCKS * DOT_WARPS // nchunks)
+    return K2Plan(slots=slots, blocks=_cdiv(slots * nchunks, DOT_WARPS))
+
+
+_TICKETS: dict = {}
+
+
+def _ticket(device, stream: int) -> torch.Tensor:
+    """K2's ticket counter for launches on ``stream``: one int32 zero
+    made once; every launch leaves it at zero."""
+    key = (device, stream)
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros((1,), dtype=torch.int32, device=device)
+    return _TICKETS[key]
 
 
 def weighted_dot(f: torch.Tensor, Tf: torch.Tensor, vmask: torch.Tensor):
@@ -268,13 +305,16 @@ def weighted_dot(f: torch.Tensor, Tf: torch.Tensor, vmask: torch.Tensor):
     _check("Tf", Tf, (B, L))
     _check("vmask", vmask, (L,))
     _check_sizes(B, L)
-    nblocks = dot_blocks(B * L)
+    vec = _vec(L, f, Tf, vmask)
+    plan = k2_plan(B, L, vec)
     opts = dict(device=f.device, dtype=torch.float32)
     out = torch.empty((), **opts)
-    partial = torch.empty((nblocks,), **opts) if nblocks > 1 else None
+    partial = torch.empty((plan.blocks,), **opts)
+    stream = _stream(f)
     _launch("gram_weighted_dot", f.data_ptr(), Tf.data_ptr(),
-            vmask.data_ptr(), None if partial is None else partial.data_ptr(),
-            out.data_ptr(), B, L, nblocks, _stream(f))
+            vmask.data_ptr(), partial.data_ptr(),
+            _ticket(f.device, stream).data_ptr(), out.data_ptr(), B, L,
+            plan.slots, plan.blocks, vec, stream)
     weighted_dot.launches += 1
     return out
 

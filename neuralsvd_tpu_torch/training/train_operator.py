@@ -9,13 +9,18 @@ A non-finite loss or gradient norm skips the whole update: parameters and
 optimizer state keep their old values, selected on the device with
 ``torch.where``, so the step never waits for the host.  ``metrics`` stay on
 the device; reading one (``float(metrics["loss"])``) synchronises.
+Stochastic operators (``needs_key``: the Hutchinson Laplacian) get a
+probe generator of their own, seeded from the step generator's seed and
+the step number, so the sample stream is the one the exact operator sees
+(JAX folds 0x0BE5 into the step key for the same end).
+
 The multi-step ``lax.scan`` path becomes the caller's Python loop.  Not
 ported yet (ROADMAP queue 1, item 8): monitor statistics, the host loop
 ``train_operator`` (eval cadence, rescue, profiling) and data parallelism.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -28,6 +33,14 @@ def global_norm(tensors) -> torch.Tensor:
         torch.stack([torch.linalg.vector_norm(t) for t in tensors]))
 
 
+PROBE_STREAM = 0x0BE5
+
+
+def probe_seed(seed: int, step: int) -> int:
+    """The probe generator's seed at ``step`` of a run seeded ``seed``."""
+    return hash((seed, PROBE_STREAM, step)) & (2 ** 63 - 1)
+
+
 def make_train_step(method, operator, optimizer, sampler: Callable,
                     importance: Optional[Callable] = None,
                     ema_decay: float = 0.99, grad_clip: float = 0.0):
@@ -37,12 +50,22 @@ def make_train_step(method, operator, optimizer, sampler: Callable,
     global gradient norm.  The state's params are updated in place; the
     same TrainState object is returned with its other fields replaced.
     """
+    stochastic_op = getattr(operator, "needs_key", False)
+    probe_gens: Dict[torch.device, torch.Generator] = {}
 
     def step(ts: TrainState, generator) -> tuple:
         x = sampler(generator)
         x = x.reshape(x.shape[0], -1)
+        op = operator
+        if stochastic_op:
+            if x.device not in probe_gens:
+                probe_gens[x.device] = torch.Generator(device=x.device)
+            probes = probe_gens[x.device].manual_seed(
+                probe_seed(generator.initial_seed(), ts.step))
+            op = lambda f, xv, importance=None: operator(  # noqa: E731
+                f, xv, importance, generator=probes)
         loss, grads, _, method_state = method.loss_and_grad(
-            ts.params, ts.method_state, x, operator, importance)
+            ts.params, ts.method_state, x, op, importance)
         gnorm = global_norm(grads.values())
         finite = torch.isfinite(loss) & torch.isfinite(gnorm)
         with torch.no_grad():

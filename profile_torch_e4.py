@@ -7,10 +7,13 @@
 two-tower configuration (Sketchy paper width, synthetic features), each
 exactly as chip_smoke.py does (full width), and
 
-1. times the train step with the loss on the plain path and on the
-   hand-written kernels, in turns (plain, kernels, kernels, plain), each
-   over --steps steps after a warm-up, on one card in one process;
-2. records --profile-steps kernel-path steps under torch.profiler and
+1. times two variants of the train step in turns (A, B, B, A), each over
+   --steps steps after a warm-up, on one card in one process: for E4 the
+   exact Laplacian by the forward-Laplacian engine ("forward", the
+   default) and by nested JVPs ("jvp"), both with the loss on the
+   hand-written kernels; for CDK the loss on the plain path and on the
+   kernels;
+2. records --profile-steps steps of each variant under torch.profiler and
    reports the device's busy share (kernel time over wall time), device
    time and launches per step, K1-K3's device time per call, and the
    kernels that take the most device time.
@@ -51,9 +54,10 @@ KERNEL_SHAPES.append(("cdk512", 2 * smoke.CDK_B, smoke.CDK_L))
 KERNEL_CALLS = 20
 
 
-def e4_runner(use_pallas):
+def e4_runner(use_pallas, laplacian_mode):
     """advance(n): n E4 train steps; returns the last loss."""
-    model, operator, _, sampler, importance = smoke._e4_setup("cuda")
+    model, operator, _, sampler, importance = smoke._e4_setup(
+        "cuda", laplacian_mode=laplacian_mode)
     method = NestedLoRA(model, neigs=smoke.NEIGS, sequential=True,
                         use_pallas=use_pallas)
     optimizer = torch_rmsprop(smoke.LR, alpha=smoke.ALPHA)
@@ -125,30 +129,21 @@ def _write_table(path, smi, prof, kernels):
         fh.write(prof.key_averages().table(sort_by=sort_by, row_limit=60))
 
 
-def profile_train(args, smi):
-    if args.path == "e4":
-        runs = {"plain": e4_runner(False), "kernels": e4_runner("auto")}
-    else:
-        train, _, _ = smoke._cdk_data()
-        batches = [tuple(torch.as_tensor(a, device="cuda") for a in b[:2])
-                   for _, b in zip(range(4), train)]
-        runs = {"plain": cdk_runner("false", batches),
-                "kernels": cdk_runner("auto", batches)}
-    rates = {"plain": [], "kernels": []}
-    for name in ("plain", "kernels", "kernels", "plain"):
-        rates[name].append(steps_per_s(runs[name], args.steps))
-
-    advance = runs["kernels"]
+def _profile(advance, steps):
+    """torch.profiler over ``steps`` steps: (profile, wall seconds)."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        advance(args.profile_steps)
+        advance(steps)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
+    return prof, wall_s
+
+
+def _step_profile(prof, wall_s, per):
     kernels = _cuda_events(prof)
     device_us = sum(_device_us(e) for e in kernels)
     n_launch = sum(e.count for e in kernels)
-    per = args.profile_steps
     ours = {}
     for short in OUR_KERNELS:
         hits = [e for e in kernels if short in e.key]
@@ -157,10 +152,7 @@ def profile_train(args, smi):
                        "device_us_per_call": (sum(_device_us(e) for e in hits) / count
                                               if count else None)}
     top = sorted(kernels, key=_device_us, reverse=True)[:12]
-    row = {
-        "path": args.path, "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-        "steps": args.steps, "steps_per_s": rates,
-        "steps_per_s_median": {k: statistics.median(v) for k, v in rates.items()},
+    return {
         "profiled_steps": per,
         "profiled_wall_ms_per_step": wall_s / per * 1e3,
         "device_ms_per_step": device_us / per / 1e3,
@@ -171,9 +163,36 @@ def profile_train(args, smi):
                          "device_ms_per_step": _device_us(e) / per / 1e3}
                         for e in top],
     }
+
+
+def profile_train(args, smi):
+    if args.path == "e4":
+        order = ("forward", "jvp")
+        runs = {mode: e4_runner("auto", mode) for mode in order}
+    else:
+        order = ("plain", "kernels")
+        train, _, _ = smoke._cdk_data()
+        batches = [tuple(torch.as_tensor(a, device="cuda") for a in b[:2])
+                   for _, b in zip(range(4), train)]
+        runs = {"plain": cdk_runner("false", batches),
+                "kernels": cdk_runner("auto", batches)}
+    rates = {name: [] for name in order}
+    for name in (order[0], order[1], order[1], order[0]):
+        rates[name].append(steps_per_s(runs[name], args.steps))
+    profiles = {}
+    for name in order:
+        prof, wall_s = _profile(runs[name], args.profile_steps)
+        profiles[name] = _step_profile(prof, wall_s, args.profile_steps)
+        if args.out:
+            _write_table(f"{args.out}.{name}", smi, prof, _cuda_events(prof))
+    row = {
+        "path": args.path, "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+        "steps": args.steps, "order": [order[0], order[1], order[1], order[0]],
+        "steps_per_s": rates,
+        "steps_per_s_median": {k: statistics.median(v) for k, v in rates.items()},
+        "profiles": profiles,
+    }
     print(json.dumps(row), flush=True)
-    if args.out:
-        _write_table(args.out, smi, prof, kernels)
 
 
 def profile_kernels(args, smi):

@@ -9,12 +9,16 @@ Every test is marked ``cuda`` and skips where torch sees no GPU.  Shapes
 are the CDK path's at the Sketchy paper width: f and g of 4096 rows and
 L = 512 + the constant mode = 513 columns (not a multiple of the kernels'
 64-wide tiles, nor of the 4 floats of a 16-byte copy), and a sweep of
-widths on both sides of the tile edges.
+widths on both sides of the tile edges; K2 also at the smoke's five shapes.
 """
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
-from neuralsvd_tpu_torch.ops import cuda_gram
+from neuralsvd_tpu_torch.data.samplers import get_sampler
+from neuralsvd_tpu_torch.models.wavefunctions import make_wavefunctions
+from neuralsvd_tpu_torch.operators.diff_ops import VectorizedLaplacian
+from neuralsvd_tpu_torch.ops import cuda_gram, forward_laplacian
 from neuralsvd_tpu_torch.ops.cuda_gram import nestedlora_cdk_loss_kernels
 from neuralsvd_tpu_torch.ops.masks import (
     joint_nesting_masks,
@@ -163,3 +167,67 @@ def test_cdk_packaging_matches_plain_loss(cuda_device, weights):
     for got, want in zip(grads[0], grads[1]):
         torch.testing.assert_close(got, want, rtol=GRAD_RTOL,
                                    atol=GRAD_ATOL * want.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L", [(512, 16), (96, 5), (2048, 64), (2000, 129), (4096, 513),
+                                 (4096, 512)])
+def test_weighted_dot_is_one_launch_and_repeats_bit_for_bit(cuda_device, B, L):
+    """K2 at the smoke's five shapes (and 4096 x 512, whose rows take
+    16-byte loads): one CUDA kernel a call, the same bits every call,
+    within 1e-5 of its plain version on |inputs|."""
+    gen = torch.Generator(device=cuda_device).manual_seed(B + L)
+    f = torch.randn(B, L, generator=gen, device=cuda_device)
+    tf = torch.randn(B, L, generator=gen, device=cuda_device)
+    w = torch.rand(L, generator=gen, device=cuda_device)
+    first = cuda_gram.weighted_dot(f, tf, w)
+    torch.cuda.synchronize()
+    calls = 3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        outs = [cuda_gram.weighted_dot(f, tf, w) for _ in range(calls)]
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+    assert all("weighted_dot_kernel" in k for k in kernels), kernels
+    assert sum(kernels.values()) == calls, kernels
+    assert all(torch.equal(first, o) for o in outs)
+    want = cuda_gram.weighted_dot_ref(f, tf, w)
+    scale = cuda_gram.weighted_dot_ref(f.abs(), tf.abs(), w)
+    assert ((first - want).abs() <= KERNEL_RTOL * scale).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("probes", [0, 2])
+def test_forward_engine_on_the_card(cuda_device, probes):
+    """The E4 wavefunction at a small width on the card, under √w
+    conjugation: the forward engine against nested JVPs (rtol 1e-4, atol
+    1e-5 of the largest entry), with no fallback call; with probes, the
+    Hutchinson estimate on the card equals the engine's l channel over the
+    same probes."""
+    kw = dict(ndim=2, neigs=6, mlp_hidden_dims=[32, 32], nonlinearity="softplus",
+              parallel=True, use_fourier_feature=True, fourier_mapping_size=16,
+              fourier_scale=0.1, fourier_append_radial=True,
+              fourier_append_envelopes=(2.0, 2 / 3), apply_boundary=False)
+    model = make_wavefunctions(**kw, device=cuda_device)
+    sample, imp = get_sampler("gaussian_mixture", 256, 1, 2, (0.5, 2.0, 6.0, 16.0),
+                              device=cuda_device)
+    x = sample(torch.Generator(device=cuda_device).manual_seed(0))
+    forward_laplacian.fallback_rule.calls = 0
+    with torch.no_grad():
+        if probes:
+            lap = VectorizedLaplacian(eps=-1.0, num_probes=probes)(
+                model, x, imp, generator=torch.Generator(device=cuda_device).manual_seed(1))[0]
+            r = forward_laplacian.rademacher(
+                (probes, 256, 2), torch.Generator(device=cuda_device).manual_seed(1),
+                x.dtype, cuda_device)
+            g = lambda xx: torch.sqrt(imp(xx)) * model(xx)  # noqa: E731
+            l = forward_laplacian.propagate(g, x, r)[2]
+            sqrt_ws = torch.clamp(torch.sqrt(imp(x)), min=1e-5)
+            assert torch.equal(lap, l / probes / sqrt_ws)
+        else:
+            got = VectorizedLaplacian(eps=-1.0)(model, x, imp, return_grad=True)
+            want = VectorizedLaplacian(eps=-1.0, exact_mode="jvp")(model, x, imp,
+                                                                   return_grad=True)
+            for a, b in zip(got, want):
+                torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * b.abs().max().item())
+    assert forward_laplacian.fallback_rule.calls == 0

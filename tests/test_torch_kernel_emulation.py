@@ -10,9 +10,12 @@ arithmetic, the copy mapping, the SYRK tile table, the split-K plan, the
 ring's waits and barriers and the fixed-order sums are checked here, on
 every CPU run, before a GPU sees them; speed and the PTX itself are not.
 
-K1 and K3 are held to 1e-5 of their plain versions on |inputs| (the f32
-rounding scale, as on the card), the grams must come out exactly
-symmetric, and a second call must repeat every bit.
+K1, K2 and K3 are held to 1e-5 of their plain versions on |inputs| (the
+f32 rounding scale, as on the card), the grams must come out exactly
+symmetric, and a second call must repeat every bit.  K2's blocks also run
+in reverse order, so the block that draws its last ticket (and sums the
+partials) is block 0 instead of the last one, and its ticket counter
+must be back at zero after every launch.
 """
 import ctypes
 import re
@@ -118,6 +121,27 @@ def _k3(dll, f1, f2, mlam1, mlam2, s1, s2):
     return g1, g2
 
 
+def _k2(dll, f, tf, w, slots=None):
+    """K2 through the C launcher, with the wrapper's plan or with ``slots``
+    warps a row chunk; the ticket counter must come back to zero."""
+    B, L = f.shape
+    vec = cuda_gram._vec(L, f, tf, w)
+    plan = cuda_gram.k2_plan(B, L, vec)
+    if slots is not None:
+        cols = L // vec
+        nchunks = 1 if cols <= 32 else -(-cols // 32)
+        plan = cuda_gram.K2Plan(slots=slots, blocks=-(-slots * nchunks // cuda_gram.DOT_WARPS))
+    partial = torch.full((plan.blocks,), float("nan"))
+    ticket = torch.zeros((1,), dtype=torch.int32)
+    out = torch.full((), float("nan"))
+    rc = dll.gram_weighted_dot(f.data_ptr(), tf.data_ptr(), w.data_ptr(),
+                               partial.data_ptr(), ticket.data_ptr(), out.data_ptr(),
+                               B, L, plan.slots, plan.blocks, vec, None)
+    assert rc == 0
+    assert int(ticket) == 0
+    return out, vec
+
+
 def _within(got, want, scale):
     for a, b, sc in zip(got, want, scale):
         assert torch.isfinite(a).all()
@@ -166,3 +190,40 @@ def test_emulated_kernels_take_4_byte_copies_of_misaligned_rows(emulated):
     f2 = flat[1 + B * L:].view(B, L)
     assert cuda_gram._vec(L, f1, f2) == 1
     _check(emulated, f1, f2, "joint", defer=True)
+
+
+# (rows, modes, slots): E4, a narrow odd width, widths on both sides of a
+# warp's 32 vectors and of the 16-byte loads, with the wrapper's plan
+# (slots None); and with a few slots, so that each warp strides over many
+# rounds of row groups in every chunk, as the grid's cap makes it do at
+# the CDK pair (4096 x 513: 17 chunks, 248 slots, ~4 rounds), at a
+# fraction of its 527 blocks
+K2_CASES = [(512, 16, None), (96, 5, None), (33, 1, None), (70, 128, None), (40, 129, None),
+            (200, 129, None), (100, 512, None), (64, 513, 5), (300, 512, 3), (2000, 129, 7)]
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("B,L,slots", K2_CASES)
+def test_emulated_k2_matches_plain_version(emulated, B, L, slots, reverse):
+    """One launch per call at every shape; within 1e-5 of the plain
+    version on |inputs|, bit for bit on a second call, with the copy width
+    the wrapper picks (16 bytes where L % 4 == 0); where L % 4 == 0 a row
+    view one float off its storage's alignment takes the 4-byte path."""
+    ctypes.c_int.in_dll(emulated, "emu_reverse").value = int(reverse)
+    rng = np.random.default_rng(B * 7 + L)
+    flat = torch.as_tensor(rng.standard_normal(2 * B * L + 1, dtype=np.float32))
+    w = torch.as_tensor(rng.random(L, dtype=np.float32))
+    views = [(flat[:B * L].view(B, L), flat[B * L:2 * B * L].view(B, L))]
+    if L % 4 == 0:  # the same rows one float off: 4-byte loads
+        views.append((flat[1:1 + B * L].view(B, L), flat[1 + B * L:].view(B, L)))
+    try:
+        for f, tf in views:
+            got, vec = _k2(emulated, f, tf, w, slots)
+            want = cuda_gram.weighted_dot_ref(f, tf, w)
+            scale = cuda_gram.weighted_dot_ref(f.abs(), tf.abs(), w)
+            assert abs(got.item() - want.item()) <= KERNEL_RTOL * scale.item()
+            assert torch.equal(got, _k2(emulated, f, tf, w, slots)[0])
+            assert vec == (4 if L % 4 == 0 and f.data_ptr() % 16 == 0 else 1)
+    finally:
+        ctypes.c_int.in_dll(emulated, "emu_reverse").value = 0
+    assert ctypes.c_int.in_dll(emulated, "emu_faults").value == 0

@@ -237,6 +237,26 @@ def test_k1_plan_at_the_e4_shape():
     assert cuda_gram.k1_plan(256, 16).launches <= 2
 
 
+@pytest.mark.parametrize("B,L,vec", [(512, 16, 4), (96, 5, 1), (2048, 64, 4), (2000, 129, 1),
+                                     (4096, 513, 1), (4096, 512, 4), (1, 1, 1)])
+def test_k2_plan_covers_every_row_and_column(B, L, vec):
+    """K2's grid: every (chunk, slot) warp exists, every row group falls
+    to a slot, the grid stays within DOT_MAX_BLOCKS, E4 is one block and
+    the CDK pair fills the card."""
+    plan = cuda_gram.k2_plan(B, L, vec)
+    cols = L // vec
+    nchunks = 1 if cols <= 32 else -(-cols // 32)
+    rows_per_group = 32 // cols if cols <= 32 else 1
+    groups = -(-B // rows_per_group)
+    assert plan.blocks * cuda_gram.DOT_WARPS >= plan.slots * nchunks
+    assert 1 <= plan.slots <= groups
+    assert plan.blocks <= cuda_gram.DOT_MAX_BLOCKS
+    if (B, L) == (512, 16):
+        assert plan.blocks == 1
+    if (B, L) == (4096, 513):
+        assert plan.blocks >= 3 * cuda_gram.NUM_SMS
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():

@@ -107,13 +107,18 @@ def test_fd_laplacian_matches_jax(carried):
                                atol=1e-5 * fscale)
 
 
-@pytest.mark.parametrize("potential,eps,scale,shift", [
-    ("hydrogen", -1.0, 100.0, 0.0),
-    ("hydrogen", -1.0, 1.0, 3.0),
-    ("harmonic_oscillator", 0.1, 1.0, 10.0),
+@pytest.mark.parametrize("potential,eps,scale,shift,port_mode", [
+    pytest.param("hydrogen", -1.0, 100.0, 0.0, "jvp", id="hydrogen--1.0-100.0-0.0"),
+    pytest.param("hydrogen", -1.0, 1.0, 3.0, "jvp", id="hydrogen--1.0-1.0-3.0"),
+    pytest.param("harmonic_oscillator", 0.1, 1.0, 10.0, "jvp",
+                 id="harmonic_oscillator-0.1-1.0-10.0"),
+    pytest.param("hydrogen", -1.0, 100.0, 0.0, "forward", id="hydrogen-forward"),
+    pytest.param("harmonic_oscillator", -1.0, 1.0, 10.0, "forward",
+                 id="harmonic_oscillator-forward"),
 ])
-def test_hamiltonian_matches_jax(carried, potential, eps, scale, shift):
-    """(Tf, fs) of -H under √w conjugation and the affine wrapper, against
+def test_hamiltonian_matches_jax(carried, potential, eps, scale, shift, port_mode):
+    """(Tf, fs) of -H under √w conjugation and the affine wrapper, the
+    port's Laplacian taken by nested JVPs or by its forward engine, against
     JAX's nested-JVP path and, for the exact Laplacian, its forward engine
     too (rtol 1e-4, atol 1e-5 of Tf's scale: float32 Laplacian)."""
     jf, model = carried
@@ -122,7 +127,7 @@ def test_hamiltonian_matches_jax(carried, potential, eps, scale, shift):
     _, timp = get_sampler("gaussian_mixture", 8, 1, 2, MIX, device="cpu")
     kw = dict(problem="sch", potential_type=potential, ndim=2, neigs=4,
               laplacian_eps=eps, operator_scale=scale, operator_shift=shift)
-    top, tgt, _ = get_problem(**kw, laplacian_mode="jvp")
+    top, tgt, _ = get_problem(**kw, laplacian_mode=port_mode)
     Tf_t, fs_t = top(model, torch.as_tensor(x), timp)
     modes = ("jvp", "forward") if eps <= 0 else ("jvp",)
     for mode in modes:
@@ -150,12 +155,12 @@ def test_tf_carries_no_gradient_and_fs_does(carried):
     assert all(torch.isfinite(g).all() and g.abs().sum() > 0 for g in grads)
 
 
+# ids as when the forward engine and the Hutchinson probes, now ported,
+# were the first two cases
 @pytest.mark.parametrize("kw", [
-    dict(laplacian_eps=-1.0, laplacian_mode="forward"),
-    dict(laplacian_eps=-1.0, laplacian_mode="jvp", laplacian_probes=2),
     dict(potential_type="cosine", laplacian_mode="jvp"),
     dict(problem="fp"),
-])
+], ids=["kw2", "kw3"])
 def test_unported_operator_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_problem(**kw)

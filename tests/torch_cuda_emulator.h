@@ -2,12 +2,15 @@
 // neuralsvd_tpu_torch/csrc/gram_kernels.cu on the host for
 // tests/test_torch_kernel_emulation.py.
 //
-// Each block runs as kThreads host threads; __syncthreads is a barrier of
-// the block, __shfl_down_sync one of the warp.  cp.async copies run at
-// once (emu_defer = 0) or at the wait that must see them (emu_defer = 1),
-// so a stage read before its wait, or written while another warp still
-// reads it, gives wrong sums in one of the two modes.  A copy from or to a
-// misaligned address counts in emu_faults.
+// A launch runs its blocks one after another, in grid order or, with
+// emu_reverse = 1, in reverse (so the block that draws a kernel's last
+// ticket is a different one); a block's threads are host threads;
+// __syncthreads is a barrier of the block, __shfl_down_sync one of the
+// warp.  cp.async copies run at once (emu_defer = 0) or at the wait that
+// must see them (emu_defer = 1), so a stage read before its wait, or
+// written while another warp still reads it, gives wrong sums in one of
+// the two modes.  A copy from or to a misaligned address counts in
+// emu_faults.  Integer atomics take a lock; __threadfence is a full fence.
 #pragma once
 #include <algorithm>
 #include <atomic>
@@ -17,6 +20,7 @@
 #include <cstring>
 #include <functional>
 #include <memory>
+#include <mutex>
 #include <thread>
 #include <vector>
 
@@ -56,6 +60,7 @@ inline dim3 gridDim, blockDim;
 
 extern "C" {
 int emu_defer = 0;
+int emu_reverse = 0;
 int emu_faults = 0;
 }
 
@@ -64,6 +69,19 @@ inline std::barrier<>* emu_warp_barrier[32];
 inline float emu_lanes[1024];
 
 inline void __syncthreads() { emu_block_barrier->arrive_and_wait(); }
+
+inline std::mutex emu_atomic_mutex;
+
+inline unsigned atomicInc(unsigned* address, unsigned val) {
+  std::lock_guard<std::mutex> lock(emu_atomic_mutex);
+  const unsigned old = *address;
+  *address = old >= val ? 0u : old + 1u;
+  return old;
+}
+
+inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
+
+inline float __ldcg(const float* p) { return *p; }
 
 inline float __shfl_down_sync(unsigned, float v, int offset) {
   const int t = threadIdx.x;
@@ -124,34 +142,41 @@ inline void cp_async_wait() {
   }
 }
 
-// Runs the grid block by block, each block's threads at once.
+// Runs the grid block by block (in reverse when emu_reverse is set), each
+// block's threads at once: the same host threads serve every block.
 inline void emu_launch(dim3 grid, int threads,
                        const std::function<void()>& body) {
   gridDim = grid;
   blockDim = dim3(threads);
+  std::vector<uint3> order;
   for (unsigned z = 0; z < grid.z; ++z) {
     for (unsigned y = 0; y < grid.y; ++y) {
-      for (unsigned x = 0; x < grid.x; ++x) {
-        blockIdx = {x, y, z};
-        std::barrier<> block(threads);
-        emu_block_barrier = &block;
-        std::vector<std::unique_ptr<std::barrier<>>> warps;
-        for (int w = 0; w < threads / 32; ++w) {
-          warps.emplace_back(new std::barrier<>(32));
-          emu_warp_barrier[w] = warps.back().get();
-        }
-        std::vector<std::thread> team;
-        for (int t = 0; t < threads; ++t) {
-          team.emplace_back([&, t] {
-            threadIdx = {static_cast<unsigned>(t), 0, 0};
-            emu_groups.clear();
-            emu_open.clear();
-            body();
-          });
-        }
-        for (std::thread& th : team) th.join();
-      }
+      for (unsigned x = 0; x < grid.x; ++x) order.push_back({x, y, z});
     }
   }
+  if (emu_reverse) std::reverse(order.begin(), order.end());
+  size_t next = 0;
+  auto advance = [&]() noexcept { blockIdx = order[next++]; };
+  std::barrier<decltype(advance)> gate(threads, advance);
+  std::barrier<> block(threads);
+  emu_block_barrier = &block;
+  std::vector<std::unique_ptr<std::barrier<>>> warps;
+  for (int w = 0; w < threads / 32; ++w) {
+    warps.emplace_back(new std::barrier<>(32));
+    emu_warp_barrier[w] = warps.back().get();
+  }
+  std::vector<std::thread> team;
+  for (int t = 0; t < threads; ++t) {
+    team.emplace_back([&, t] {
+      threadIdx = {static_cast<unsigned>(t), 0, 0};
+      for (size_t i = 0; i < order.size(); ++i) {
+        gate.arrive_and_wait();  // the last thread to arrive sets blockIdx
+        emu_groups.clear();
+        emu_open.clear();
+        body();
+      }
+    });
+  }
+  for (std::thread& th : team) th.join();
   emu_faults = emu_fault_count.load();
 }
