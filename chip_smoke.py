@@ -37,7 +37,25 @@ seconds:
               constant mode) on the towers' outputs: kernel packaging vs
               plain loss, with and without batch weights, ratios included;
               the towers on the GPU vs a CPU copy on a small batch;
-7. cdk_train  the Sketchy CDK trainer (cli/sketchy.py::run_training) at the
+7. pde_cli    the PDE entry point (neuralsvd_tpu_torch.cli.pde.main) on the
+              E4 flags (PDE_E4_ARGV) for PDE_ITERS steps in graph blocks of
+              PDE_BLOCK with an eval every PDE_EVAL: every loss finite, no
+              skipped step, the checkpoints, CSV, stats.npz and health
+              report there; the kernels' launches measured in that run:
+              the wrappers count the eager ones (the warm-up before the
+              capture) and the trace of the CLI's own --profile window
+              over one of its graph blocks counts the replayed ones, one
+              launch of each kernel a step; then --resume to PDE_RESUME_ITERS from the last
+              checkpoint; one block replayed as a graph against the same
+              block as eager steps from the same state and seed; one
+              replayed block under the profiler (device busy share,
+              kernels a step, one K1, K2 and K3 launch a step); the README
+              quick start's model (shared trunk, box mask, finite
+              differences) for PDE_DEFAULT_ITERS steps and one eval, its
+              launches measured in the same way; and steps/s of E4 CLI
+              runs as eager steps and as graph blocks (cli.pde.main's
+              use_graph), in turns (eager, graph, graph, eager);
+8. cdk_train  the Sketchy CDK trainer (cli/sketchy.py::run_training) at the
               paper's width (512-8192-512 lrelu0.2 towers, L 512, B 4096,
               SGD momentum 0.9, lr 5e-3 warmup-cosine, grad clip 1.0, joint
               nesting) on synthetic class-correlated 512-d features, two
@@ -49,15 +67,20 @@ seconds:
               alone on device-resident batches and its peak device memory.
 
 Then the {"kernels": [...]} line (numbers at the CDK shape, launches of
-both main paths, per-path numbers under "paths", every shape's under
-"shapes"), the nvidia-smi line and,
+the three main paths (e4 trainer, pde_cli, cdk; pde_cli's are the eager
+launches counted by the wrappers plus the replayed launches counted in the
+traced block, each also under "paths"), per-path numbers under "paths",
+every shape's under "shapes"), the nvidia-smi line and,
 last, {"ok": true, "device": {...}}.  Any failed check raises: the exit
 code is then non-zero and the last line is never printed.  Without a GPU it
 raises before printing anything.
 """
+import contextlib
 import copy
 import csv
+import io
 import json
+import logging
 import os
 import shutil
 import statistics
@@ -68,6 +91,7 @@ import time
 import numpy as np
 import torch
 
+from neuralsvd_tpu_torch.cli import pde
 from neuralsvd_tpu_torch.cli.sketchy import get_args, make_trainer, run_training
 from neuralsvd_tpu_torch.data.samplers import get_sampler
 from neuralsvd_tpu_torch.data.sketchy import ArrayPairLoader
@@ -85,9 +109,23 @@ from neuralsvd_tpu_torch.ops.masks import (
     step_weights,
 )
 from neuralsvd_tpu_torch.ops.nestedlora import nestedlora_cdk_loss
-from neuralsvd_tpu_torch.training.optimizers import torch_rmsprop
-from neuralsvd_tpu_torch.training.train_operator import make_train_step
-from neuralsvd_tpu_torch.training.train_state import init_train_state
+from neuralsvd_tpu_torch.training.optimizers import (
+    build_optimizer,
+    cosine_annealing,
+    torch_rmsprop,
+)
+from neuralsvd_tpu_torch.training.train_operator import (
+    GRAPH_WARMUP_STEPS,
+    PROFILE_MARGIN_S,
+    make_scanned_train_step,
+    make_train_step,
+)
+from neuralsvd_tpu_torch.training.train_state import (
+    init_train_state,
+    load_state_tree,
+    state_tree,
+)
+from neuralsvd_tpu_torch.utils.config import parse_pde_config, run_name
 
 # E4 (bench.py:29-92, BASELINE.md E4)
 NEIGS, BATCH, NDIM = 16, 512, 2
@@ -101,6 +139,36 @@ WARMUP_STEPS = 20
 VAL_POINTS = 4096
 SEED = 0
 DEVICE = "cuda"
+
+# the PDE CLI: the E4 flags (bench.py:33-92, scripts/validate_northstar.py),
+# of which only the number of steps is cut (800k in the E4 recipe)
+PDE_E4_ARGV = ("--potential_type hydrogen --ndim 2 --neigs 16 --parallel true "
+               "--apply_boundary false --laplacian_eps -1 --operator_scale 100 "
+               "--use_fourier_feature true --fourier_mapping_size 1024 "
+               "--fourier_scale 0.1 --fourier_append_radial true "
+               "--fourier_append_envelopes 2,0.6667,0.4,0.2857 "
+               "--sampling_mode gaussian_mixture --sampling_scales 0.5,2,6,16 "
+               "--batch_size 512 --optimizer rmsprop --lr 1e-4 --use_lr_scheduler true "
+               "--ema_decay 0.995 --neuralsvd.sequential true --seed 0").split()
+PDE_ITERS, PDE_BLOCK, PDE_EVAL, PDE_RESUME_ITERS = 2000, 500, 1000, 3000
+# the README quick start (README.md:164-172), cut to PDE_DEFAULT_ITERS steps
+PDE_README_ARGV = ("--potential_type hydrogen --ndim 2 --neigs 16 --lim 32 "
+                   "--operator_scale 100 --laplacian_eps 0.1 --use_fourier_feature true "
+                   "--fourier_mapping_size 256 --fourier_scale 0.1 "
+                   "--mlp_hidden_dims 128,128,128 --nonlinearity softplus "
+                   "--sampling_mode gaussian --sampling_scale 16 --batch_size 512 "
+                   "--optimizer rmsprop --lr 1e-4 --seed 0").split()
+PDE_DEFAULT_ITERS, PDE_DEFAULT_BLOCK = 500, 250
+PDE_TURN_ITERS = 2 * PDE_BLOCK  # steps of each timed CLI run, no eval
+# the CLI's --profile window: one graph block of each run (E4: steps
+# 1000-1500 of 2000; README model: 250-500 of 500), traced to count the
+# replayed launches (a trace of a whole run would overflow the profiler's
+# device buffers: ~500 kernels a step)
+PDE_E4_TRACED = (PDE_EVAL, PDE_BLOCK)
+PDE_DEFAULT_TRACED = (PDE_DEFAULT_BLOCK, PDE_DEFAULT_BLOCK)
+PDE_PROFILE_STEPS = 50  # the profiled replayed block
+# graph block vs eager steps from one state: rtol, atol of the largest entry
+PDE_STATE_RTOL, PDE_STATE_ATOL = 1e-5, 1e-6
 
 # CDK: the Sketchy paper's configuration (scripts/exps/sketchy.sh:15-36) on
 # synthetic features; joint nesting (the script's intent, see ROADMAP §3)
@@ -141,6 +209,10 @@ KERNEL_SOURCE = "neuralsvd_tpu_torch/csrc/gram_kernels.cu"
 CUDA_KERNELS = ("masked_gram_syrk_kernel", "masked_gram_finish_kernel",
                 "sum_partials_kernel", "weighted_dot_kernel",
                 "metric_grads_kernel")
+# each wrapper's kernel as the profiler names it (K1: its SYRK pass)
+GRAM_KERNELS = {"masked_gram_pair": "masked_gram_syrk_kernel",
+                "weighted_dot": "weighted_dot_kernel",
+                "metric_grads": "metric_grads_kernel"}
 REPLACES = {
     "masked_gram_pair": "neuralsvd_tpu/ops/pallas_gram.py:64",
     "weighted_dot": "neuralsvd_tpu/ops/pallas_gram.py:137",
@@ -496,6 +568,258 @@ def phase_hutchinson(model, importance, x):
          last_loss=float(losses[-1]), steps_per_s=rate)
 
 
+class _Records(logging.Handler):
+    """Keeps the port's log records of a run (print rows, health reports,
+    the resume line)."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record)
+
+
+def _pde_run(argv, log_dir, timings=None, use_graph=True):
+    """neuralsvd_tpu_torch.cli.pde.main on ``argv``: (state, eigvals, run
+    dir, log records); the text spectrum plots it prints are dropped."""
+    cfg = parse_pde_config(argv + ["--log_dir", log_dir, "--device", DEVICE])
+    records = _Records()
+    port_log = logging.getLogger("neuralsvd_tpu_torch")
+    port_log.addHandler(records)
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            ts, eigvals, _ = pde.main(cfg, timings=timings, use_graph=use_graph)
+    finally:
+        port_log.removeHandler(records)
+    return ts, eigvals, os.path.join(log_dir, run_name(cfg)), records.records
+
+
+def _rows(records):
+    return [r.args for r in records if r.msg == "%s" and isinstance(r.args, dict)
+            and "iter" in r.args]
+
+
+def _check_run(label, ts, eigvals, run_dir, records, iters, evals):
+    """Every print row finite and without skips, the evals' NEIGS
+    eigenvalues finite, the files of a run and one health report an eval."""
+    rows = _rows(records)
+    check(rows and rows[-1]["iter"] == iters, f"{label}: rows {rows}")
+    check(all(np.isfinite(r["train_loss"]) for r in rows), f"{label}: non-finite loss")
+    check(all("skips" not in r for r in rows), f"{label}: skipped steps {rows}")
+    check(int(ts.step) == iters, f"{label}: step {int(ts.step)}")
+    check(len(eigvals) == len(evals), f"{label}: {len(eigvals)} evals")
+    check(all(np.shape(e) == (NEIGS,) and np.isfinite(e).all() for e in eigvals),
+          f"{label}: eigenvalues {eigvals}")
+    names = set(os.listdir(run_dir))
+    want = {"stats.npz"} | {f"ckpt_{it}" for it in evals}
+    check(want <= names and any(n.endswith(".csv") for n in names),
+          f"{label}: files {sorted(names)}")
+    health = [r for r in records if "mode health" in r.msg]
+    check(len(health) == len(evals), f"{label}: {len(health)} health reports")
+    return rows, [r.getMessage().split("\n", 1)[-1] for r in health]
+
+
+def _profile_argv(traced):
+    start, steps = traced
+    return ["--profile", "true", "--profile_start", str(start),
+            "--profile_steps", str(steps)]
+
+
+def _measured_launches(label, run_dir, traced):
+    """Each gram kernel's launches in a CLI run, measured: the wrappers'
+    counts since the last reset (the eager launches; a capture launches
+    nothing and replays do not call the wrappers) and the kernel events in
+    the trace of the run's --profile window ``traced`` (start, steps), one
+    graph block, K1 by its SYRK pass.  Checks one eager launch each a
+    warm-up step and one replayed launch each a traced step."""
+    eager = cuda_gram.launch_counts()
+    with open(os.path.join(run_dir, "profile", "trace.json")) as fh:
+        events = json.load(fh)["traceEvents"]
+    names = [e.get("name", "") for e in events
+             if str(e.get("cat", "")).lower() == "kernel"]
+    check(names, f"{label}: the profile window's trace holds no kernel")
+    traced_n = {w: sum(k in n for n in names) for w, k in GRAM_KERNELS.items()}
+    check(all(n == GRAPH_WARMUP_STEPS for n in eager.values()),
+          f"{label}: eager launches {eager} != {GRAPH_WARMUP_STEPS} warm-up steps each")
+    check(all(n == traced[1] for n in traced_n.values()),
+          f"{label}: traced launches {traced_n} != {traced[1]} steps each")
+    return {w: {"launches": eager[w] + traced_n[w], "eager": eager[w],
+                "traced": traced_n[w], "traced_steps": list(traced)}
+            for w in GRAM_KERNELS}, len(names) / traced[1]
+
+
+def _block_rate(timings, kind):
+    """Steps/s of the last block of ``kind`` (the first graph block also
+    captures)."""
+    n, seconds = timings[kind][-1]
+    return n / seconds
+
+
+def _pde_setup(ts_tree, steps_per_call, use_graph, laplacian_probes=0):
+    """The E4 model, problem and sampler with the CLI's optimizer (RMSprop,
+    cosine over PDE_ITERS), a block of ``steps_per_call`` steps and a
+    TrainState loaded from ``ts_tree``."""
+    model, operator, _, sampler, importance = _e4_setup(
+        DEVICE, laplacian_probes=laplacian_probes)
+    method = NestedLoRA(model, neigs=NEIGS, sequential=True)
+    optimizer = build_optimizer("rmsprop", LR, lr_schedule=cosine_annealing(LR, PDE_ITERS))
+    block = make_scanned_train_step(method, operator, optimizer, sampler,
+                                    importance=importance, ema_decay=EMA_DECAY,
+                                    steps_per_call=steps_per_call, seed=SEED,
+                                    use_graph=use_graph)
+    ts = init_train_state(model, optimizer, method)
+    load_state_tree(ts, ts_tree)
+    return ts, block
+
+
+def _state_excess(got, want):
+    """Largest |got - want| over (rtol·|want| + atol·max|want|), leaf by leaf,
+    and whether every leaf is equal bit for bit."""
+    if isinstance(want, torch.Tensor):
+        if not want.is_floating_point():
+            return (0.0 if torch.equal(got, want) else float("inf")), torch.equal(got, want)
+        return _excess(got, want, PDE_STATE_RTOL, PDE_STATE_ATOL), torch.equal(got, want)
+    items = (zip(got, want) if isinstance(want, (list, tuple))
+             else ((got[k], want[k]) for k in want))
+    worst, same = 0.0, True
+    for a, b in items:
+        e, eq = _state_excess(a, b)
+        worst, same = max(worst, e), same and eq
+    return worst, same
+
+
+def _profile_block(block, ts, start):
+    """One replayed block under torch.profiler: device busy share, kernels
+    and device ms a step, and each gram kernel's launches a step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    block(ts, start)  # captures
+    torch.cuda.synchronize()
+    # the window opens and closes on an idle device (see PROFILE_MARGIN_S)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
+        t0 = time.perf_counter()
+        block(ts, start + block.steps_per_call)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        time.sleep(PROFILE_MARGIN_S)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(kernels, "the profiler recorded no CUDA kernel in a replayed block")
+    n = block.steps_per_call
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+
+    device_us_total = sum(device_us(e) for e in kernels)
+    per_step = {k: sum(e.count for e in kernels if k in e.key) / n
+                for k in GRAM_KERNELS.values()}
+    check(all(v == 1 for v in per_step.values()),
+          f"gram kernels a step in a replayed block: {per_step}")
+    return {"steps": n, "wall_ms_per_step": wall_s / n * 1e3,
+            "device_ms_per_step": device_us_total / n / 1e3,
+            "device_busy_share": device_us_total / 1e6 / wall_s,
+            "kernels_per_step": sum(e.count for e in kernels) / n,
+            "gram_kernels_per_step": per_step}
+
+
+def phase_pde_cli():
+    """The PDE entry point at full width, through its normal arguments."""
+    e4 = PDE_E4_ARGV + ["--print_freq", str(PDE_BLOCK), "--eval_freq", str(PDE_EVAL)]
+    evals = list(range(PDE_EVAL, PDE_ITERS + 1, PDE_EVAL))
+    with tempfile.TemporaryDirectory() as tmp:
+        # the E4 run: graph blocks, two evals
+        timings = {}
+        cuda_gram.reset_launch_counts()
+        t0 = time.perf_counter()
+        ts, eigvals, run_dir, records = _pde_run(
+            e4 + ["--num_iters", str(PDE_ITERS)] + _profile_argv(PDE_E4_TRACED),
+            os.path.join(tmp, "e4"), timings)
+        run_s = time.perf_counter() - t0
+        rows, health = _check_run("e4", ts, eigvals, run_dir, records, PDE_ITERS, evals)
+        launches, traced_kernels = _measured_launches("e4", run_dir, PDE_E4_TRACED)
+        check([n for n, _ in timings.get("block_graph", [])] == [PDE_BLOCK] * (
+            PDE_ITERS // PDE_BLOCK) and "block_eager" not in timings,
+              f"E4 blocks {timings}")
+        tickets = {str(k): v for k, v in cuda_gram.ticket_values().items()}
+        check(all(v == 0 for v in tickets.values()), f"K2 tickets {tickets}")
+        trained = state_tree(ts)
+
+        # --resume: the run of PDE_RESUME_ITERS finds the last checkpoint
+        resume_argv = e4 + ["--num_iters", str(PDE_RESUME_ITERS), "--resume", "true"]
+        resume_dir = os.path.join(tmp, "e4", run_name(parse_pde_config(resume_argv)))
+        os.makedirs(resume_dir)
+        shutil.copy(os.path.join(run_dir, f"ckpt_{PDE_ITERS}"), resume_dir)
+        rtimings = {}
+        rts, reigvals, _, rrecords = _pde_run(resume_argv, os.path.join(tmp, "e4"),
+                                              rtimings)
+        resumed = [r.args[1] for r in rrecords if r.msg.startswith("resuming from")]
+        check(resumed == [PDE_ITERS], f"resume started at {resumed}")
+        _check_run("resume", rts, reigvals, resume_dir, rrecords, PDE_RESUME_ITERS,
+                   [PDE_RESUME_ITERS])
+        check(len(rtimings.get("block_graph", [])) == (PDE_RESUME_ITERS - PDE_ITERS) // PDE_BLOCK,
+              f"resumed blocks {rtimings}")
+
+        # one block as a graph and as eager steps, from the trained state
+        gts, graph = _pde_setup(trained, PDE_BLOCK, use_graph=True)
+        graph(gts, PDE_ITERS)
+        torch.cuda.synchronize()
+        check(graph.graph is not None, "the block did not capture")
+        tickets_after = {str(k): v for k, v in cuda_gram.ticket_values().items()}
+        check(all(v == 0 for v in tickets_after.values()), f"K2 tickets {tickets_after}")
+        ets, eager = _pde_setup(trained, PDE_BLOCK, use_graph=False)
+        eager(ets, PDE_ITERS)
+        excess, bitwise = _state_excess(state_tree(gts), state_tree(ets))
+        check(excess <= 1.0, f"graph vs eager block: {excess:.3g}x tolerance")
+
+        # one replayed block under the profiler
+        pts, pblock = _pde_setup(trained, PDE_PROFILE_STEPS, use_graph=True)
+        prof = _profile_block(pblock, pts, PDE_ITERS)
+
+        # the README quick start's model: shared trunk, box mask, FD Laplacian
+        cuda_gram.reset_launch_counts()
+        dtimings = {}
+        dts, deigvals, drun_dir, drecords = _pde_run(
+            PDE_README_ARGV + ["--num_iters", str(PDE_DEFAULT_ITERS), "--print_freq",
+                               str(PDE_DEFAULT_BLOCK), "--eval_freq",
+                               str(PDE_DEFAULT_ITERS)] + _profile_argv(PDE_DEFAULT_TRACED),
+            os.path.join(tmp, "readme"), dtimings)
+        _check_run("readme", dts, deigvals, drun_dir, drecords, PDE_DEFAULT_ITERS,
+                   [PDE_DEFAULT_ITERS])
+        dlaunches, dtraced_kernels = _measured_launches("readme", drun_dir,
+                                                        PDE_DEFAULT_TRACED)
+
+        # steps/s through the CLI: eager, graph, graph, eager (no eval)
+        rates = {"eager": [], "graph": []}
+        for path in ("eager", "graph", "graph", "eager"):
+            tt = {}
+            _pde_run(PDE_E4_ARGV + ["--num_iters", str(PDE_TURN_ITERS), "--print_freq",
+                                    str(PDE_BLOCK), "--eval_freq", str(10 ** 9)],
+                     os.path.join(tmp, f"turn{len(rates[path])}{path}"), tt,
+                     use_graph=(path == "graph"))
+            rates[path].append(_block_rate(tt, f"block_{path}"))
+    emit("pde_cli", argv=PDE_E4_ARGV, iters=PDE_ITERS, block=PDE_BLOCK,
+         eval_freq=PDE_EVAL, run_s=run_s, launches=launches,
+         traced_block_kernels_per_step=traced_kernels, tickets=tickets,
+         rows=rows, eigvals=np.asarray(eigvals[-1]).tolist(), health=health,
+         eval_s=timings["eval"], block_s=timings.get("block_graph"),
+         graph_block_steps_per_s=_block_rate(timings, "block_graph"),
+         resume={"started_at": resumed[0], "iters": PDE_RESUME_ITERS,
+                 "eigvals": np.asarray(reigvals[-1]).tolist()},
+         graph_vs_eager={"steps": PDE_BLOCK, "tol_used": excess, "bit_for_bit": bitwise,
+                         "rtol": PDE_STATE_RTOL, "atol_of_max": PDE_STATE_ATOL},
+         replayed_block_profile=prof,
+         readme_model={"iters": PDE_DEFAULT_ITERS, "launches": dlaunches,
+                       "traced_block_kernels_per_step": dtraced_kernels,
+                       "eigvals": np.asarray(deigvals[-1]).tolist(),
+                       "eval_s": dtimings["eval"],
+                       "block_s": dtimings.get("block_graph")},
+         cli_steps_per_s_in_turns={"order": ["eager", "graph", "graph", "eager"],
+                                   "steps_per_block": PDE_BLOCK, **rates})
+    return launches
+
+
 def _cdk_data():
     """Synthetic class-correlated 512-d features, made in bulk from SEED
     (the recipe of tests/test_cdk_retrieval.py:63-77): per-class centres
@@ -640,7 +964,9 @@ def main():
     phase_build()
     rows = phase_kernels()
     e4_counts, model, importance, x = phase_trainer()
-    counts = {"e4": e4_counts}
+    pde_launches = phase_pde_cli()
+    counts = {"e4": e4_counts,
+              "pde_cli": {k: v["launches"] for k, v in pde_launches.items()}}
     phase_hutchinson(model, importance, x)
     train, test, valid = _cdk_data()
     phase_cdk_loss(train)
@@ -652,7 +978,8 @@ def main():
                         **{k: at[shape][k] for k in ("B", "L", "max_abs_err", "ms",
                                                       "plain_ms", "bound_ms",
                                                       "bound_by", "library_ms")}}
-                 for path, shape in (("e4", "E4"), ("cdk", "cdk"))}
+                 for path, shape in (("e4", "E4"), ("pde_cli", "E4"), ("cdk", "cdk"))}
+        paths["pde_cli"].update(pde_launches[kname])
         cdk = paths["cdk"]
         kernels.append({
             "name": kname, "route": "cuda", "source": KERNEL_SOURCE,

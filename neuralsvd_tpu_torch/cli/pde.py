@@ -1,0 +1,216 @@
+"""PDE solver entry point: python -m neuralsvd_tpu_torch.cli.pde [flags].
+
+Port of ``neuralsvd_tpu/cli/pde.py:35-253``: the problem, the wavefunction
+model, the sampler, the validation grid (or Monte-Carlo set), the method,
+the optimizer (cosine schedule, spike rejection, per-mode tail LR) and the
+host driver ``train_operator``; a checkpoint ``ckpt_<it>`` and the arrays
+of the spectrum and eigenfunction plots (``.npz``, utils/plotting.py)
+after every eval, ``--resume`` from the latest checkpoint, and
+``stats.npz`` at the end.
+
+The flags are the JAX CLI's (utils/config.py) plus ``--device`` (default:
+the GPU).  Refused before any training, each naming
+its ROADMAP item: ``--loss`` other than neuralsvd/nestedlora and
+``--problem fp`` (queue 1, item 8), ``--mesh`` (item 9), ``--rescue true``
+(item 5), a potential other than hydrogen and harmonic_oscillator and
+``--apply_exp_mask true`` (item 6), ``--matmul_precision`` (item 10).
+As in the JAX CLI, ``--weight_normalization`` reaches no model.
+"""
+from __future__ import annotations
+
+import logging
+import os
+
+import numpy as np
+import torch
+
+from neuralsvd_tpu_torch.data.samplers import get_sampler, make_val_grid, make_val_mc
+from neuralsvd_tpu_torch.device import resolve_device
+from neuralsvd_tpu_torch.methods.factories import get_evd_method
+from neuralsvd_tpu_torch.models.mlp import parse_dims
+from neuralsvd_tpu_torch.models.wavefunctions import make_wavefunctions
+from neuralsvd_tpu_torch.operators.problems import get_problem
+from neuralsvd_tpu_torch.training.checkpoint import (
+    latest_iteration_checkpoint,
+    load_checkpoint,
+    save_checkpoint,
+)
+from neuralsvd_tpu_torch.training.optimizers import (
+    assert_mode_axis_unambiguous,
+    build_optimizer,
+    chain,
+    cosine_annealing,
+    per_mode_lr,
+)
+from neuralsvd_tpu_torch.training.train_operator import train_operator
+from neuralsvd_tpu_torch.training.train_state import (
+    init_train_state,
+    load_state_tree,
+    state_tree,
+)
+from neuralsvd_tpu_torch.utils.config import PDEConfig, parse_pde_config, run_name
+from neuralsvd_tpu_torch.utils.logging import CSVLogger
+from neuralsvd_tpu_torch.utils.plotting import (
+    plot_1d_eigfuncs,
+    plot_2d_eigfuncs,
+    plot_and_save_spectrum,
+)
+
+log = logging.getLogger("neuralsvd_tpu_torch.pde")
+
+
+def check_ported(cfg: PDEConfig) -> None:
+    """Raise NotImplementedError for a configuration the port cannot run."""
+    if cfg.loss.name not in ("neuralsvd", "nestedlora"):
+        raise NotImplementedError(
+            f"--loss {cfg.loss.name} is not ported yet (ROADMAP queue 1, item 8)")
+    if cfg.problem != "sch":
+        raise NotImplementedError(
+            f"--problem {cfg.problem} is not ported yet (ROADMAP queue 1, item 8)")
+    if cfg.mesh:
+        raise NotImplementedError(
+            "--mesh (data parallelism) is not ported yet (ROADMAP queue 1, item 9)")
+    if cfg.rescue:
+        raise NotImplementedError(
+            "--rescue true is not ported yet (ROADMAP queue 1, item 5)")
+    if cfg.matmul_precision:
+        raise NotImplementedError(
+            "--matmul_precision is not ported yet (ROADMAP queue 1, item 10)")
+
+
+def main(cfg: PDEConfig, timings=None, use_graph: bool = True):
+    """Train as the JAX CLI does; returns (TrainState, all_eigvals,
+    all_norms).  ``timings`` and ``use_graph``: see ``train_operator``."""
+    logging.basicConfig(level=logging.INFO)
+    check_ported(cfg)
+    dev = resolve_device(cfg.device)
+    torch.set_float32_matmul_precision("highest")
+
+    log_dir = os.path.join(cfg.log_dir, run_name(cfg))
+    if os.path.exists(log_dir) and not (cfg.overwrite or cfg.resume):
+        raise ValueError(f"{log_dir} exists and --overwrite not set")
+    os.makedirs(log_dir, exist_ok=True)
+    log.info("log dir: %s", log_dir)
+
+    operator, ground_truth_spectrum, n_particles = get_problem(
+        problem=cfg.problem, potential_type=cfg.potential_type,
+        ndim=cfg.ndim, neigs=cfg.neigs, charge=cfg.charge,
+        laplacian_eps=cfg.laplacian_eps, laplacian_mode=cfg.laplacian_mode,
+        laplacian_probes=cfg.laplacian_probes,
+        operator_scale=cfg.operator_scale, operator_shift=cfg.operator_shift)
+
+    model = make_wavefunctions(
+        ndim=cfg.ndim, neigs=cfg.neigs,
+        mlp_hidden_dims=parse_dims(cfg.mlp_hidden_dims),
+        nonlinearity=cfg.nonlinearity, n_particles=n_particles,
+        parallel=cfg.parallel,
+        use_fourier_feature=cfg.use_fourier_feature,
+        fourier_mapping_size=cfg.fourier_mapping_size,
+        fourier_scale=cfg.fourier_scale,
+        fourier_deterministic=cfg.fourier_deterministic,
+        fourier_append_raw=cfg.fourier_append_raw,
+        fourier_append_radial=cfg.fourier_append_radial,
+        fourier_append_envelopes=tuple(
+            float(v) for v in cfg.fourier_append_envelopes.split(",") if v),
+        fourier_seed=cfg.seed,
+        apply_boundary=cfg.apply_boundary, boundary_mode=cfg.boundary_mode,
+        lim=cfg.lim, apply_exp_mask=cfg.apply_exp_mask,
+        exp_mask_init_scale=cfg.exp_mask_init_scale,
+        hard_mul_const=cfg.hard_mul_const, seed=cfg.seed, device=dev)
+
+    scale = cfg.sampling_scale
+    weights = None
+    if cfg.sampling_mode == "gaussian_mixture":
+        scale = tuple(float(v) for v in cfg.sampling_scales.split(",") if v)
+        if cfg.sampling_weights:
+            weights = tuple(float(v) for v in cfg.sampling_weights.split(",") if v)
+    sample, importance_train = get_sampler(
+        cfg.sampling_mode, cfg.batch_size, n_particles, cfg.ndim, scale,
+        sampling_weights=weights, device=dev)
+
+    val_batches = importance_val = val_data = None
+    if cfg.ndim in (1, 2) and n_particles == 1:
+        val_data, val_batches, importance_val = make_val_grid(
+            cfg.ndim, cfg.lim, cfg.val_eps, cfg.batch_size)
+    elif cfg.val_mc_size > 0:
+        val_data, val_batches, importance_val = make_val_mc(
+            cfg.sampling_mode, cfg.val_mc_size, n_particles, cfg.ndim, scale,
+            cfg.batch_size, seed=cfg.seed + 777, sampling_weights=weights,
+            device=dev)
+
+    method = get_evd_method(cfg.loss.name, model, cfg.neigs, sort=cfg.sort,
+                            **vars(cfg.loss.neuralsvd))
+
+    lr_schedule = (cosine_annealing(cfg.lr, cfg.num_iters)
+                   if cfg.use_lr_scheduler else None)
+    optimizer = build_optimizer(
+        cfg.optimizer, cfg.lr, momentum=cfg.momentum,
+        rmsprop_decay=cfg.rmsprop_decay, adam_eps=cfg.adam_eps,
+        lr_schedule=lr_schedule, spike_reject_factor=cfg.spike_reject_factor)
+    if cfg.tail_lr_boost != 1.0:
+        # per-mode LR on the slow truncation-edge towers, safe under
+        # sequential nesting; the leading-axis == neigs heuristic needs
+        # per-mode towers and no shared parameter
+        if not cfg.parallel:
+            raise ValueError("--tail_lr_boost requires --parallel true "
+                             "(per-mode towers)")
+        assert_mode_axis_unambiguous(dict(model.named_parameters()), cfg.neigs)
+        scales = np.where(np.arange(cfg.neigs) >= cfg.tail_lr_start,
+                          cfg.tail_lr_boost, 1.0).astype(np.float32)
+        optimizer = chain(optimizer, per_mode_lr(scales, cfg.neigs))
+        log.info("tail LR boost %.2fx from mode %d", cfg.tail_lr_boost,
+                 cfg.tail_lr_start)
+
+    logger = CSVLogger(log_dir, ["iter", "train_loss", "time", "steps_per_sec"])
+
+    def checkpoint_fn(ts, it, outputs):
+        normalize = method.name in ("nestedlora", "neuralsvd")
+        plot_and_save_spectrum(
+            {"RQ": outputs["eigvals"],
+             "Norms^2": outputs["norms"] if normalize else None},
+            outputs["cov"], ground_truth_spectrum=ground_truth_spectrum,
+            log_dir=log_dir, tag=f"it{it}")
+        if cfg.ndim == 1 and val_data is not None:
+            plot_1d_eigfuncs(val_data, outputs["eigfuncs"], log_dir, tag=f"it{it}")
+        if cfg.ndim == 2 and val_data is not None:
+            plot_2d_eigfuncs(outputs["eigfuncs"], log_dir, tag=f"it{it}")
+        save_checkpoint(os.path.join(log_dir, f"ckpt_{it}"), state_tree(ts))
+
+    # --resume: restart from the latest ckpt_<it>; the generators are seeded
+    # from the absolute iteration, so sampling continues exactly
+    initial_ts, start_iter = None, 0
+    if cfg.resume:
+        latest = latest_iteration_checkpoint(log_dir)
+        if latest is not None:
+            start_iter, path = latest
+            initial_ts = init_train_state(model, optimizer, method)
+            load_state_tree(initial_ts, load_checkpoint(path))
+            log.info("resuming from %s at iter %d", path, start_iter)
+
+    try:
+        ts, all_eigvals, all_norms = train_operator(
+            method, operator, sample, optimizer, model,
+            num_iters=cfg.num_iters,
+            importance_train=importance_train, importance_val=importance_val,
+            val_batches=val_batches,
+            ema_decay=cfg.ema_decay, eval_freq=cfg.eval_freq,
+            print_freq=cfg.print_freq, log_writer=logger,
+            seed=cfg.seed, monitor=cfg.print_local_energies,
+            post_align=cfg.post_align, checkpoint_fn=checkpoint_fn,
+            profile_dir=(os.path.join(log_dir, "profile") if cfg.profile
+                         else None),
+            profile_start=cfg.profile_start, profile_steps=cfg.profile_steps,
+            grad_clip=cfg.grad_clip, initial_ts=initial_ts,
+            start_iter=start_iter, use_graph=use_graph, timings=timings)
+    finally:
+        logger.close()
+
+    np.savez(os.path.join(log_dir, "stats.npz"),
+             all_eigvals=np.asarray(all_eigvals),
+             all_norms=np.asarray(all_norms))
+    log.info("done; stats saved to %s", log_dir)
+    return ts, all_eigvals, all_norms
+
+
+if __name__ == "__main__":
+    main(parse_pde_config())

@@ -1,9 +1,10 @@
 """Carry JAX parameters into the port's modules.
 
-``params_from_jax`` maps the JAX package's ParallelMLP wavefunction tree
+``params_from_jax`` maps the JAX package's wavefunction tree onto the
+state dict of ``models.wavefunctions.Wavefunction``: the ParallelMLP's
 ``{"base": {"ws": [(L, h, d), ...], "bs": [(L, h, 1), ...],
-"feature_map": {}}}`` onto the state dict of
-``models.wavefunctions.Wavefunction``; ``hetero_params_from_jax`` maps the
+"feature_map": {}}}`` or the shared trunk's ``{"base": {"layers": [{"w":
+(in, out), "b": (out,)}, ...], "feature_map": {}}}``; ``hetero_params_from_jax`` maps the
 two-tower tree ``{"x": {"layers": [{"w": (in, out), "b": (out,)}, ...]},
 "y": ...}`` onto that of ``models.two_tower.HeteroNetwork`` (the same
 (in, out) layout, so no transpose).  Leaves are already numpy arrays; so
@@ -25,14 +26,21 @@ def params_from_jax(tree) -> Dict[str, torch.Tensor]:
         raise ValueError("feature maps carry no parameters in either package")
     if "mask" in tree:
         raise NotImplementedError(
-            "exp-mask parameters are not ported yet (ROADMAP queue 1, item 3)")
+            "exp-mask parameters are not ported yet (ROADMAP queue 1, item 6)")
     out = {}
     for group in ("ws", "bs"):
         for i, leaf in enumerate(base.get(group, [])):
             out[f"base.{group}.{i}"] = torch.tensor(
                 np.asarray(leaf, dtype=np.float32))
+    for i, layer in enumerate(base.get("layers", [])):
+        if set(layer) - {"w", "b"}:
+            raise NotImplementedError(
+                "weight-normalized layers are not ported yet "
+                "(ROADMAP queue 1, item 6)")
+        for name, leaf in layer.items():
+            out[f"base.layers.{i}.{name}"] = torch.tensor(
+                np.asarray(leaf, dtype=np.float32))
     return out
-
 
 
 def hetero_params_from_jax(tree) -> Dict[str, torch.Tensor]:
@@ -48,7 +56,7 @@ def hetero_params_from_jax(tree) -> Dict[str, torch.Tensor]:
             if set(layer) - {"w", "b"}:
                 raise NotImplementedError(
                     "weight-normalized layers are not ported yet "
-                    "(ROADMAP queue 1, item 3)")
+                    "(ROADMAP queue 1, item 6)")
             for name, leaf in layer.items():
                 out[f"{side}.layers.{i}.{name}"] = torch.tensor(
                     np.asarray(leaf, dtype=np.float32))

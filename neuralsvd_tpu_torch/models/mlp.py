@@ -1,15 +1,15 @@
 """Eigenfunction networks: the plain MLP and the per-mode ParallelMLP.
 
 Port of ``neuralsvd_tpu/models/mlp.py``: ``get_activation`` (:37),
-``make_mlp`` (:73, as ``MLP``), ``make_parallel_mlp`` (:184), the
-``parallel`` branch of ``make_mlp_eigfuncs`` (:295) and ``parse_dims``
-(:330).  L independent MLPs run as one batched product chain with weights
-laid out (L, h_out, h_in), as in the JAX package; the products go to
-``torch.einsum``/``torch.matmul`` (cuBLAS), as the JAX package leaves them
-to XLA.  Not ported yet (ROADMAP queue 1, items 3 and 16): the shared-trunk
-eigenfunction branch (``parallel=False``), ``MLP`` without biases, with
-weight normalization or a feature map, ``compute_dtype`` and
-``matmul_precision``.
+``make_mlp`` (:73, as ``MLP``), ``make_parallel_mlp`` (:184),
+``make_mlp_eigfuncs`` (:295: the shared trunk ``MLP`` of sizes
+``[feature_dim] + hidden + [neigs]`` or the per-mode ``ParallelMLP``) and
+``parse_dims`` (:330).  L independent MLPs run as one batched product
+chain with weights laid out (L, h_out, h_in), as in the JAX package; the
+products go to ``torch.einsum``/``torch.matmul`` (cuBLAS), as the JAX
+package leaves them to XLA.  Not ported yet: the shared trunk without
+biases or with weight normalization (ROADMAP queue 1, item 6), ``compute_dtype`` and
+``matmul_precision`` (item 10).
 """
 from __future__ import annotations
 
@@ -83,7 +83,8 @@ def _uniform(shape, bound, generator):
 
 class MLP(nn.Module):
     """Plain MLP ``sizes[0] -> ... -> sizes[-1]`` with biases, no final
-    activation.
+    activation, after an optional parameter-free ``feature_map`` (whose
+    ``feature_dim`` is then ``sizes[0]``).
 
     Init: U(-1/√fan_in, 1/√fan_in) weights and biases (torch.nn.Linear's
     default, the JAX package's ``_kaiming_uniform``) drawn from
@@ -91,15 +92,19 @@ class MLP(nn.Module):
     """
 
     def __init__(self, sizes: Sequence[int], nonlinearity: str = "relu",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 feature_map: Optional[nn.Module] = None):
         super().__init__()
         sizes = list(sizes)
         self.act = get_activation(nonlinearity)
+        self.feature_map = feature_map
         self.layers = nn.ModuleList(
             Dense(sizes[i], sizes[i + 1], generator)
             for i in range(len(sizes) - 1))
 
     def forward(self, x):
+        if self.feature_map is not None:
+            x = self.feature_map(x)
         last = len(self.layers) - 1
         for i, layer in enumerate(self.layers):
             x = layer(x)
@@ -180,14 +185,18 @@ def make_mlp_eigfuncs(input_dim: int, neigs: int,
                       debug: bool = False, compute_dtype=None,
                       matmul_precision=None,
                       generator: Optional[torch.Generator] = None) -> nn.Module:
-    if not parallel:
-        raise NotImplementedError(
-            "the shared-trunk MLP (parallel=False) is not ported yet "
-            "(ROADMAP queue 1, item 3)")
     if compute_dtype is not None or matmul_precision is not None:
         raise NotImplementedError(
             "compute_dtype / matmul_precision tiers are not ported yet "
-            "(ROADMAP queue 1, item 16)")
+            "(ROADMAP queue 1, item 10)")
+    if not parallel:
+        if not bias or weight_normalization:
+            raise NotImplementedError(
+                "the shared-trunk MLP without biases or with weight "
+                "normalization is not ported yet (ROADMAP queue 1, item 6)")
+        in_dim = input_dim if feature_map is None else feature_map.feature_dim
+        return MLP([in_dim] + list(mlp_hidden_dims) + [neigs], nonlinearity,
+                   generator=generator, feature_map=feature_map)
     return ParallelMLP(input_dim, mlp_hidden_dims, num_copies=neigs,
                        output_dim=1, nonlinearity=nonlinearity, bias=bias,
                        weight_normalization=weight_normalization,

@@ -1,9 +1,10 @@
 """Wavefunction assembly for the PDE experiments.
 
-Port of ``neuralsvd_tpu/models/wavefunctions.py:111-193``:
-``wavefunction(x) = hard_mul_const · base_mlp(x)``.  Not ported yet
-(ROADMAP queue 1, item 3): the Dirichlet box mask (``apply_boundary``) and
-the learnable exponential mask (``apply_exp_mask``); both raise.
+Port of ``neuralsvd_tpu/models/wavefunctions.py:20-35``
+(``dirichlet_box_mask``) and ``:111-193``: ``wavefunction(x) =
+hard_mul_const · base_mlp(x) · box(x)``, the box mask with
+``apply_boundary``.  Not ported yet (ROADMAP queue 1, item 6): the
+learnable exponential mask (``apply_exp_mask``), which raises.
 """
 from __future__ import annotations
 
@@ -17,16 +18,45 @@ from neuralsvd_tpu_torch.models.fourier import FourierFeatures
 from neuralsvd_tpu_torch.models.mlp import make_mlp_eigfuncs
 
 
-class Wavefunction(nn.Module):
-    """x (B, n_particles, D) or (B, n_particles·D) -> (B, L)."""
+def dirichlet_box_mask(x: torch.Tensor, lim: float,
+                       mode: str = "dir_box_sqrt") -> torch.Tensor:
+    """Zero-Dirichlet mask on the box [-lim, lim]^d, (B, 1).
 
-    def __init__(self, base: nn.Module, hard_mul_const: float = 1.0):
+    'dir_box_sqrt' (Pfau et al. 2018) or 'dir_box_exp' (Jin et al. 2022).
+    The product over dimensions is written as multiplies of columns, which
+    the forward-Laplacian engine has a rule for (``torch.prod`` has none).
+    """
+    x = torch.clamp(x, -lim, lim).reshape(x.shape[0], -1)
+    if mode == "dir_box_sqrt":
+        per_dim = torch.clamp(
+            (torch.sqrt(2 * lim ** 2 - x ** 2) - lim) / lim, min=0.0)
+    elif mode == "dir_box_exp":
+        per_dim = (1 - torch.exp(-(lim - x))) * (1 - torch.exp(-(x + lim)))
+    else:
+        raise NotImplementedError(mode)
+    out = per_dim[:, 0:1]
+    for i in range(1, per_dim.shape[1]):
+        out = out * per_dim[:, i:i + 1]
+    return out
+
+
+class Wavefunction(nn.Module):
+    """x (B, n_particles, D) or (B, n_particles·D) -> (B, L); with ``lim``
+    set, times the box mask ``dirichlet_box_mask(x, lim, boundary_mode)``."""
+
+    def __init__(self, base: nn.Module, hard_mul_const: float = 1.0,
+                 lim=None, boundary_mode: str = "dir_box_sqrt"):
         super().__init__()
         self.base = base
         self.hard_mul_const = hard_mul_const
+        self.lim = lim
+        self.boundary_mode = boundary_mode
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = self.base(x.reshape(x.shape[0], -1))
+        x2 = x.reshape(x.shape[0], -1)
+        out = self.base(x2)
+        if self.lim is not None:
+            out = out * dirichlet_box_mask(x2, self.lim, self.boundary_mode)
         # 1.0·out is out; skipping it saves a multiply that is costly to
         # dispatch under the Laplacian's nested forward-mode JVPs
         return out if self.hard_mul_const == 1.0 else self.hard_mul_const * out
@@ -65,14 +95,12 @@ def make_wavefunctions(
     Weights are drawn on the CPU from ``torch.Generator().manual_seed(seed)``
     and then moved, so the same seed gives the same model on every device.
     """
-    if apply_boundary:
-        raise NotImplementedError(
-            "apply_boundary (dirichlet_box_mask) is not ported yet "
-            "(ROADMAP queue 1, item 3); pass apply_boundary=False")
     if apply_exp_mask:
         raise NotImplementedError(
             "apply_exp_mask (make_exponential_mask) is not ported yet "
-            "(ROADMAP queue 1, item 3)")
+            "(ROADMAP queue 1, item 6)")
+    if apply_boundary and boundary_mode not in ("dir_box_sqrt", "dir_box_exp"):
+        raise NotImplementedError(boundary_mode)
     dev = resolve_device(device)
     input_dim = ndim * n_particles
     feature_map = None
@@ -90,4 +118,6 @@ def make_wavefunctions(
         feature_map=feature_map, debug=debug, compute_dtype=compute_dtype,
         matmul_precision=matmul_precision,
         generator=torch.Generator().manual_seed(seed))
-    return Wavefunction(base, hard_mul_const).to(dev)
+    return Wavefunction(base, hard_mul_const,
+                        lim=lim if apply_boundary else None,
+                        boundary_mode=boundary_mode).to(dev)

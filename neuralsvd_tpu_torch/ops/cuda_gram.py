@@ -14,7 +14,10 @@ metric_grads        _metric_grads_kernel :184, pallas_call :208  metric_grads_re
 Dispatch is by the tensors' device alone: CPU tensors take the plain
 version; CUDA tensors launch the kernel (``csrc/gram_kernels.cu``) or
 raise.  There is no fallback from a failed launch to the plain version.
-Each wrapper counts its launches in ``<wrapper>.launches``.
+Each wrapper counts its launches in ``<wrapper>.launches``.  A call under
+CUDA-graph capture records its kernel and launches nothing, so it counts
+nothing; the graph's replays launch the kernel without calling the wrapper,
+and only a profiler sees them.
 
 Two packagings run them: ``nestedlora_evd_loss_kernels`` (the E4 path)
 and ``nestedlora_cdk_loss_kernels`` (the CDK two-tower path).
@@ -128,6 +131,13 @@ def _check(name: str, t: torch.Tensor, shape) -> None:
 def _check_sizes(B: int, L: int) -> None:
     if B < 1 or L < 1 or B * L > _MAX_ELEMS:
         raise ValueError(f"unsupported sizes B={B}, L={L}")
+
+
+def _count(wrapper) -> None:
+    """Add one to ``wrapper.launches`` unless the current stream is being
+    captured into a CUDA graph (the kernel is then recorded, not launched)."""
+    if not torch.cuda.is_current_stream_capturing():
+        wrapper.launches += 1
 
 
 def _launch(name: str, *args) -> None:
@@ -246,7 +256,7 @@ def masked_gram_pair(f1: torch.Tensor, f2: torch.Tensor, mmask: torch.Tensor):
             lam1.data_ptr(), lam2.data_ptr(), mlam1.data_ptr(),
             mlam2.data_ptr(), loss.data_ptr(), B, L, plan.rows_per_chunk,
             _vec(L, f1, f2, partial), _stream(f1))
-    masked_gram_pair.launches += 1
+    _count(masked_gram_pair)
     return loss, lam1, lam2, mlam1, mlam2
 
 
@@ -296,6 +306,19 @@ def _ticket(device, stream: int) -> torch.Tensor:
     return _TICKETS[key]
 
 
+def ticket_values() -> dict:
+    """{(device, stream): value} of every K2 ticket counter (a host read)."""
+    return {key: int(t.item()) for key, t in _TICKETS.items()}
+
+
+def check_tickets() -> None:
+    """Raise unless every K2 ticket counter is back at zero, as every
+    completed launch leaves it."""
+    bad = {key: v for key, v in ticket_values().items() if v != 0}
+    if bad:
+        raise RuntimeError(f"K2 ticket counters not at zero: {bad}")
+
+
 def weighted_dot(f: torch.Tensor, Tf: torch.Tensor, vmask: torch.Tensor):
     """Σ_b Σ_l w_l f[b,l] Tf[b,l] (un-normalized); f, Tf: (B, L), w: (L,)."""
     if _on_cpu(f, Tf, vmask):
@@ -315,7 +338,7 @@ def weighted_dot(f: torch.Tensor, Tf: torch.Tensor, vmask: torch.Tensor):
             vmask.data_ptr(), partial.data_ptr(),
             _ticket(f.device, stream).data_ptr(), out.data_ptr(), B, L,
             plan.slots, plan.blocks, vec, stream)
-    weighted_dot.launches += 1
+    _count(weighted_dot)
     return out
 
 
@@ -343,7 +366,7 @@ def metric_grads(f1, f2, mlam1, mlam2, scale1: float, scale2: float):
             mlam1.data_ptr(), mlam2.data_ptr(), float(scale1), float(scale2),
             g1.data_ptr(), g2.data_ptr(), B, L,
             _vec(L, f1, f2, mlam1, mlam2, g1, g2), _stream(f1))
-    metric_grads.launches += 1
+    _count(metric_grads)
     return g1, g2
 
 

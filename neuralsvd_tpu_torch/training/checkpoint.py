@@ -1,7 +1,10 @@
 """Checkpoints through ``torch.save``, replaced atomically.
 
 Port of ``neuralsvd_tpu/training/checkpoint.py::save_checkpoint`` /
-``load_checkpoint`` for the CDK trainer, without two faults of the original:
+``load_checkpoint`` for the CDK trainer and the PDE CLI (whose
+``ckpt_<it>`` files ``latest_iteration_checkpoint`` finds for
+``--resume``, as ``neuralsvd_tpu/cli/pde.py:213-229`` does), without two
+faults of the original:
 its save deletes the old checkpoint before the new one is written
 (checkpoint.py:26), so a failed save loses the last good one, and its
 resumable loader swallows every exception (checkpoint.py:136).  Here the
@@ -15,8 +18,9 @@ tensors come back on the CPU and are moved by the caller.
 from __future__ import annotations
 
 import os
+import re
 import uuid
-from typing import Any
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -40,3 +44,14 @@ def load_checkpoint(path: str) -> Any:
     CPU); raises on a missing or unreadable file."""
     return torch.load(os.path.abspath(path), map_location="cpu",
                       weights_only=True)
+
+
+def latest_iteration_checkpoint(log_dir: str) -> Optional[Tuple[int, str]]:
+    """(it, path) of the ``ckpt_<it>`` file in ``log_dir`` with the largest
+    ``it``, or None when there is none."""
+    found = [(int(m.group(1)), name) for name in os.listdir(log_dir)
+             if (m := re.fullmatch(r"ckpt_(\d+)", name))]
+    if not found:
+        return None
+    it, name = max(found)
+    return it, os.path.join(log_dir, name)

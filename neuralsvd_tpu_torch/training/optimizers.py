@@ -1,8 +1,10 @@
 """Optimizers and schedules, written out as functional ``init``/``update``.
 
 Port of ``neuralsvd_tpu/training/optimizers.py``: ``torch_rmsprop``
-(:26-50), ``warmup_cosine_schedule`` (:70-82) and ``build_optimizer``
-(:198-245) for "rmsprop", "adam" and "sgd".  RMSprop has the update order
+(:26-50), ``cosine_annealing`` (:59), ``warmup_cosine_schedule``
+(:70-82), ``reject_spikes`` (:91), ``assert_mode_axis_unambiguous``
+(:130), ``per_mode_lr`` (:158) and ``build_optimizer`` (:198-245) for
+"rmsprop", "adam" and "sgd".  RMSprop has the update order
 of ``torch.optim.RMSprop``:
     v <- alpha*v + (1-alpha)*g²;  update = -lr · g / (sqrt(v) + eps)
 (eps outside the sqrt), with optional momentum.  "sgd" is optax's chain
@@ -13,13 +15,16 @@ Every update is written out over dicts of tensors, like the optax
 transformations it ports, so a train step can keep the old state where a
 step is skipped without a host sync (``select_state``): schedule counts
 are device tensors and are kept too, as the JAX step keeps every array
-leaf of its optimizer state.  Not ported yet (ROADMAP queue 1, item 8):
-"adamw", "lars", ``cosine_annealing``, ``reject_spikes``, ``per_mode_lr``.
+leaf of its optimizer state.  Schedules and ``reject_spikes`` are
+functions of those device counts and read nothing on the host, so an
+update may be captured in a CUDA graph.  Not ported yet (ROADMAP queue 1,
+item 7, the CDK remainder): "adamw" and "lars".
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 
@@ -43,7 +48,7 @@ def torch_rmsprop(learning_rate: float, alpha: float = 0.999,
                if momentum > 0 else {})
         return TorchRMSpropState(nu=zeros, momentum=buf)
 
-    def update(grads, state: TorchRMSpropState):
+    def update(grads, state: TorchRMSpropState, params=None):
         nu = {k: alpha * state.nu[k] + (1 - alpha) * g * g
               for k, g in grads.items()}
         scaled = {k: g / (torch.sqrt(nu[k]) + eps) for k, g in grads.items()}
@@ -60,9 +65,26 @@ def torch_rmsprop(learning_rate: float, alpha: float = 0.999,
     return TorchRMSprop(init, update)
 
 
+def global_norm(tensors) -> torch.Tensor:
+    return torch.linalg.vector_norm(
+        torch.stack([torch.linalg.vector_norm(t) for t in tensors]))
+
+
 class Optimizer(NamedTuple):
     init: Callable    # params -> state
     update: Callable  # (grads, state, params) -> (updates, state)
+
+
+def cosine_annealing(base_lr: float, num_iters: int, eta_min: float = 0.0):
+    """torch CosineAnnealingLR, lr(t) = eta_min + (lr0 - eta_min)(1 + cos(πt/T))/2
+    with t clipped at T; ``step`` a device tensor, the result float32."""
+
+    def schedule(step):
+        t = torch.clamp(torch.as_tensor(step), max=num_iters).to(torch.float32)
+        return eta_min + (base_lr - eta_min) * 0.5 * (
+            1 + torch.cos(torch.pi * t / num_iters))
+
+    return schedule
 
 
 def warmup_cosine_schedule(base_lr: float, warmup_lr: float, final_lr: float,
@@ -86,7 +108,8 @@ def _count(params):
     return torch.zeros((), dtype=torch.int32, device=device)
 
 
-def _chain(*parts: Optimizer) -> Optimizer:
+def chain(*parts: Optimizer) -> Optimizer:
+    """Apply ``parts`` in order, as ``optax.chain``; the state is a tuple."""
     def init(params):
         return tuple(p.init(params) for p in parts)
 
@@ -160,24 +183,103 @@ def _scale_by_lr(learning_rate) -> Optimizer:
     return Optimizer(init, update)
 
 
+def reject_spikes(factor: float = 25.0, decay: float = 0.99,
+                  warmup: int = 100) -> Optimizer:
+    """Zero the update whose global gradient norm exceeds ``factor`` x its
+    running EMA (chained before the optimizer, so a spike neither steps nor
+    enters the second moments).  The first ``warmup`` steps always pass;
+    rejected steps leave the EMA alone.  State: {"gnorm_ema", "count",
+    "rejected"}, device tensors."""
+    def init(params):
+        device = next(iter(params.values())).device
+        return {"gnorm_ema": torch.zeros((), device=device),
+                "count": _count(params), "rejected": _count(params)}
+
+    def update(grads, state, params=None):
+        gnorm = global_norm(grads.values())
+        ok = ((state["count"] < warmup) | (gnorm <= factor * state["gnorm_ema"]))
+        ok = ok & torch.isfinite(gnorm)
+        ema = torch.where(
+            state["count"] == 0, gnorm,
+            torch.where(ok, decay * state["gnorm_ema"] + (1 - decay) * gnorm,
+                        state["gnorm_ema"]))
+        grads = {k: torch.where(ok, g, torch.zeros_like(g))
+                 for k, g in grads.items()}
+        return grads, {"gnorm_ema": ema, "count": state["count"] + 1,
+                       "rejected": state["rejected"] + (~ok).to(torch.int32)}
+
+    return Optimizer(init, update)
+
+
+def assert_mode_axis_unambiguous(params, neigs: int) -> None:
+    """Refuse per-mode surgery (``per_mode_lr``) unless every parameter
+    leads with the mode axis, the ParallelMLP layout; a shared parameter
+    whose leading size merely equals ``neigs`` would be scaled as if it
+    were per-mode."""
+    for name, p in params.items():
+        shape = tuple(p.shape)
+        if len(shape) < 1 or shape[0] != neigs:
+            raise ValueError(
+                f"per-mode tree surgery (tail_lr_boost / rescue) requires "
+                f"every param leaf to lead with the mode axis (neigs="
+                f"{neigs}); leaf {name} has shape {shape}. Shared leaves "
+                f"make the shape[0]==neigs heuristic ambiguous — use "
+                f"per-mode towers (parallel=True) without shared learnable "
+                f"features.")
+
+
+def per_mode_lr(scales, neigs: int) -> Optimizer:
+    """Scale the final updates of each eigenfunction tower by ``scales``
+    (L,): every update whose leading size is ``neigs`` (chained after the
+    optimizer, so it is a per-mode learning rate)."""
+    scales = torch.as_tensor(np.asarray(scales, dtype=np.float32))
+    if tuple(scales.shape) != (neigs,):
+        raise ValueError(f"scales must have shape ({neigs},)")
+    # made once a device: a copy inside a captured step would be a
+    # host-to-device copy during capture
+    cache: Dict[torch.device, torch.Tensor] = {}
+
+    def update(grads, state, params=None):
+        out = {}
+        for k, u in grads.items():
+            if u.ndim >= 1 and u.shape[0] == neigs:
+                if u.device not in cache:
+                    cache[u.device] = scales.to(u.device)
+                u = u * cache[u.device].reshape((neigs,) + (1,) * (u.ndim - 1))
+            out[k] = u
+        return out, state
+
+    return Optimizer(lambda params: (), update)
+
+
 def build_optimizer(name: str, learning_rate: float, momentum: float = 0.0,
                     weight_decay: float = 0.0, rmsprop_decay: float = 0.999,
                     adam_eps: float = 1e-7,
-                    lr_schedule: Optional[Callable] = None) -> Optimizer:
+                    lr_schedule: Optional[Callable] = None,
+                    spike_reject_factor: float = 0.0) -> Optimizer:
     """"sgd", "adam" or "rmsprop"; ``lr_schedule(count)`` replaces the
-    constant ``learning_rate`` where given."""
+    constant ``learning_rate`` where given; ``spike_reject_factor`` > 0
+    chains ``reject_spikes`` before it."""
+    base = _build_base(name, learning_rate, momentum, weight_decay,
+                       rmsprop_decay, adam_eps, lr_schedule)
+    if spike_reject_factor > 0:
+        return chain(reject_spikes(spike_reject_factor), base)
+    return base
+
+
+def _build_base(name, learning_rate, momentum, weight_decay, rmsprop_decay,
+                adam_eps, lr_schedule) -> Optimizer:
     lr = lr_schedule if lr_schedule is not None else learning_rate
     if name == "rmsprop":
         rms = torch_rmsprop(1.0 if callable(lr) else lr, alpha=rmsprop_decay,
                             eps=1e-10, momentum=momentum)
-        core = Optimizer(rms.init,
-                         lambda grads, state, params=None: rms.update(grads, state))
+        core = Optimizer(rms.init, rms.update)
         if not callable(lr):
             return core
         # torch_rmsprop(1.0) gives -u; scale it by +lr(count)
-        return _chain(core, _scale_by_lr(lambda c: -lr(c)))
+        return chain(core, _scale_by_lr(lambda c: -lr(c)))
     if name == "adam":
-        return _chain(_scale_by_adam(eps=adam_eps), _scale_by_lr(lr))
+        return chain(_scale_by_adam(eps=adam_eps), _scale_by_lr(lr))
     if name == "sgd":
         parts = []
         if weight_decay:
@@ -185,7 +287,7 @@ def build_optimizer(name: str, learning_rate: float, momentum: float = 0.0,
         if momentum:
             parts.append(_trace(momentum))
         parts.append(_scale_by_lr(lr))
-        return _chain(*parts)
+        return chain(*parts)
     raise NotImplementedError(
         f"optimizer {name!r} is not ported yet (ROADMAP queue 1, item 8)")
 

@@ -1,70 +1,131 @@
-"""Operator-EVD training step.
+"""Operator-EVD training: the step, the multi-step block and the host driver.
 
-Port of ``neuralsvd_tpu/training/train_operator.py:39-124``
-(``make_train_step``).  One step: draw a batch, apply the operator, take
-the NestedLoRA loss and its custom backward, clip, update with the
-optimizer, and update the parameter EMA.
+Port of ``neuralsvd_tpu/training/train_operator.py``: ``make_train_step``
+(:39-124), ``make_scanned_train_step`` (:127-155), ``_batch_stats``
+(:158-181) and ``train_operator`` (:177-429).
 
-A non-finite loss or gradient norm skips the whole update: parameters and
-optimizer state keep their old values, selected on the device with
-``torch.where``, so the step never waits for the host.  ``metrics`` stay on
-the device; reading one (``float(metrics["loss"])``) synchronises.
-Stochastic operators (``needs_key``: the Hutchinson Laplacian) get a
-probe generator of their own, seeded from the step generator's seed and
-the step number, so the sample stream is the one the exact operator sees
-(JAX folds 0x0BE5 into the step key for the same end).
+The step draws a batch, applies the operator, takes the NestedLoRA loss
+and its custom backward, clips, updates with the optimizer and updates the
+parameter EMA.  A non-finite loss or gradient norm skips the whole update,
+selected on the device with ``torch.where``.  Every update is an in-place
+copy into the fixed buffers of the ``TrainState`` and the step counter is
+a device tensor, so the step reads nothing on the host and may be captured
+in a CUDA graph.
 
-The multi-step ``lax.scan`` path becomes the caller's Python loop.  Not
-ported yet (ROADMAP queue 1, item 8): monitor statistics, the host loop
-``train_operator`` (eval cadence, rescue, profiling) and data parallelism.
+JAX's ``lax.scan`` block becomes ``ScannedTrainStep``: on a CUDA device it
+captures one step with ``torch.cuda.graph`` (after an eager warm-up on the
+capture stream, whose changes to the state are undone) and replays it
+``steps_per_call`` times, filling (steps_per_call,) device traces of loss,
+gnorm and skipped.  Elsewhere it runs the same step eagerly in a loop.  A
+failed capture raises; nothing falls back to the eager loop.
+
+Random numbers: JAX folds the absolute iteration into one key.  Here the
+sample generator (and, for a stochastic operator, a probe generator) are
+seeded on the host from (seed, absolute iteration) at the start of every
+block and advance within it; both are registered with the graph, whose
+replays advance them as eager steps do.  So a block gives the same batches
+as a graph, as eager steps, or after a resume.
+
+Not ported yet: data parallelism (``mesh``, ROADMAP queue 1, item 9), the
+mode rescue (``rescue_init_fn``, item 5) and the SpINx refresh
+(``spinx_refresh``, item 8); each raises.
 """
 from __future__ import annotations
 
+import logging
+import math
+import os
+import time
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
-from neuralsvd_tpu_torch.training.optimizers import select_state
-from neuralsvd_tpu_torch.training.train_state import TrainState, ema_update
+from neuralsvd_tpu_torch.ops import cuda_gram
+from neuralsvd_tpu_torch.training.optimizers import global_norm, select_state
+from neuralsvd_tpu_torch.training.train_state import (
+    STATE_FIELDS,
+    TrainState,
+    assign_state,
+    clone_tree,
+    ema_update,
+    init_train_state,
+    load_state_tree,
+    state_pointers,
+)
 
+__all__ = ["ScannedTrainStep", "batch_stats", "block_seed", "global_norm",
+           "make_scanned_train_step", "make_train_step", "train_operator"]
 
-def global_norm(tensors) -> torch.Tensor:
-    return torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(t) for t in tensors]))
+log = logging.getLogger(__name__)
 
-
+SAMPLE_STREAM = 0
 PROBE_STREAM = 0x0BE5
+GRAPH_WARMUP_STEPS = 3  # eager steps on the capture stream before capture
+# The profiler keeps a kernel only if its device timestamp, converted to
+# host time, falls inside the trace window, and on an H100 that conversion
+# was seen off by up to ~1.5 ms: a window that opens or closes on a busy
+# device loses kernels at its edges.  So a window opens and closes on an
+# idle device, with this margin of idle time inside it.
+PROFILE_MARGIN_S = 0.1
 
 
-def probe_seed(seed: int, step: int) -> int:
-    """The probe generator's seed at ``step`` of a run seeded ``seed``."""
-    return hash((seed, PROBE_STREAM, step)) & (2 ** 63 - 1)
+def block_seed(seed: int, start: int, stream: int = SAMPLE_STREAM) -> int:
+    """The seed of generator ``stream`` for the block that starts at
+    absolute iteration ``start`` of a run seeded ``seed``."""
+    hi, lo = np.random.SeedSequence([seed, start, stream]).generate_state(2)
+    return ((int(hi) << 32) | int(lo)) & (2 ** 63 - 1)
+
+
+def _erf_percentiles() -> np.ndarray:
+    pts = [math.erf(x / math.sqrt(2)) for x in range(-3, 4)]
+    return 100 * (1 + np.array(pts)) / 2
+
+
+def batch_stats(values: torch.Tensor) -> torch.Tensor:
+    """(B, L) -> (9, L): 7 erf-spaced percentiles, the mean, the mean again
+    (the slow slot), the statistics ``EWMMonitor.update_stats`` takes."""
+    qs = torch.as_tensor(_erf_percentiles() / 100, dtype=values.dtype,
+                         device=values.device)
+    pct = torch.quantile(values, qs, dim=0)  # (7, L)
+    mean = torch.mean(values, dim=0, keepdim=True)
+    return torch.cat([pct, mean, mean], dim=0)
 
 
 def make_train_step(method, operator, optimizer, sampler: Callable,
                     importance: Optional[Callable] = None,
-                    ema_decay: float = 0.99, grad_clip: float = 0.0):
-    """Build the train step: (TrainState, generator) -> (TrainState, metrics).
+                    ema_decay: float = 0.99, grad_clip: float = 0.0,
+                    monitor: bool = False):
+    """Build the train step: (TrainState, generator[, probes]) ->
+    (TrainState, metrics).
 
-    ``sampler(generator)`` returns the batch; ``grad_clip`` > 0 clips the
-    global gradient norm.  The state's params are updated in place; the
-    same TrainState object is returned with its other fields replaced.
+    ``sampler(generator)`` returns the batch; ``probes`` is the generator
+    of a stochastic (``needs_key``) operator's probes; without one the step
+    keeps a generator of its own per device, seeded once from the sample
+    generator's initial seed.  ``grad_clip`` > 0 clips the global gradient
+    norm.  The state is updated in place and returned.  ``metrics`` hold
+    device tensors ``loss``, ``gnorm``, ``skipped`` and, with ``monitor``,
+    the (9, L) ``quad_stats`` and ``sqnorm_stats``.
     """
     stochastic_op = getattr(operator, "needs_key", False)
-    probe_gens: Dict[torch.device, torch.Generator] = {}
+    own_probes: Dict[torch.device, torch.Generator] = {}
 
-    def step(ts: TrainState, generator) -> tuple:
+    def default_probes(device, generator):
+        if device not in own_probes:
+            seed = generator.initial_seed() if generator is not None else 0
+            own_probes[device] = torch.Generator(device=device).manual_seed(
+                block_seed(seed, 0, PROBE_STREAM))
+        return own_probes[device]
+
+    def step(ts: TrainState, generator, probes=None) -> tuple:
         x = sampler(generator)
         x = x.reshape(x.shape[0], -1)
         op = operator
         if stochastic_op:
-            if x.device not in probe_gens:
-                probe_gens[x.device] = torch.Generator(device=x.device)
-            probes = probe_gens[x.device].manual_seed(
-                probe_seed(generator.initial_seed(), ts.step))
+            gen = probes if probes is not None else default_probes(x.device, generator)
             op = lambda f, xv, importance=None: operator(  # noqa: E731
-                f, xv, importance, generator=probes)
-        loss, grads, _, method_state = method.loss_and_grad(
+                f, xv, importance, generator=gen)
+        loss, grads, aux, method_state = method.loss_and_grad(
             ts.params, ts.method_state, x, op, importance)
         gnorm = global_norm(grads.values())
         finite = torch.isfinite(loss) & torch.isfinite(gnorm)
@@ -74,18 +135,337 @@ def make_train_step(method, operator, optimizer, sampler: Callable,
                 grads = {k: g * scale for k, g in grads.items()}
             grads = {k: torch.where(finite, g, torch.zeros_like(g))
                      for k, g in grads.items()}
-            updates, opt_state = optimizer.update(grads, ts.opt_state)
+            updates, opt_state = optimizer.update(grads, ts.opt_state, ts.params)
             for k, p in ts.params.items():
                 p.copy_(torch.where(finite, p + updates[k], p))
-            opt_state = select_state(finite, opt_state, ts.opt_state)
-            ts.ema_params = ema_update(ts.ema_params, ts.params, ema_decay,
-                                       step=ts.step)
-        ts.opt_state = opt_state
-        ts.method_state = method_state
-        ts.step += 1
+            assign_state(ts.opt_state, select_state(finite, opt_state, ts.opt_state))
+            assign_state(ts.ema_params, ema_update(ts.ema_params, ts.params,
+                                                   ema_decay, step=ts.step))
+            assign_state(ts.method_state, method_state)
+            ts.step.add_(1)
         metrics = {"loss": loss, "gnorm": gnorm,
                    "skipped": torch.logical_not(finite)}
+        if monitor:
+            f, Tf = aux["f"], aux["Tf"]
+            metrics["quad_stats"] = batch_stats(f * Tf)  # local energies
+            metrics["sqnorm_stats"] = batch_stats(f * f)
         return ts, metrics
 
+    step.needs_probes = stochastic_op
     return step
 
+
+class ScannedTrainStep:
+    """``steps_per_call`` train steps a call: (ts, start[, n]) -> (ts,
+    metrics), metrics {loss, gnorm, skipped} of shape (n,), n defaulting to
+    ``steps_per_call``; ``start`` is the block's absolute iteration.
+
+    A full block on a CUDA device replays a captured step (``use_graph``);
+    a shorter block, a CPU device or ``use_graph=False`` runs the same
+    step eagerly n times.  The host reads nothing inside a block.  The
+    graph reads and writes the state's tensors as they were at capture:
+    a later block on the same TrainState raises if one was replaced.
+    """
+
+    def __init__(self, step, steps_per_call: int, seed: int = 0,
+                 use_graph: bool = True):
+        self.step = step
+        self.steps_per_call = steps_per_call
+        self.seed = seed
+        self.use_graph = use_graph
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self._graph_state: Optional[TrainState] = None
+        self._graph_ptrs: tuple = ()
+        self._buffers: Dict[torch.device, tuple] = {}
+
+    def buffers(self, device):
+        """(sample generator, probe generator or None, traces
+        (steps_per_call, 3), position) on ``device``, made once."""
+        device = torch.device(device)
+        if device not in self._buffers:
+            probes = (torch.Generator(device=device)
+                      if getattr(self.step, "needs_probes", False) else None)
+            self._buffers[device] = (
+                torch.Generator(device=device), probes,
+                torch.zeros((self.steps_per_call, 3), device=device),
+                torch.zeros((), dtype=torch.int64, device=device))
+        return self._buffers[device]
+
+    def begin_block(self, device, start: int) -> None:
+        """Seed the generators from (seed, start) and rewind the traces."""
+        sample, probes, _, pos = self.buffers(device)
+        sample.manual_seed(block_seed(self.seed, start, SAMPLE_STREAM))
+        if probes is not None:
+            probes.manual_seed(block_seed(self.seed, start, PROBE_STREAM))
+        pos.zero_()
+
+    def eager_step(self, ts: TrainState) -> dict:
+        """One step, its metrics written into the traces' next row."""
+        sample, probes, traces, pos = self.buffers(ts.step.device)
+        _, metrics = self.step(ts, sample, probes)
+        with torch.no_grad():
+            row = torch.stack([metrics["loss"], metrics["gnorm"],
+                               metrics["skipped"].to(torch.float32)])
+            traces.index_copy_(0, pos.reshape(1), row[None])
+            pos.add_(1)
+        return metrics
+
+    def _capture(self, ts: TrainState) -> None:
+        if not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
+            raise RuntimeError("this PyTorch cannot register a generator with "
+                               "a CUDA graph (needs torch >= 2.5)")
+        device = ts.step.device
+        sample, probes, _, _ = self.buffers(device)
+        with torch.no_grad():
+            saved = {name: clone_tree(getattr(ts, name)) for name in STATE_FIELDS}
+        stream = torch.cuda.Stream(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        # the warm-up makes on the capture stream what a step creates on
+        # first use (kernel tickets, tile tables, masks, cuBLAS workspaces)
+        with torch.cuda.stream(stream):
+            for _ in range(GRAPH_WARMUP_STEPS):
+                self.eager_step(ts)
+        torch.cuda.current_stream(device).wait_stream(stream)
+        load_state_tree(ts, saved)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(sample)
+        if probes is not None:
+            graph.register_generator_state(probes)
+        with torch.cuda.graph(graph, stream=stream):
+            self.eager_step(ts)
+        self.graph, self._graph_state = graph, ts
+        self._graph_ptrs = state_pointers(ts)
+
+    def __call__(self, ts: TrainState, start: int, n: Optional[int] = None):
+        n = self.steps_per_call if n is None else n
+        if not 0 < n <= self.steps_per_call:
+            raise ValueError(f"a block of {n} steps (at most {self.steps_per_call})")
+        device = ts.step.device
+        graph = (self.use_graph and device.type == "cuda"
+                 and n == self.steps_per_call)
+        if graph and self._graph_state is not ts:
+            self._capture(ts)
+        elif graph and state_pointers(ts) != self._graph_ptrs:
+            raise RuntimeError(
+                "a tensor of the TrainState was replaced after the block was "
+                "captured; the graph would go on writing the old one (update "
+                "the state in place, e.g. with train_state.assign_state)")
+        self.begin_block(device, start)
+        if graph:
+            for _ in range(n):
+                self.graph.replay()
+        else:
+            for _ in range(n):
+                self.eager_step(ts)
+        traces = self.buffers(device)[2][:n]
+        return ts, {"loss": traces[:, 0].clone(), "gnorm": traces[:, 1].clone(),
+                    "skipped": traces[:, 2] > 0}
+
+
+def make_scanned_train_step(method, operator, optimizer, sampler,
+                            importance=None, ema_decay: float = 0.99,
+                            steps_per_call: int = 100, grad_clip: float = 0.0,
+                            seed: int = 0, use_graph: bool = True):
+    """The multi-step block, a ``ScannedTrainStep`` over ``make_train_step``."""
+    step = make_train_step(method, operator, optimizer, sampler,
+                           importance=importance, ema_decay=ema_decay,
+                           grad_clip=grad_clip)
+    return ScannedTrainStep(step, steps_per_call, seed=seed, use_graph=use_graph)
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _open_profile(device):
+    """Start a ``torch.profiler`` trace on an idle device."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    _sync(device)
+    prof = profile(activities=activities)
+    prof.__enter__()
+    if device.type == "cuda":
+        time.sleep(PROFILE_MARGIN_S)
+    return prof
+
+
+def _close_profile(prof, device, profile_dir: str) -> None:
+    """End the trace on an idle device and write ``profile_dir/trace.json``."""
+    _sync(device)
+    if device.type == "cuda":
+        time.sleep(PROFILE_MARGIN_S)
+    prof.__exit__(None, None, None)
+    os.makedirs(profile_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+
+
+def train_operator(
+    method,
+    operator,
+    sampler: Callable,
+    optimizer,
+    model: torch.nn.Module,
+    num_iters: int,
+    importance_train: Optional[Callable] = None,
+    importance_val: Optional[Callable] = None,
+    val_batches: Optional[Callable] = None,
+    ema_decay: float = 0.99,
+    eval_freq: int = 50_000,
+    print_freq: int = 1_000,
+    log_writer=None,
+    seed: int = 42,
+    monitor: bool = False,
+    post_align: bool = False,
+    normalize: Optional[bool] = None,
+    checkpoint_fn: Optional[Callable] = None,
+    spinx_refresh: Optional[Callable] = None,
+    profile_dir: Optional[str] = None,
+    profile_start: int = 100,
+    profile_steps: int = 20,
+    grad_clip: float = 0.0,
+    mesh=None,
+    rescue_init_fn: Optional[Callable] = None,
+    initial_ts: Optional[TrainState] = None,
+    start_iter: int = 0,
+    use_graph: bool = True,
+    timings: Optional[dict] = None,
+):
+    """Host driver: blocks of ``print_freq`` steps, a print row after each,
+    an eval of the EMA parameters every ``eval_freq`` steps with its
+    mode-health report, and ``checkpoint_fn(ts, it, outputs)`` after it.
+
+    Full blocks (``print_freq`` > 1, ``num_iters`` >= ``print_freq``, no
+    ``monitor``) run as ``ScannedTrainStep`` blocks: a replayed CUDA graph
+    on the card unless ``use_graph`` is false, eager steps elsewhere; a
+    shorter block runs eager steps.  ``monitor`` runs eager steps and feeds
+    each step's (9, L) statistics to per-mode ``EWMMonitor``s.  Both paths
+    seed the generators at the same block boundaries, so they draw the same
+    batches.  ``initial_ts``/``start_iter`` resume a run.  With
+    ``profile_dir`` set, a ``torch.profiler`` trace of the blocks from
+    ``profile_start`` on, ``profile_steps`` steps or more, is written there.
+    Given a dict ``timings``, the wall seconds of each block
+    (``block_graph`` or ``block_eager``, keyed by its steps) and of each
+    eval (``eval``) are appended to it; each ends in a device sync.
+
+    Returns (final TrainState, all_eigvals, all_norms).
+    """
+    from neuralsvd_tpu_torch.methods.spectrum import (
+        compute_spectrum_evd,
+        format_mode_health,
+        mode_health,
+    )
+    from neuralsvd_tpu_torch.training.ewm import EWMMonitor
+
+    if mesh is not None:
+        raise NotImplementedError(
+            "data parallelism (mesh) is not ported yet (ROADMAP queue 1, item 9)")
+    if rescue_init_fn is not None:
+        raise NotImplementedError(
+            "the mode rescue is not ported yet (ROADMAP queue 1, item 5)")
+    if spinx_refresh is not None:
+        raise NotImplementedError(
+            "SpINx is not ported yet (ROADMAP queue 1, item 8)")
+    ts = (initial_ts if initial_ts is not None
+          else init_train_state(model, optimizer, method))
+    device = ts.step.device
+    timings = {} if timings is None else timings
+    if normalize is None:
+        normalize = method.name in ("nestedlora", "neuralsvd")
+
+    monitors_quad = monitors_sqnorm = None
+    if monitor:
+        monitors_quad = [EWMMonitor() for _ in range(method.neigs)]
+        monitors_sqnorm = [EWMMonitor() for _ in range(method.neigs)]
+
+    use_scan = not monitor and num_iters >= print_freq > 1
+    step = make_train_step(method, operator, optimizer, sampler,
+                           importance=importance_train, ema_decay=ema_decay,
+                           grad_clip=grad_clip, monitor=monitor)
+    blocks = ScannedTrainStep(step, max(print_freq, 1), seed=seed,
+                              use_graph=use_graph and use_scan)
+    path = "graph" if blocks.use_graph and device.type == "cuda" else "eager"
+    log.info("train steps: %s blocks of %d", path, max(print_freq, 1))
+
+    all_eigvals, all_norms = [], []
+
+    def run_eval(it_done):
+        t0 = time.perf_counter()
+        outputs = compute_spectrum_evd(
+            (method.eval_apply, ts.ema_params, ts.method_state),
+            val_batches(), operator, importance_train=importance_train,
+            importance_val=importance_val, post_align=post_align,
+            normalize=normalize, device=device)
+        all_eigvals.append(outputs["eigvals"])
+        all_norms.append(outputs["norms"])
+        log.info("it%d eigvals: %s", it_done, outputs["eigvals"])
+        # the health report reads real norms: undo normalize's cov rescale
+        norms = np.asarray(outputs["norms"])
+        cov = np.asarray(outputs["cov"])
+        if normalize:
+            cov = cov * np.sqrt(np.outer(norms, norms))
+        report = format_mode_health(mode_health(cov, np.asarray(outputs["quad"])))
+        if report:
+            log.warning("it%d mode health:\n%s", it_done, report)
+        else:
+            log.info("it%d mode health: all %d modes healthy", it_done,
+                     method.neigs)
+        timings.setdefault("eval", []).append(time.perf_counter() - t0)
+        if checkpoint_fn is not None:
+            checkpoint_fn(ts, it_done, outputs)
+
+    total_skips = 0
+    start = time.time()
+    it = start_iter
+    prof = None
+    profile_end = 0
+    while it < num_iters:
+        if profile_dir is not None and prof is None and it >= profile_start:
+            prof = _open_profile(device)
+            profile_end = it + profile_steps
+        n = min(print_freq - (it % print_freq), num_iters - it)
+        t0 = time.perf_counter()
+        if not monitor:
+            ts, metrics = blocks(ts, it, n)
+            kind = "block_graph" if (path == "graph" and n == blocks.steps_per_call) else "block_eager"
+            loss_v, skips = torch.stack(
+                [metrics["loss"][-1], metrics["skipped"].sum().to(torch.float32)]).tolist()
+            total_skips += int(skips)
+            cuda_gram.check_tickets()
+        else:
+            kind = "block_eager"
+            blocks.begin_block(device, it)
+            for _ in range(n):
+                metrics = blocks.eager_step(ts)
+                qs = metrics["quad_stats"].cpu().numpy()
+                ns = metrics["sqnorm_stats"].cpu().numpy()
+                for i in range(method.neigs):
+                    monitors_quad[i].update_stats(qs[:, i])
+                    monitors_sqnorm[i].update_stats(ns[:, i])
+                total_skips += int(metrics["skipped"])
+            loss_v = float(metrics["loss"])
+        timings.setdefault(kind, []).append((n, time.perf_counter() - t0))
+        it += n
+        if prof is not None and it >= profile_end:
+            _close_profile(prof, device, profile_dir)
+            prof, profile_dir = None, None
+            log.info("profiler trace written")
+        if it % print_freq == 0 or it == num_iters:
+            elapsed = time.time() - start
+            row = {"iter": it, "train_loss": loss_v, "time": elapsed,
+                   "steps_per_sec": (it - start_iter) / elapsed}
+            if total_skips:
+                row["skips"] = total_skips
+            log.info("%s", row)
+            if log_writer is not None:
+                log_writer.writerow(
+                    {k: row.get(k) for k in
+                     ("iter", "train_loss", "time", "steps_per_sec")})
+        if val_batches is not None and (it // eval_freq) > ((it - n) // eval_freq):
+            run_eval(it)
+    if prof is not None:  # the loop ended inside the trace window
+        _close_profile(prof, device, profile_dir)
+    return ts, all_eigvals, all_norms

@@ -2,6 +2,7 @@
 
     python3 profile_torch_e4.py [--path e4|cdk] [--steps N] [--profile-steps 10] [--out FILE]
     python3 profile_torch_e4.py --path kernels [--out FILE]
+    python3 profile_torch_e4.py --path window [--windows 20] [--profile-steps 10]
 
 ``--path e4`` builds the E4 configuration and ``--path cdk`` the CDK
 two-tower configuration (Sketchy paper width, synthetic features), each
@@ -9,10 +10,12 @@ exactly as chip_smoke.py does (full width), and
 
 1. times two variants of the train step in turns (A, B, B, A), each over
    --steps steps after a warm-up, on one card in one process: for E4 the
-   exact Laplacian by the forward-Laplacian engine ("forward", the
-   default) and by nested JVPs ("jvp"), both with the loss on the
-   hand-written kernels; for CDK the loss on the plain path and on the
-   kernels;
+   per-step loop ("eager": the step's kernels launched from Python one
+   step at a time) and the driver's block, one step captured in a CUDA
+   graph and replayed ("graph"), both in blocks of E4_BLOCK steps that
+   read nothing on the host, with the forward-Laplacian engine and the
+   loss on the hand-written kernels; for CDK the loss on the plain path
+   and on the kernels;
 2. records --profile-steps steps of each variant under torch.profiler and
    reports the device's busy share (kernel time over wall time), device
    time and launches per step, K1-K3's device time per call, and the
@@ -26,12 +29,22 @@ against its plain version, and reports the device time of every CUDA
 kernel each wrapper launches (K1 launches two or three passes, K2 one or
 two), per call, over KERNEL_CALLS calls under torch.profiler.
 
+``--path window`` checks that a profiler window keeps every kernel of the
+replayed E4 steps it spans: --windows pairs of windows in turns, one
+opened and closed right at the work, one with PROFILE_MARGIN_S of idle
+device inside each edge (as the driver's --profile window and
+chip_smoke.py open theirs), and the kernels and K1-K3 launches each kept,
+in the profiler's key averages and in its exported trace.
+
 Prints one JSON line; --out also writes the profiler's table.  Needs a GPU.
 """
 import argparse
+import collections
 import json
+import os
 import statistics
 import subprocess
+import tempfile
 import time
 
 import torch
@@ -42,7 +55,7 @@ from neuralsvd_tpu_torch.cli.sketchy import make_trainer
 from neuralsvd_tpu_torch.methods.nestedlora import NestedLoRA
 from neuralsvd_tpu_torch.ops import cuda_gram
 from neuralsvd_tpu_torch.training.optimizers import torch_rmsprop
-from neuralsvd_tpu_torch.training.train_operator import make_train_step
+from neuralsvd_tpu_torch.training.train_operator import PROFILE_MARGIN_S, make_scanned_train_step
 from neuralsvd_tpu_torch.training.train_state import init_train_state
 
 OUR_KERNELS = smoke.CUDA_KERNELS
@@ -54,22 +67,28 @@ KERNEL_SHAPES.append(("cdk512", 2 * smoke.CDK_B, smoke.CDK_L))
 KERNEL_CALLS = 20
 
 
-def e4_runner(use_pallas, laplacian_mode):
-    """advance(n): n E4 train steps; returns the last loss."""
-    model, operator, _, sampler, importance = smoke._e4_setup(
-        "cuda", laplacian_mode=laplacian_mode)
-    method = NestedLoRA(model, neigs=smoke.NEIGS, sequential=True,
-                        use_pallas=use_pallas)
+E4_BLOCK = 10  # steps a block; --steps, WARMUP and --profile-steps are multiples
+
+
+def e4_runner(use_graph):
+    """advance(n): n E4 train steps in blocks of E4_BLOCK, as CUDA graph
+    replays or eager steps; returns the last loss."""
+    model, operator, _, sampler, importance = smoke._e4_setup("cuda")
+    method = NestedLoRA(model, neigs=smoke.NEIGS, sequential=True)
     optimizer = torch_rmsprop(smoke.LR, alpha=smoke.ALPHA)
-    state = {"ts": init_train_state(model, optimizer, method)}
-    step = make_train_step(method, operator, optimizer, sampler,
-                           importance=importance, ema_decay=smoke.EMA_DECAY)
-    gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
+    block = make_scanned_train_step(method, operator, optimizer, sampler,
+                                    importance=importance, ema_decay=smoke.EMA_DECAY,
+                                    steps_per_call=E4_BLOCK, seed=smoke.SEED,
+                                    use_graph=use_graph)
+    state = {"ts": init_train_state(model, optimizer, method), "it": 0}
 
     def advance(n):
-        for _ in range(n):
-            state["ts"], metrics = step(state["ts"], gen)
-        return metrics["loss"]
+        if n % E4_BLOCK:
+            raise ValueError(f"{n} steps: not whole blocks of {E4_BLOCK}")
+        for _ in range(n // E4_BLOCK):
+            state["ts"], metrics = block(state["ts"], state["it"])
+            state["it"] += E4_BLOCK
+        return metrics["loss"][-1]
 
     return advance
 
@@ -129,14 +148,17 @@ def _write_table(path, smi, prof, kernels):
         fh.write(prof.key_averages().table(sort_by=sort_by, row_limit=60))
 
 
-def _profile(advance, steps):
-    """torch.profiler over ``steps`` steps: (profile, wall seconds)."""
+def _profile(advance, steps, margin_s=PROFILE_MARGIN_S):
+    """torch.profiler over ``steps`` steps, the window opening and closing
+    on a device idle for ``margin_s``: (profile, wall seconds)."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(margin_s)
         t0 = time.perf_counter()
         advance(steps)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
+        time.sleep(margin_s)
     return prof, wall_s
 
 
@@ -167,8 +189,8 @@ def _step_profile(prof, wall_s, per):
 
 def profile_train(args, smi):
     if args.path == "e4":
-        order = ("forward", "jvp")
-        runs = {mode: e4_runner("auto", mode) for mode in order}
+        order = ("eager", "graph")
+        runs = {name: e4_runner(name == "graph") for name in order}
     else:
         order = ("plain", "kernels")
         train, _, _ = smoke._cdk_data()
@@ -193,6 +215,70 @@ def profile_train(args, smi):
         "profiles": profiles,
     }
     print(json.dumps(row), flush=True)
+
+
+def _short_replays(events):
+    """The graph replays of a trace that hold fewer kernels than the most
+    common replay: [replay index of the window, replays, kernels missing,
+    the first few missing names].  A kernel belongs to the replay whose
+    cudaGraphLaunch has its correlation id."""
+    launches = sorted((e["ts"], e["args"]["correlation"]) for e in events
+                      if e.get("name") == "cudaGraphLaunch" and "correlation" in e.get("args", {}))
+    replay = {c: i for i, (_, c) in enumerate(launches)}
+    steps = [collections.Counter() for _ in launches]
+    for e in events:
+        if str(e.get("cat", "")).lower() == "kernel":
+            i = replay.get(e.get("args", {}).get("correlation"))
+            if i is not None:
+                steps[i][e["name"][:60]] += 1
+    if not steps:
+        return []
+    full = max(steps, key=lambda c: sum(c.values()))
+    return [[i, len(steps), sum((full - c).values()), sorted(full - c)[:4]]
+            for i, c in enumerate(steps) if c != full]
+
+
+def profile_window(args, smi):
+    """The kernels that a profiler window keeps, over --windows pairs of
+    windows of --profile-steps replayed E4 steps, in turns: one opened and
+    closed right at the work (after a device sync), one with
+    PROFILE_MARGIN_S of idle device inside each edge."""
+    advance = e4_runner(True)
+    advance(WARMUP)
+    kept = {"no_margin": [], "margin": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = os.path.join(tmp, "trace.json")
+        for _ in range(args.windows):
+            for name, margin_s in (("no_margin", 0.0), ("margin", PROFILE_MARGIN_S)):
+                prof, _ = _profile(advance, args.profile_steps, margin_s)
+                kernels = _cuda_events(prof)
+                row = {"kernels": sum(e.count for e in kernels)}
+                for k in smoke.GRAM_KERNELS.values():
+                    row[k] = sum(e.count for e in kernels if k in e.key)
+                # the exported trace, as the driver's --profile window writes it
+                prof.export_chrome_trace(trace)
+                with open(trace) as fh:
+                    events = json.load(fh)["traceEvents"]
+                names = [e.get("name", "") for e in events
+                         if str(e.get("cat", "")).lower() == "kernel"]
+                row["trace_kernels"] = len(names)
+                for k in smoke.GRAM_KERNELS.values():
+                    row[f"trace_{k}"] = sum(k in n for n in names)
+                row["short_replays"] = _short_replays(events)
+                kept[name].append(row)
+    steps = args.profile_steps
+    counts = list(smoke.GRAM_KERNELS.values())
+    counts += [f"trace_{g}" for g in counts]
+    print(json.dumps({
+        "path": "window", "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+        "steps": steps, "margin_s": PROFILE_MARGIN_S,
+        "kernels_range": {k: {c: [min(r[c] for r in v), max(r[c] for r in v)]
+                              for c in ("kernels", "trace_kernels")}
+                          for k, v in kept.items()},
+        "windows_short_of_a_gram_kernel": {
+            k: sum(any(r[g] != steps for g in counts) for r in v)
+            for k, v in kept.items()},
+        "windows": kept}), flush=True)
 
 
 def profile_kernels(args, smi):
@@ -222,9 +308,11 @@ def profile_kernels(args, smi):
                 run()
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                time.sleep(PROFILE_MARGIN_S)
                 for _ in range(KERNEL_CALLS):
                     run()
                 torch.cuda.synchronize()
+                time.sleep(PROFILE_MARGIN_S)
             kernels = _cuda_events(prof)
             rows[name] = {
                 "rel_err_of_max": rel,
@@ -242,9 +330,10 @@ def profile_kernels(args, smi):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--path", choices=("e4", "cdk", "kernels"), default="e4")
+    ap.add_argument("--path", choices=("e4", "cdk", "kernels", "window"), default="e4")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--profile-steps", type=int, default=10)
+    ap.add_argument("--windows", type=int, default=20)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -257,6 +346,8 @@ def main():
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     if args.path == "kernels":
         profile_kernels(args, smi)
+    elif args.path == "window":
+        profile_window(args, smi)
     else:
         profile_train(args, smi)
 

@@ -10,12 +10,15 @@ are the CDK path's at the Sketchy paper width: f and g of 4096 rows and
 L = 512 + the constant mode = 513 columns (not a multiple of the kernels'
 64-wide tiles, nor of the 4 floats of a 16-byte copy), and a sweep of
 widths on both sides of the tile edges; K2 also at the smoke's five shapes.
+The last tests capture a small E4-style train step in a CUDA graph and hold
+its replays against the same steps run eagerly.
 """
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 from neuralsvd_tpu_torch.data.samplers import get_sampler
+from neuralsvd_tpu_torch.methods.nestedlora import NestedLoRA
 from neuralsvd_tpu_torch.models.wavefunctions import make_wavefunctions
 from neuralsvd_tpu_torch.operators.diff_ops import VectorizedLaplacian
 from neuralsvd_tpu_torch.ops import cuda_gram, forward_laplacian
@@ -26,6 +29,18 @@ from neuralsvd_tpu_torch.ops.masks import (
     step_weights,
 )
 from neuralsvd_tpu_torch.ops.nestedlora import nestedlora_cdk_loss
+from neuralsvd_tpu_torch.operators.problems import get_problem
+from neuralsvd_tpu_torch.training.optimizers import build_optimizer, cosine_annealing
+from neuralsvd_tpu_torch.training.train_operator import (
+    GRAPH_WARMUP_STEPS,
+    ScannedTrainStep,
+    make_scanned_train_step,
+)
+from neuralsvd_tpu_torch.training.train_state import (
+    init_train_state,
+    load_state_tree,
+    state_tree,
+)
 
 B, L = 4096, 512
 LOSS_RTOL = 1e-5
@@ -231,3 +246,130 @@ def test_forward_engine_on_the_card(cuda_device, probes):
             for a, b in zip(got, want):
                 torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * b.abs().max().item())
     assert forward_laplacian.fallback_rule.calls == 0
+
+
+# -- the captured train step ---------------------------------------------------
+
+GRAPH_STEPS = 20
+GRAPH_MODEL = dict(ndim=2, neigs=6, mlp_hidden_dims=[32, 32], nonlinearity="softplus",
+                   parallel=True, use_fourier_feature=True, fourier_mapping_size=16,
+                   fourier_scale=0.1, fourier_append_radial=True,
+                   fourier_append_envelopes=(2.0, 2 / 3), apply_boundary=False)
+
+
+def _graph_setup(device, probes, use_graph):
+    model = make_wavefunctions(**GRAPH_MODEL, seed=1, device=device)
+    operator, _, _ = get_problem(problem="sch", potential_type="hydrogen", ndim=2,
+                                 neigs=6, laplacian_eps=-1.0, laplacian_probes=probes,
+                                 operator_scale=100.0)
+    sampler, importance = get_sampler("gaussian_mixture", 256, 1, 2,
+                                      (0.5, 2.0, 6.0, 16.0), device=device)
+    method = NestedLoRA(model, neigs=6, sequential=True)
+    optimizer = build_optimizer("rmsprop", 1e-3, lr_schedule=cosine_annealing(1e-3, 60))
+    block = make_scanned_train_step(method, operator, optimizer, sampler,
+                                    importance=importance, ema_decay=0.995,
+                                    steps_per_call=GRAPH_STEPS, seed=7,
+                                    use_graph=use_graph)
+    return init_train_state(model, optimizer, method), block
+
+
+def _assert_states_close(got, want):
+    """rtol 1e-5 and atol 1e-6 of the largest entry, leaf by leaf."""
+    if isinstance(want, torch.Tensor):
+        if want.is_floating_point():
+            torch.testing.assert_close(got, want, rtol=1e-5,
+                                       atol=1e-6 * want.abs().max().item())
+        else:
+            assert torch.equal(got, want)
+    elif isinstance(want, dict):
+        for k in want:
+            _assert_states_close(got[k], want[k])
+    elif isinstance(want, (list, tuple)):
+        for a, b in zip(got, want, strict=True):
+            _assert_states_close(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("probes", [0, 2], ids=["exact", "hutchinson"])
+def test_graph_blocks_match_eager_steps(cuda_device, probes):
+    """Two blocks of GRAPH_STEPS replays of the captured step against the
+    same steps run eagerly from the same state and block seeds: the whole
+    state (params, RMSprop moments, schedule count, EMA, step) within rtol
+    1e-5 / atol 1e-6 of the largest entry.  The EMA ramp and the cosine LR
+    read the device step counter, so they advance across replays (a frozen
+    counter would leave the graph's EMA and update sizes at step 0's).
+    K2's ticket counters are back at zero after the replays.  The
+    wrappers count the eager warm-up's launches alone: the capture
+    launches nothing and the replays do not call them."""
+    ts, graph = _graph_setup(cuda_device, probes, use_graph=True)
+    start = state_tree(ts)
+    cuda_gram.reset_launch_counts()
+    losses = []
+    for s in (0, GRAPH_STEPS):
+        ts, m = graph(ts, s)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    assert all(v == 0 for v in cuda_gram.ticket_values().values())
+    counts = cuda_gram.launch_counts()
+    assert all(n == GRAPH_WARMUP_STEPS for n in counts.values()), counts
+    assert graph.graph is not None
+    got = state_tree(ts)
+    assert int(got["step"]) == 2 * GRAPH_STEPS
+    assert int(got["opt_state"][1]["count"]) == 2 * GRAPH_STEPS
+
+    ts_e, eager = _graph_setup(cuda_device, probes, use_graph=False)
+    load_state_tree(ts_e, start)
+    eager_losses = [eager(ts_e, s)[1]["loss"] for s in (0, GRAPH_STEPS)]
+    assert eager.graph is None
+    _assert_states_close(got, state_tree(ts_e))
+    for a, b in zip(losses, eager_losses):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.cuda
+def test_replayed_block_launches_each_kernel_once_a_step(cuda_device):
+    """The profiler sees one launch of K1's SYRK pass, K2 and K3 a step in
+    a replayed block."""
+    ts, graph = _graph_setup(cuda_device, 0, use_graph=True)
+    graph(ts, 0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        graph(ts, GRAPH_STEPS)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA for _ in range(e.count)]
+    for kernel in ("masked_gram_syrk_kernel", "weighted_dot_kernel", "metric_grads_kernel"):
+        assert sum(kernel in n for n in names) == GRAPH_STEPS, kernel
+
+
+@pytest.mark.cuda
+def test_replacing_a_state_tensor_after_capture_raises(cuda_device):
+    """The graph writes the tensors the state held at capture: a block
+    after one of them was replaced raises instead of training a copy the
+    state no longer holds, and replaying on in-place updates still runs."""
+    ts, graph = _graph_setup(cuda_device, 0, use_graph=True)
+    graph(ts, 0)
+    load_state_tree(ts, state_tree(ts))  # in place: the graph stays valid
+    graph(ts, GRAPH_STEPS)
+    ts.ema_params = {k: v.clone() for k, v in ts.ema_params.items()}
+    with pytest.raises(RuntimeError, match="replaced after the block was captured"):
+        graph(ts, 2 * GRAPH_STEPS)
+    torch.cuda.synchronize()
+    assert int(ts.step) == 2 * GRAPH_STEPS
+
+
+@pytest.mark.cuda
+def test_a_step_that_reads_the_host_fails_to_capture(cuda_device):
+    """A step that reads a device value on the host cannot be captured: the
+    block raises and runs no eager steps in its place.  (Last in the file:
+    a failed capture may leave the process's CUDA state unusable.)"""
+    ts, graph = _graph_setup(cuda_device, 0, use_graph=True)
+
+    def reads_the_host(ts, generator, probes=None):
+        ts, metrics = graph.step(ts, generator, probes)
+        float(metrics["loss"])
+        return ts, metrics
+
+    block = ScannedTrainStep(reads_the_host, GRAPH_STEPS, seed=7)
+    with pytest.raises(RuntimeError):
+        block(ts, 0)

@@ -32,7 +32,11 @@ from neuralsvd_tpu_torch.operators.schrodinger import (
 )
 from neuralsvd_tpu_torch.ops import forward_laplacian as engine
 from neuralsvd_tpu_torch.training.optimizers import torch_rmsprop
-from neuralsvd_tpu_torch.training.train_operator import make_train_step, probe_seed
+from neuralsvd_tpu_torch.training.train_operator import (
+    PROBE_STREAM,
+    block_seed,
+    make_train_step,
+)
 from neuralsvd_tpu_torch.training.train_state import init_train_state
 
 MIX = (0.5, 2.0, 6.0, 16.0)
@@ -143,9 +147,10 @@ def test_operator_unbiased_vs_exact(mlp_problem):
 
 def test_train_step_binds_probes_and_keeps_the_sample_stream(mlp_problem):
     """make_train_step gives a needs_key operator a probe generator of its
-    own, seeded from the step generator's seed and the step: the step runs
-    with a finite loss, repeats for one seed and moves with another, and
-    draws the same batches as the exact operator's step."""
+    own, seeded once from the step generator's seed (it then advances from
+    step to step; the driver's blocks seed it at every block start): the
+    step runs with a finite loss, repeats for one seed and moves with
+    another, and draws the same batches as the exact operator's step."""
     model, op = mlp_problem
     exact = OperatorWrapper(NegativeHamiltonian(
         local_potential_ftn=harmonic_oscillator_potential, laplacian_eps=-1.0),
@@ -177,7 +182,8 @@ def test_train_step_binds_probes_and_keeps_the_sample_stream(mlp_problem):
     assert np.isfinite(l1).all() and l1 == l2 and l1 != l3
     assert all(torch.equal(a, b) for a, b in zip(x1, xe)) and len(x1) == 2
     assert l1[0] != le[0]  # the probes, not the batch, differ
-    assert probe_seed(1, 0) != probe_seed(1, 1) != probe_seed(2, 1)
+    assert (block_seed(1, 0, PROBE_STREAM) != block_seed(1, 1, PROBE_STREAM)
+            != block_seed(2, 1, PROBE_STREAM) != block_seed(2, 1))
 
 
 def test_spectrum_eval_takes_the_exact_engine(mlp_problem):

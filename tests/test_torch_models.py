@@ -150,10 +150,13 @@ def test_same_seed_same_model():
         assert na == nb and torch.equal(pa, pb)
 
 
+# ids as when the box mask and the shared trunk, now ported, were the
+# first and third cases
 @pytest.mark.parametrize("override", [
-    dict(apply_boundary=True), dict(apply_exp_mask=True), dict(parallel=False),
+    dict(parallel=False, matmul_precision="highest"), dict(apply_exp_mask=True),
+    dict(parallel=False, apply_exp_mask=True),
     dict(compute_dtype="bfloat16"), dict(matmul_precision="high"),
-])
+], ids=[f"override{i}" for i in range(5)])
 def test_unported_options_raise(override):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_wavefunctions(**dict(SMALL, **override), device="cpu")

@@ -148,9 +148,11 @@ def test_train_step_matches_jax(jax_run):
         with torch.no_grad():
             for name, p in ts.params.items():
                 p.copy_(rec["params"][name])
-        ts.opt_state = TorchRMSpropState(nu=dict(rec["nu"]), momentum={})
-        ts.ema_params = dict(rec["ema"])
-        ts.step = rec["step"]
+        # the step writes the state in place: give it copies of the records
+        ts.opt_state = TorchRMSpropState(
+            nu={k: v.clone() for k, v in rec["nu"].items()}, momentum={})
+        ts.ema_params = {k: v.clone() for k, v in rec["ema"].items()}
+        ts.step.fill_(rec["step"])
         feed["k"] = k
         loss, grads, _, _ = method.loss_and_grad(ts.params, {}, torch.as_tensor(batches[k]),
                                                  top, timp)
@@ -167,7 +169,7 @@ def test_train_step_matches_jax(jax_run):
             # ν holds g²: twice the gradients' relative tolerance
             np.testing.assert_allclose(ts.opt_state.nu[name].numpy(), r.numpy(),
                                        rtol=2e-4, atol=2e-6 * r.abs().max().item())
-        assert ts.step == rec["step"] + 1
+        assert int(ts.step) == rec["step"] + 1
 
 
 @pytest.mark.parametrize("momentum", [0.0, 0.9])
