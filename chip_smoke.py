@@ -11,10 +11,11 @@ seconds:
 2. build      the hand-written kernels, one nvcc call into an emptied
               neuralsvd_tpu_torch/csrc/build/, and each kernel's registers,
               shared memory and spills from ptxas (no spill allowed);
-3. kernels    each kernel against its plain PyTorch version at five shapes
+3. kernels    each kernel against its plain PyTorch version at seven shapes
               (E4, two odd ones, 1000 x 129 halves one column past K1's
-              64-wide tiles, and the CDK path's 4096 x 513 pair), and
-              CUDA-event timings of kernel, plain version and library call;
+              64-wide tiles, the CDK path's 4096 x 513 pair, and the two
+              PDE recipes' 512 x 36 and 512 x 55), and CUDA-event timings
+              of kernel, plain version and library call;
 4. trainer    the hydrogen-2D E4 configuration at full width (L = 16,
               B = 512, per-mode 128³ softplus towers, 1024 Fourier maps +
               radial + 4 envelopes, gaussian_mixture sampling with √w
@@ -55,7 +56,22 @@ seconds:
               launches measured in the same way; and steps/s of E4 CLI
               runs as eager steps and as graph blocks (cli.pde.main's
               use_graph), in turns (eager, graph, graph, eager);
-8. cdk_train  the Sketchy CDK trainer (cli/sketchy.py::run_training) at the
+8. pde_recipes the paper's two PDE recipes (scripts/exps/pde/hydrogen.sh
+              and oscillator.sh, --loss neuralsvd) through the PDE entry
+              point at full width in graph blocks of RECIPE_BLOCK: hydrogen
+              (L 36, the mode rescue) runs to a checkpoint at an eval, has
+              one mode made a copy of another there (params, EMA, moments)
+              and resumes; its next eval must flag the copy, rescue it in
+              place (one capture in the resumed run, the tail's EMA equal
+              to its params, each rescued slot off its clone source) and
+              the blocks after it stay finite with no skipped step;
+              oscillator (L 55, the learnable exponential mask) trains with
+              one eval, its mask scales move off 10, and the forward
+              -Laplacian engine takes the exp-masked model with no
+              fallback call and agrees with nested JVPs.  For both: kernel
+              vs plain loss and grads on one batch, each kernel's launches
+              measured as in pde_cli (one a step), steps/s of a graph block;
+9. cdk_train  the Sketchy CDK trainer (cli/sketchy.py::run_training) at the
               paper's width (512-8192-512 lrelu0.2 towers, L 512, B 4096,
               SGD momentum 0.9, lr 5e-3 warmup-cosine, grad clip 1.0, joint
               nesting) on synthetic class-correlated 512-d features, two
@@ -67,10 +83,11 @@ seconds:
               alone on device-resident batches and its peak device memory.
 
 Then the {"kernels": [...]} line (numbers at the CDK shape, launches of
-the three main paths (e4 trainer, pde_cli, cdk; pde_cli's are the eager
-launches counted by the wrappers plus the replayed launches counted in the
-traced block, each also under "paths"), per-path numbers under "paths",
-every shape's under "shapes"), the nvidia-smi line and,
+the five main paths (e4 trainer, pde_cli, hydrogen, oscillator, cdk; the
+CLI paths' are the eager launches counted by the wrappers plus the
+replayed launches counted in the traced block, each also under "paths"),
+per-path numbers under "paths", every shape's under "shapes"), the
+nvidia-smi line and,
 last, {"ok": true, "device": {...}}.  Any failed check raises: the exit
 code is then non-zero and the last line is never printed.  Without a GPU it
 raises before printing anything.
@@ -102,13 +119,17 @@ from neuralsvd_tpu_torch.models.wavefunctions import make_wavefunctions
 from neuralsvd_tpu_torch.operators.diff_ops import VectorizedLaplacian
 from neuralsvd_tpu_torch.operators.problems import get_problem
 from neuralsvd_tpu_torch.ops import cuda_build, cuda_gram, forward_laplacian
-from neuralsvd_tpu_torch.ops.cuda_gram import nestedlora_cdk_loss_kernels
+from neuralsvd_tpu_torch.ops.cuda_gram import (
+    nestedlora_cdk_loss_kernels,
+    nestedlora_evd_loss_kernels,
+)
 from neuralsvd_tpu_torch.ops.masks import (
     joint_nesting_masks,
     sequential_nesting_masks,
     step_weights,
 )
-from neuralsvd_tpu_torch.ops.nestedlora import nestedlora_cdk_loss
+from neuralsvd_tpu_torch.ops.nestedlora import nestedlora_cdk_loss, nestedlora_evd_loss
+from neuralsvd_tpu_torch.training.checkpoint import load_checkpoint, save_checkpoint
 from neuralsvd_tpu_torch.training.optimizers import (
     build_optimizer,
     cosine_annealing,
@@ -170,6 +191,48 @@ PDE_PROFILE_STEPS = 50  # the profiled replayed block
 # graph block vs eager steps from one state: rtol, atol of the largest entry
 PDE_STATE_RTOL, PDE_STATE_ATOL = 1e-5, 1e-6
 
+# the paper's two PDE recipes: the args=( ... ) lists of
+# scripts/exps/pde/hydrogen.sh and oscillator.sh with the scripts' defaults
+# (batch 512, joint nesting) and --loss neuralsvd; only --num_iters,
+# --eval_freq, --print_freq, --overwrite and --log_dir are set here (and
+# --resume and --profile for the runs that need them)
+HYDROGEN_ARGV = ("--optimizer rmsprop --use_lr_scheduler true --ema_decay 0.995 "
+                 "--batch_size 512 --lr 1e-4 --momentum 0. --num_iters 500000 "
+                 "--laplacian_eps 0.01 --eval_freq 10000 --overwrite true "
+                 "--potential_type hydrogen --ndim 2 --lim 50 --val_eps 0.1 --neigs 36 "
+                 "--apply_boundary false --apply_exp_mask false "
+                 "--mlp_hidden_dims 128,128,128 --parallel true --nonlinearity softplus "
+                 "--sampling_mode gaussian_mixture --sampling_scales 0.5,2,6,16,32 "
+                 "--fourier_append_radial true "
+                 "--fourier_append_envelopes 2.0,0.6667,0.4,0.2857,0.2222,0.1818 "
+                 "--operator_scale 100 --rescue true --use_fourier_feature true "
+                 "--fourier_mapping_size 1024 --fourier_scale 0.1 --neuralsvd.step 1 "
+                 "--neuralsvd.sequential 0 --neuralef.unbiased true "
+                 "--neuralef.include_diag false --neuralef.batchnorm_mode unbiased "
+                 "--loss neuralsvd").split()
+OSCILLATOR_ARGV = ("--optimizer rmsprop --use_lr_scheduler true --ema_decay 0.995 "
+                   "--batch_size 512 --lr 1e-4 --num_iters 100000 --laplacian_eps 0.01 "
+                   "--eval_freq 100000 --overwrite true --potential_type harmonic_oscillator "
+                   "--ndim 2 --lim 5 --val_eps 0.1 --neigs 55 --apply_boundary false "
+                   "--apply_exp_mask true --exp_mask_init_scale 10 "
+                   "--mlp_hidden_dims 128,128,128 --parallel true --nonlinearity softplus "
+                   "--sampling_mode gaussian --sampling_scale 4 --operator_scale 1 "
+                   "--operator_shift 16.0 --use_fourier_feature true "
+                   "--fourier_mapping_size 256 --fourier_scale 1 --neuralsvd.step 1 "
+                   "--neuralsvd.sequential 0 --neuralef.unbiased true "
+                   "--neuralef.include_diag false --loss neuralsvd").split()
+HYDROGEN_L, OSCILLATOR_L = 36, 55
+# hydrogen: a first run of HYD_FIRST steps checkpoints at its eval; slot
+# HYD_DUP[0] is copied to slot HYD_DUP[1]; --resume to HYD_ITERS with an
+# eval at HYD_EVAL (inside rescue_until 0.7 x HYD_ITERS) rescues it, and
+# HYD_ITERS - HYD_EVAL more steps follow.  Blocks of RECIPE_BLOCK steps.
+RECIPE_BLOCK = 250
+HYD_FIRST, HYD_EVAL, HYD_ITERS, HYD_DUP = 500, 750, 1250, (2, 20)
+OSC_ITERS = 750  # one eval, at the end
+# the --profile window: one graph block of each run, not its last one
+HYD_TRACED = (HYD_EVAL, RECIPE_BLOCK)
+OSC_TRACED = (RECIPE_BLOCK, RECIPE_BLOCK)
+
 # CDK: the Sketchy paper's configuration (scripts/exps/sketchy.sh:15-36) on
 # synthetic features; joint nesting (the script's intent, see ROADMAP §3)
 CDK_ARGV = ["--network_dims", "8192,512", "--neigs", "512", "--batch_size", "4096",
@@ -186,11 +249,15 @@ CDK_TOWER_RTOL = 1e-4  # GPU vs CPU towers: f32 products of depth 8192
 # full batches (B, L); K1/K3 see the two halves (B/2, L), K2 the whole on
 # the EVD path and the two halves (f, g) on the CDK path
 KERNEL_SHAPES = [("E4", BATCH, NEIGS), ("unaligned", 96, 5), ("wide", 2048, 64),
-                 ("edge", 2000, 129), ("cdk", 2 * CDK_B, CDK_L + 1)]
+                 ("edge", 2000, 129), ("cdk", 2 * CDK_B, CDK_L + 1),
+                 ("hydrogen", BATCH, HYDROGEN_L), ("oscillator", BATCH, OSCILLATOR_L)]
 KERNEL_RTOL = 1e-5   # of the plain version on |inputs|: f32 rounding scale
 LOSS_RTOL = 1e-5     # kernel vs plain loss on one batch
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6  # atol in units of the largest entry
 OPERATOR_RTOL = 1e-4  # GPU vs CPU Tf, fs: f32 second derivatives
+# a recipe's trained state: the kernel path's gradient excess over the
+# tolerance, against float64, may be this many times the plain path's
+RECIPE_F64_FACTOR = 2.0
 # forward engine vs nested JVPs (tests/test_torch_operators.py): rtol, and
 # atol in units of the largest entry of each output
 LAP_RTOL, LAP_ATOL = 1e-4, 1e-5
@@ -213,6 +280,11 @@ CUDA_KERNELS = ("masked_gram_syrk_kernel", "masked_gram_finish_kernel",
 GRAM_KERNELS = {"masked_gram_pair": "masked_gram_syrk_kernel",
                 "weighted_dot": "weighted_dot_kernel",
                 "metric_grads": "metric_grads_kernel"}
+# every CUDA kernel each wrapper launches, for its device time in a trace
+WRAPPER_KERNELS = {"masked_gram_pair": ("masked_gram_syrk_kernel", "masked_gram_finish_kernel",
+                                        "sum_partials_kernel"),
+                   "weighted_dot": ("weighted_dot_kernel",),
+                   "metric_grads": ("metric_grads_kernel",)}
 REPLACES = {
     "masked_gram_pair": "neuralsvd_tpu/ops/pallas_gram.py:64",
     "weighted_dot": "neuralsvd_tpu/ops/pallas_gram.py:137",
@@ -600,8 +672,8 @@ def _rows(records):
             and "iter" in r.args]
 
 
-def _check_run(label, ts, eigvals, run_dir, records, iters, evals):
-    """Every print row finite and without skips, the evals' NEIGS
+def _check_run(label, ts, eigvals, run_dir, records, iters, evals, neigs=NEIGS):
+    """Every print row finite and without skips, the evals' ``neigs``
     eigenvalues finite, the files of a run and one health report an eval."""
     rows = _rows(records)
     check(rows and rows[-1]["iter"] == iters, f"{label}: rows {rows}")
@@ -609,7 +681,7 @@ def _check_run(label, ts, eigvals, run_dir, records, iters, evals):
     check(all("skips" not in r for r in rows), f"{label}: skipped steps {rows}")
     check(int(ts.step) == iters, f"{label}: step {int(ts.step)}")
     check(len(eigvals) == len(evals), f"{label}: {len(eigvals)} evals")
-    check(all(np.shape(e) == (NEIGS,) and np.isfinite(e).all() for e in eigvals),
+    check(all(np.shape(e) == (neigs,) and np.isfinite(e).all() for e in eigvals),
           f"{label}: eigenvalues {eigvals}")
     names = set(os.listdir(run_dir))
     want = {"stats.npz"} | {f"ckpt_{it}" for it in evals}
@@ -631,21 +703,26 @@ def _measured_launches(label, run_dir, traced):
     counts since the last reset (the eager launches; a capture launches
     nothing and replays do not call the wrappers) and the kernel events in
     the trace of the run's --profile window ``traced`` (start, steps), one
-    graph block, K1 by its SYRK pass.  Checks one eager launch each a
-    warm-up step and one replayed launch each a traced step."""
+    graph block, K1 by its SYRK pass; and each wrapper's device µs a traced
+    step (all its CUDA kernels).  Checks one eager launch each a warm-up
+    step and one replayed launch each a traced step."""
     eager = cuda_gram.launch_counts()
     with open(os.path.join(run_dir, "profile", "trace.json")) as fh:
         events = json.load(fh)["traceEvents"]
-    names = [e.get("name", "") for e in events
-             if str(e.get("cat", "")).lower() == "kernel"]
+    kernels = [e for e in events if str(e.get("cat", "")).lower() == "kernel"]
+    names = [e.get("name", "") for e in kernels]
     check(names, f"{label}: the profile window's trace holds no kernel")
     traced_n = {w: sum(k in n for n in names) for w, k in GRAM_KERNELS.items()}
+    device_us = {w: sum(e.get("dur", 0.0) for e in kernels
+                        if any(k in e.get("name", "") for k in ks)) / traced[1]
+                 for w, ks in WRAPPER_KERNELS.items()}
     check(all(n == GRAPH_WARMUP_STEPS for n in eager.values()),
           f"{label}: eager launches {eager} != {GRAPH_WARMUP_STEPS} warm-up steps each")
     check(all(n == traced[1] for n in traced_n.values()),
           f"{label}: traced launches {traced_n} != {traced[1]} steps each")
     return {w: {"launches": eager[w] + traced_n[w], "eager": eager[w],
-                "traced": traced_n[w], "traced_steps": list(traced)}
+                "traced": traced_n[w], "traced_steps": list(traced),
+                "device_us_per_step": device_us[w]}
             for w in GRAM_KERNELS}, len(names) / traced[1]
 
 
@@ -820,6 +897,211 @@ def phase_pde_cli():
     return launches
 
 
+def _with_flags(argv, **flags):
+    """``argv`` with each ``--<flag>`` set to the given value (replaced
+    where present, else appended)."""
+    argv = list(argv)
+    for flag, value in flags.items():
+        name = "--" + flag
+        if name in argv:
+            argv[argv.index(name) + 1] = str(value)
+        else:
+            argv += [name, str(value)]
+    return argv
+
+
+def _recipe_argv(argv, iters, eval_freq, traced=None, **flags):
+    out = _with_flags(argv, num_iters=iters, print_freq=RECIPE_BLOCK,
+                      eval_freq=eval_freq, overwrite="true", **flags)
+    return out + (_profile_argv(traced) if traced else [])
+
+
+def _kernel_vs_plain(argv, ts):
+    """The recipe's kernel loss and grads against the plain path on one
+    batch.  At the CLI's initial parameters (the model as built from
+    --seed), at the JAX tolerances, as phase trainer does for E4.  At the
+    trained parameters of ``ts`` neither float32 path meets those
+    tolerances at every gradient entry (a float32 product of ~1e3 terms
+    with cancellation), so there both are held against a float64
+    evaluation of the same loss on the same (fs, Tf): the kernel path's
+    worst gradient excess over the tolerance may not pass
+    max(1, RECIPE_F64_FACTOR x the plain path's)."""
+    cfg = parse_pde_config(argv + ["--device", DEVICE])
+    run = pde.build(cfg)
+    plain = NestedLoRA(run.model, neigs=cfg.neigs, step=cfg.loss.neuralsvd.step,
+                       sequential=cfg.loss.neuralsvd.sequential, use_pallas=False)
+    check(run.method.use_pallas == "auto" and not plain.use_pallas, "loss routes")
+    params = dict(run.model.named_parameters())
+    x = run.sample(torch.Generator(device=DEVICE).manual_seed(SEED + 3))
+    loss_k, grads_k, _, _ = run.method.loss_and_grad(params, {}, x, run.operator,
+                                                     run.importance_train)
+    loss_p, grads_p, _, _ = plain.loss_and_grad(params, {}, x, run.operator,
+                                                run.importance_train)
+    loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    check(loss_rel <= LOSS_RTOL, f"recipe kernel vs plain loss: rel {loss_rel:.3g}")
+    out = {"init": {"loss_rel": loss_rel, "grad_tol_used": _check_grads(grads_k, grads_p)}}
+
+    # the trained parameters: both float32 paths against float64
+    with torch.no_grad():
+        for k, p in params.items():
+            p.copy_(ts.params[k])
+    Tf, fs = run.operator(run.model, x, run.importance_train)
+    fs, Tf = fs.contiguous(), Tf.contiguous()
+    model64 = copy.deepcopy(run.model).double()
+    params64 = dict(model64.named_parameters())
+    fs64 = model64(x.double()).contiguous()
+    masks = run.method.masks(DEVICE)
+    names = list(params)
+    losses, grads = {}, {}
+    for path, loss_fn, f, ps, dtype in (
+            ("kernel", nestedlora_evd_loss_kernels, fs, params, torch.float32),
+            ("plain", nestedlora_evd_loss, fs, params, torch.float32),
+            ("float64", nestedlora_evd_loss, fs64, params64, torch.float64)):
+        loss = loss_fn(f, Tf.to(dtype), *torch.chunk(f, 2), *(m.to(dtype) for m in masks))
+        grads[path] = torch.autograd.grad(loss, [ps[k] for k in names], retain_graph=True)
+        losses[path] = loss.item()
+    trained = {"loss_rel_kernel": abs(losses["kernel"] / losses["float64"] - 1),
+               "loss_rel_plain": abs(losses["plain"] / losses["float64"] - 1), "grads": {}}
+    for i, k in enumerate(names):
+        ref = grads["float64"][i]
+        e_k, e_p = (_excess(grads[path][i].double(), ref, GRAD_RTOL, GRAD_ATOL)
+                    for path in ("kernel", "plain"))
+        check(e_k <= max(1.0, RECIPE_F64_FACTOR * e_p),
+              f"trained {k}: kernel {e_k:.3g}x, plain {e_p:.3g}x the tolerance vs float64")
+        trained["grads"][k] = {"kernel_tol_used": e_k, "plain_tol_used": e_p}
+    check(trained["loss_rel_kernel"] <= max(LOSS_RTOL, RECIPE_F64_FACTOR
+                                            * trained["loss_rel_plain"]),
+          f"trained loss vs float64: {trained}")
+    out["trained_vs_float64"] = trained
+    return run, x, out
+
+
+def _records_of(records, prefix):
+    return [r for r in records if r.msg.startswith(prefix)]
+
+
+def _duplicate_mode(tree, neigs, src, dst):
+    """Copy mode slot ``src`` to ``dst`` in every per-mode tensor (leading
+    size ``neigs``) of a state tree's params, EMA and optimizer state."""
+    def walk(t):
+        if isinstance(t, torch.Tensor):
+            if t.ndim and t.shape[0] == neigs:
+                t[dst] = t[src]
+        elif isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        elif isinstance(t, (list, tuple)):
+            for v in t:
+                walk(v)
+
+    for name in ("params", "ema_params", "opt_state"):
+        walk(tree[name])
+
+
+def _hydrogen_recipe(tmp):
+    """hydrogen.sh: a run to an eval checkpoint, a forced duplicate, then
+    --resume: the next eval flags and rescues it in place and the graph
+    blocks go on."""
+    src, dst = HYD_DUP
+    first_argv = _recipe_argv(HYDROGEN_ARGV, HYD_FIRST, HYD_FIRST)
+    ts, eigvals, first_dir, records = _pde_run(first_argv, os.path.join(tmp, "hyd"))
+    _check_run("hydrogen", ts, eigvals, first_dir, records, HYD_FIRST, [HYD_FIRST],
+               neigs=HYDROGEN_L)
+    tree = load_checkpoint(os.path.join(first_dir, f"ckpt_{HYD_FIRST}"))
+    _duplicate_mode(tree, HYDROGEN_L, src, dst)
+    resume_argv = _recipe_argv(HYDROGEN_ARGV, HYD_ITERS, HYD_EVAL, HYD_TRACED,
+                               resume="true")
+    resume_dir = os.path.join(tmp, "hyd", run_name(parse_pde_config(resume_argv)))
+    save_checkpoint(os.path.join(resume_dir, f"ckpt_{HYD_FIRST}"), tree)
+
+    timings = {}
+    cuda_gram.reset_launch_counts()
+    t0 = time.perf_counter()
+    ts, eigvals, run_dir, records = _pde_run(resume_argv, os.path.join(tmp, "hyd"), timings)
+    run_s = time.perf_counter() - t0
+    launches, traced_kernels = _measured_launches("hydrogen", run_dir, HYD_TRACED)
+    rows, health = _check_run("hydrogen-resumed", ts, eigvals, run_dir, records,
+                              HYD_ITERS, [HYD_EVAL], neigs=HYDROGEN_L)
+    check(any(f"DUPLICATE: mode {m} ~" in health[0] for m in (src, dst)),
+          f"the health report misses the duplicate {src}/{dst}: {health[0]}")
+    rescued = _records_of(records, "it%d rescue: exiled")
+    check(len(rescued) == 1 and rescued[0].args[:1] == (HYD_EVAL,)
+          and rescued[0].args[1] >= 1, f"rescue lines {[r.getMessage() for r in rescued]}")
+    detail = _records_of(records, "it%d rescue: tail slots")
+    check(len(detail) == 1, "no rescue detail line")
+    _, tail, sources, factors = detail[0].args
+    captures = _records_of(records, "captured a CUDA graph")
+    check(len(captures) == 1, f"{len(captures)} captures in the resumed run")
+    check([n for n, _ in timings.get("block_graph", [])]
+          == [RECIPE_BLOCK] * ((HYD_ITERS - HYD_FIRST) // RECIPE_BLOCK)
+          and "block_eager" not in timings, f"hydrogen blocks {timings}")
+    # the state the rescue left (checkpointed right after it): the tail's
+    # EMA equals its params, each slot differs from its clone source
+    after = load_checkpoint(os.path.join(run_dir, f"ckpt_{HYD_EVAL}"))
+    for k, p in after["params"].items():
+        check(torch.equal(after["ema_params"][k][tail], p[tail]), f"tail EMA of {k}")
+    for t, s in zip(tail, sources):
+        check(any(not torch.equal(p[t], p[s]) for p in after["params"].values()),
+              f"rescued slot {t} equals its clone source {s}")
+    _, _, check_ = _kernel_vs_plain(resume_argv, ts)
+    return {"argv": HYDROGEN_ARGV, "first_iters": HYD_FIRST, "duplicated": [src, dst],
+            "resumed_to": HYD_ITERS, "eval": HYD_EVAL, "run_s": run_s,
+            "health_at_rescue": health[0], "n_spurious": rescued[0].args[1],
+            "tail_slots": tail, "clone_sources": sources, "amplitude_factors": factors,
+            "graph_captures": len(captures), "rows": rows,
+            "eigvals": np.asarray(eigvals[-1]).tolist(), "launches": launches,
+            "traced_block_kernels_per_step": traced_kernels,
+            "kernel_vs_plain": check_, "eval_s": timings["eval"],
+            "block_s": timings.get("block_graph"),
+            "graph_block_steps_per_s": _block_rate(timings, "block_graph")}
+
+
+def _oscillator_recipe(tmp):
+    """oscillator.sh: graph blocks and one eval; the learned mask scales
+    move off their init; the forward-Laplacian engine runs the exp-masked
+    model with no fallback call."""
+    argv = _recipe_argv(OSCILLATOR_ARGV, OSC_ITERS, OSC_ITERS, OSC_TRACED)
+    timings = {}
+    cuda_gram.reset_launch_counts()
+    t0 = time.perf_counter()
+    ts, eigvals, run_dir, records = _pde_run(argv, os.path.join(tmp, "osc"), timings)
+    run_s = time.perf_counter() - t0
+    launches, traced_kernels = _measured_launches("oscillator", run_dir, OSC_TRACED)
+    rows, health = _check_run("oscillator", ts, eigvals, run_dir, records, OSC_ITERS,
+                              [OSC_ITERS], neigs=OSCILLATOR_L)
+    check([n for n, _ in timings.get("block_graph", [])]
+          == [RECIPE_BLOCK] * (OSC_ITERS // RECIPE_BLOCK) and "block_eager" not in timings,
+          f"oscillator blocks {timings}")
+    scales = ts.params["mask.scales"].detach()
+    check(scales.shape == (OSCILLATOR_L,) and torch.isfinite(scales).all().item()
+          and (scales != 10.0).all().item(), f"mask scales {scales}")
+    run, x, check_ = _kernel_vs_plain(argv, ts)
+    # the exact Laplacian of the exp-masked model by the forward engine
+    # (the recipe itself takes finite differences): no fallback call, and
+    # nested JVPs agree
+    forward_laplacian.fallback_rule.calls = 0
+    lap_excess = _forward_vs_jvp(run.model, x, run.importance_train)
+    fallbacks = forward_laplacian.fallback_rule.calls
+    check(fallbacks == 0, f"{fallbacks} fallback-rule calls on the exp-masked model")
+    return {"argv": OSCILLATOR_ARGV, "iters": OSC_ITERS, "run_s": run_s, "rows": rows,
+            "eigvals": np.asarray(eigvals[-1]).tolist(), "health": health,
+            "mask_scales": [scales.min().item(), scales.max().item()],
+            "launches": launches, "traced_block_kernels_per_step": traced_kernels,
+            "kernel_vs_plain": check_, "forward_vs_jvp_tol_used": lap_excess,
+            "fallback_calls": fallbacks, "eval_s": timings["eval"],
+            "block_s": timings.get("block_graph"),
+            "graph_block_steps_per_s": _block_rate(timings, "block_graph")}
+
+
+def phase_pde_recipes():
+    """The paper's two PDE recipes through the PDE entry point at full width."""
+    with tempfile.TemporaryDirectory() as tmp:
+        hydrogen = _hydrogen_recipe(tmp)
+        oscillator = _oscillator_recipe(tmp)
+    emit("pde_recipes", block=RECIPE_BLOCK, hydrogen=hydrogen, oscillator=oscillator)
+    return {"hydrogen": hydrogen["launches"], "oscillator": oscillator["launches"]}
+
+
 def _cdk_data():
     """Synthetic class-correlated 512-d features, made in bulk from SEED
     (the recipe of tests/test_cdk_retrieval.py:63-77): per-class centres
@@ -965,8 +1247,10 @@ def main():
     rows = phase_kernels()
     e4_counts, model, importance, x = phase_trainer()
     pde_launches = phase_pde_cli()
+    recipe_launches = phase_pde_recipes()
+    measured = {"pde_cli": pde_launches, **recipe_launches}
     counts = {"e4": e4_counts,
-              "pde_cli": {k: v["launches"] for k, v in pde_launches.items()}}
+              **{path: {k: v["launches"] for k, v in m.items()} for path, m in measured.items()}}
     phase_hutchinson(model, importance, x)
     train, test, valid = _cdk_data()
     phase_cdk_loss(train)
@@ -978,8 +1262,10 @@ def main():
                         **{k: at[shape][k] for k in ("B", "L", "max_abs_err", "ms",
                                                       "plain_ms", "bound_ms",
                                                       "bound_by", "library_ms")}}
-                 for path, shape in (("e4", "E4"), ("pde_cli", "E4"), ("cdk", "cdk"))}
-        paths["pde_cli"].update(pde_launches[kname])
+                 for path, shape in (("e4", "E4"), ("pde_cli", "E4"), ("cdk", "cdk"),
+                                     ("hydrogen", "hydrogen"), ("oscillator", "oscillator"))}
+        for path, m in measured.items():
+            paths[path].update(m[kname])
         cdk = paths["cdk"]
         kernels.append({
             "name": kname, "route": "cuda", "source": KERNEL_SOURCE,

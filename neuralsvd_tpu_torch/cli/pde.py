@@ -9,17 +9,18 @@ after every eval, ``--resume`` from the latest checkpoint, and
 ``stats.npz`` at the end.
 
 The flags are the JAX CLI's (utils/config.py) plus ``--device`` (default:
-the GPU).  Refused before any training, each naming
-its ROADMAP item: ``--loss`` other than neuralsvd/nestedlora and
-``--problem fp`` (queue 1, item 8), ``--mesh`` (item 9), ``--rescue true``
-(item 5), a potential other than hydrogen and harmonic_oscillator and
-``--apply_exp_mask true`` (item 6), ``--matmul_precision`` (item 10).
-As in the JAX CLI, ``--weight_normalization`` reaches no model.
+the GPU); every potential of ``--problem sch``, the exponential mask and
+``--rescue true`` (the mode rescue at evals) run.  Refused before any
+training, each naming its ROADMAP item: ``--loss`` other than
+neuralsvd/nestedlora and ``--problem fp`` (queue 1, item 8), ``--mesh``
+(item 9), ``--matmul_precision`` (item 10).  As in the JAX CLI,
+``--weight_normalization`` reaches no model.
 """
 from __future__ import annotations
 
 import logging
 import os
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -70,36 +71,26 @@ def check_ported(cfg: PDEConfig) -> None:
     if cfg.mesh:
         raise NotImplementedError(
             "--mesh (data parallelism) is not ported yet (ROADMAP queue 1, item 9)")
-    if cfg.rescue:
-        raise NotImplementedError(
-            "--rescue true is not ported yet (ROADMAP queue 1, item 5)")
     if cfg.matmul_precision:
         raise NotImplementedError(
             "--matmul_precision is not ported yet (ROADMAP queue 1, item 10)")
 
 
-def main(cfg: PDEConfig, timings=None, use_graph: bool = True):
-    """Train as the JAX CLI does; returns (TrainState, all_eigvals,
-    all_norms).  ``timings`` and ``use_graph``: see ``train_operator``."""
-    logging.basicConfig(level=logging.INFO)
-    check_ported(cfg)
-    dev = resolve_device(cfg.device)
-    torch.set_float32_matmul_precision("highest")
-
-    log_dir = os.path.join(cfg.log_dir, run_name(cfg))
-    if os.path.exists(log_dir) and not (cfg.overwrite or cfg.resume):
-        raise ValueError(f"{log_dir} exists and --overwrite not set")
-    os.makedirs(log_dir, exist_ok=True)
-    log.info("log dir: %s", log_dir)
-
-    operator, ground_truth_spectrum, n_particles = get_problem(
+def build(cfg: PDEConfig, dev=None) -> SimpleNamespace:
+    """The run's parts as the JAX CLI wires them: operator, ground_truth,
+    n_particles, model, sample, importance_train, val_data, val_batches,
+    importance_val, method, optimizer and rescue_init_fn (None without
+    ``--rescue``), on ``dev`` (default: ``cfg.device``)."""
+    dev = resolve_device(cfg.device if dev is None else dev)
+    operator, ground_truth, n_particles = get_problem(
         problem=cfg.problem, potential_type=cfg.potential_type,
-        ndim=cfg.ndim, neigs=cfg.neigs, charge=cfg.charge,
+        ndim=cfg.ndim, neigs=cfg.neigs, lim=cfg.lim, charge=cfg.charge,
+        hydrogen_mol_ion_R=cfg.hydrogen_mol_ion_R, mol_name=cfg.mol_name,
         laplacian_eps=cfg.laplacian_eps, laplacian_mode=cfg.laplacian_mode,
         laplacian_probes=cfg.laplacian_probes,
         operator_scale=cfg.operator_scale, operator_shift=cfg.operator_shift)
 
-    model = make_wavefunctions(
+    model_kw = dict(
         ndim=cfg.ndim, neigs=cfg.neigs,
         mlp_hidden_dims=parse_dims(cfg.mlp_hidden_dims),
         nonlinearity=cfg.nonlinearity, n_particles=n_particles,
@@ -116,7 +107,8 @@ def main(cfg: PDEConfig, timings=None, use_graph: bool = True):
         apply_boundary=cfg.apply_boundary, boundary_mode=cfg.boundary_mode,
         lim=cfg.lim, apply_exp_mask=cfg.apply_exp_mask,
         exp_mask_init_scale=cfg.exp_mask_init_scale,
-        hard_mul_const=cfg.hard_mul_const, seed=cfg.seed, device=dev)
+        hard_mul_const=cfg.hard_mul_const)
+    model = make_wavefunctions(**model_kw, seed=cfg.seed, device=dev)
 
     scale = cfg.sampling_scale
     weights = None
@@ -161,6 +153,43 @@ def main(cfg: PDEConfig, timings=None, use_graph: bool = True):
         log.info("tail LR boost %.2fx from mode %d", cfg.tail_lr_boost,
                  cfg.tail_lr_start)
 
+    rescue_init_fn = None
+    if cfg.rescue:
+        # the rescue's surgery recognises per-mode tensors by their leading
+        # axis; a shared parameter of that size would be taken for one
+        assert_mode_axis_unambiguous(dict(model.named_parameters()), cfg.neigs)
+
+        def rescue_init_fn(generator):
+            """Fresh parameters of the same model, drawn from ``generator``."""
+            fresh = make_wavefunctions(**model_kw, generator=generator, device="cpu")
+            return {k: p.detach() for k, p in fresh.named_parameters()}
+
+    return SimpleNamespace(
+        operator=operator, ground_truth=ground_truth, n_particles=n_particles,
+        model=model, sample=sample, importance_train=importance_train,
+        val_data=val_data, val_batches=val_batches,
+        importance_val=importance_val, method=method, optimizer=optimizer,
+        rescue_init_fn=rescue_init_fn)
+
+
+def main(cfg: PDEConfig, timings=None, use_graph: bool = True):
+    """Train as the JAX CLI does; returns (TrainState, all_eigvals,
+    all_norms).  ``timings`` and ``use_graph``: see ``train_operator``."""
+    logging.basicConfig(level=logging.INFO)
+    check_ported(cfg)
+    dev = resolve_device(cfg.device)
+    torch.set_float32_matmul_precision("highest")
+
+    log_dir = os.path.join(cfg.log_dir, run_name(cfg))
+    if os.path.exists(log_dir) and not (cfg.overwrite or cfg.resume):
+        raise ValueError(f"{log_dir} exists and --overwrite not set")
+    os.makedirs(log_dir, exist_ok=True)
+    log.info("log dir: %s", log_dir)
+
+    run = build(cfg, dev)
+    model, method, optimizer = run.model, run.method, run.optimizer
+    val_data = run.val_data
+
     logger = CSVLogger(log_dir, ["iter", "train_loss", "time", "steps_per_sec"])
 
     def checkpoint_fn(ts, it, outputs):
@@ -168,7 +197,7 @@ def main(cfg: PDEConfig, timings=None, use_graph: bool = True):
         plot_and_save_spectrum(
             {"RQ": outputs["eigvals"],
              "Norms^2": outputs["norms"] if normalize else None},
-            outputs["cov"], ground_truth_spectrum=ground_truth_spectrum,
+            outputs["cov"], ground_truth_spectrum=run.ground_truth,
             log_dir=log_dir, tag=f"it{it}")
         if cfg.ndim == 1 and val_data is not None:
             plot_1d_eigfuncs(val_data, outputs["eigfuncs"], log_dir, tag=f"it{it}")
@@ -189,10 +218,10 @@ def main(cfg: PDEConfig, timings=None, use_graph: bool = True):
 
     try:
         ts, all_eigvals, all_norms = train_operator(
-            method, operator, sample, optimizer, model,
+            method, run.operator, run.sample, optimizer, model,
             num_iters=cfg.num_iters,
-            importance_train=importance_train, importance_val=importance_val,
-            val_batches=val_batches,
+            importance_train=run.importance_train,
+            importance_val=run.importance_val, val_batches=run.val_batches,
             ema_decay=cfg.ema_decay, eval_freq=cfg.eval_freq,
             print_freq=cfg.print_freq, log_writer=logger,
             seed=cfg.seed, monitor=cfg.print_local_energies,
@@ -200,7 +229,8 @@ def main(cfg: PDEConfig, timings=None, use_graph: bool = True):
             profile_dir=(os.path.join(log_dir, "profile") if cfg.profile
                          else None),
             profile_start=cfg.profile_start, profile_steps=cfg.profile_steps,
-            grad_clip=cfg.grad_clip, initial_ts=initial_ts,
+            grad_clip=cfg.grad_clip, rescue_init_fn=run.rescue_init_fn,
+            rescue_until=cfg.rescue_until, initial_ts=initial_ts,
             start_iter=start_iter, use_graph=use_graph, timings=timings)
     finally:
         logger.close()

@@ -11,9 +11,9 @@ The JAX CLI plots the spectrum and the density-ratio histograms with
 matplotlib; this one writes the arrays it would plot to
 ``spectrum_<tag>.npz`` and ``ratios_<tag>.npz`` (plots: ROADMAP queue 1,
 item 10).  ``--device`` (default: the GPU) is the port's own flag.  Not
-ported yet: ``--mesh`` (data/tensor parallelism, queue 1, item 14) and
-``--compute_dtype bf16`` (queue 1, item 16) raise NotImplementedError;
-``--optimizer adamw|lars`` raises too (item 8).
+ported yet: ``--mesh`` (data/tensor parallelism, queue 1, item 9) and
+``--compute_dtype bf16`` (queue 1, item 7) raise NotImplementedError;
+``--optimizer adamw|lars`` raises too (item 7).
 """
 from __future__ import annotations
 
@@ -167,10 +167,10 @@ def make_trainer(args, input_dim: int, steps_per_epoch: int) -> Trainer:
     if args.mesh:
         raise NotImplementedError(
             "--mesh (data/tensor parallelism) is not ported yet "
-            "(ROADMAP queue 1, item 14)")
+            "(ROADMAP queue 1, item 9)")
     if args.compute_dtype != "f32":
         raise NotImplementedError(
-            "--compute_dtype bf16 is not ported yet (ROADMAP queue 1, item 16)")
+            "--compute_dtype bf16 is not ported yet (ROADMAP queue 1, item 7)")
     dev = resolve_device(args.device)
     model = HeteroNetwork(
         input_dim=input_dim, network_dims=parse_dims(args.network_dims),

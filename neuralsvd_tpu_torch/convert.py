@@ -4,7 +4,9 @@
 state dict of ``models.wavefunctions.Wavefunction``: the ParallelMLP's
 ``{"base": {"ws": [(L, h, d), ...], "bs": [(L, h, 1), ...],
 "feature_map": {}}}`` or the shared trunk's ``{"base": {"layers": [{"w":
-(in, out), "b": (out,)}, ...], "feature_map": {}}}``; ``hetero_params_from_jax`` maps the
+(in, out), "b": (out,)}, ...], "feature_map": {}}}``, with the exponential
+mask's ``{"mask": {"scales": (L,)}}`` where there is one;
+``hetero_params_from_jax`` maps the
 two-tower tree ``{"x": {"layers": [{"w": (in, out), "b": (out,)}, ...]},
 "y": ...}`` onto that of ``models.two_tower.HeteroNetwork`` (the same
 (in, out) layout, so no transpose).  Leaves are already numpy arrays; so
@@ -20,13 +22,11 @@ import torch
 
 
 def params_from_jax(tree) -> Dict[str, torch.Tensor]:
-    """-> {"base.ws.0": tensor, ..., "base.bs.0": tensor, ...} (float32)."""
+    """-> {"base.ws.0": tensor, ..., "base.bs.0": tensor, ...,
+    "mask.scales": tensor} (float32)."""
     base = tree["base"]
     if base.get("feature_map"):
         raise ValueError("feature maps carry no parameters in either package")
-    if "mask" in tree:
-        raise NotImplementedError(
-            "exp-mask parameters are not ported yet (ROADMAP queue 1, item 6)")
     out = {}
     for group in ("ws", "bs"):
         for i, leaf in enumerate(base.get(group, [])):
@@ -40,6 +40,9 @@ def params_from_jax(tree) -> Dict[str, torch.Tensor]:
         for name, leaf in layer.items():
             out[f"base.layers.{i}.{name}"] = torch.tensor(
                 np.asarray(leaf, dtype=np.float32))
+    if "mask" in tree:
+        out["mask.scales"] = torch.tensor(
+            np.asarray(tree["mask"]["scales"], dtype=np.float32))
     return out
 
 
@@ -49,7 +52,7 @@ def hetero_params_from_jax(tree) -> Dict[str, torch.Tensor]:
     if extra:
         raise NotImplementedError(
             f"parameters {sorted(extra)} (online heads) are not ported yet "
-            "(ROADMAP queue 1, item 15)")
+            "(ROADMAP queue 1, item 7)")
     out = {}
     for side in ("x", "y"):
         for i, layer in enumerate(tree[side]["layers"]):

@@ -9,7 +9,7 @@ in-memory arrays with the same interface.  ``write_feature_files`` writes
 arrays in the loader's file layout, so a run can start from made-up
 features where the real ones are absent.
 
-Not ported yet (ROADMAP queue 1, item 15): the native C++ pair sampler
+Not ported yet (ROADMAP queue 1, item 7): the native C++ pair sampler
 (``data/native.py``, ``csrc/pair_sampler.cpp``; pairs are drawn by the
 Python path here, which is the JAX package's fallback and draws from a
 different random stream than the native sampler), the class splits and the

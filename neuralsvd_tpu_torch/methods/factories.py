@@ -3,7 +3,7 @@
 Port of ``neuralsvd_tpu/methods/factories.py``: the NestedLoRA branch of
 ``get_evd_method`` (:13) and ``get_cdk_method`` (:40).  The other EVD
 methods (NeuralEF, SpIN, SpINx) are not ported yet (ROADMAP queue 1,
-item 13); the data-parallel ``axis_name`` waits for item 14.
+item 8); the data-parallel ``axis_name`` waits for item 9.
 """
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ def get_evd_method(method_name: str, model: nn.Module, neigs: int,
                           sequential=opts.get("sequential", False), sort=sort,
                           use_pallas=opts.get("use_pallas", "auto"))
     raise NotImplementedError(
-        f"{method_name} is not ported yet (ROADMAP queue 1, item 13)")
+        f"{method_name} is not ported yet (ROADMAP queue 1, item 8)")
 
 
 def get_cdk_method(method_name: str, model: nn.Module, neigs: int, **opts):

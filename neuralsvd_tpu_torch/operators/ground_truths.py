@@ -1,8 +1,10 @@
 """Closed-form spectra and eigenfunctions — the validation oracles.
 
-Copy of the ``HarmonicOscillator`` and ``Hydrogen2D`` parts of
-``neuralsvd_tpu/operators/ground_truths.py`` (pure numpy/scipy).  The other
-oracles are not ported yet (ROADMAP queue 1, item 6).
+Copy of ``neuralsvd_tpu/operators/ground_truths.py`` (pure numpy/scipy):
+``InfiniteWell2D`` (:38), ``HarmonicOscillator``, ``Hydrogen2D`` and the
+eigenvalues of ``Hydrogen3D`` (:126).  Not copied yet (ROADMAP queue 1,
+item 6): the 3D hydrogen eigenfunctions and the spherical harmonics
+(:151-231).
 """
 from __future__ import annotations
 
@@ -30,6 +32,23 @@ class ToyProblem:
                 cnt = 1
         groups.append(cnt)
         return np.cumsum(groups)
+
+
+class InfiniteWell2D(ToyProblem):
+    """Particle in a 2D box of side L: E = (nx²+ny²)π²/L²."""
+
+    def __init__(self, L: float = 1.0):
+        self.L = L
+
+    def get_eigvals(self, neigs):
+        vals = sorted(nx * nx + ny * ny
+                      for nx in range(1, neigs + 1)
+                      for ny in range(1, neigs + 1))[:neigs]
+        return np.asarray(vals, dtype=np.float64) * np.pi ** 2 / self.L ** 2
+
+    def eigfunc(self, nx, ny, x, y):
+        L = self.L
+        return 2 / L * np.sin(nx * np.pi * x / L) * np.sin(ny * np.pi * y / L)
 
 
 class HarmonicOscillator(ToyProblem):
@@ -101,3 +120,20 @@ class Hydrogen2D(ToyProblem):
         else:
             angular = 1 / np.sqrt(2 * np.pi)
         return radial * angular
+
+
+class Hydrogen3D(ToyProblem):
+    """3D hydrogen with the reference's convention E(n) = -Z²/(4n²),
+    degeneracy n²."""
+
+    def __init__(self, charge: float = 1.0):
+        self.charge = charge
+
+    def get_eigvals(self, neigs):
+        ns = []
+        n = 1
+        while len(ns) < neigs:
+            ns.extend([n] * (n * n))
+            n += 1
+        ns = np.asarray(ns[:neigs], dtype=np.float64)
+        return -self.charge ** 2 / (4 * ns ** 2)

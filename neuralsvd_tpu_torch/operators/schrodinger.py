@@ -1,15 +1,19 @@
 """Schrödinger Hamiltonians and potentials.
 
-Port of ``neuralsvd_tpu/operators/schrodinger.py``: ``hydrogen_potential``
-(:21), ``harmonic_oscillator_potential`` and ``NegativeHamiltonian``
+Port of ``neuralsvd_tpu/operators/schrodinger.py``: the potentials
+(:21-78: hydrogen, the H2+ ion, the infinite well, the oscillator, the
+cosine and the quantum-chemistry local energy) and ``NegativeHamiltonian``
 (:82-113), whose ``needs_key`` operators (the Hutchinson Laplacian) take
-a ``generator=`` where JAX's take ``key=``.  The other potentials are
-not ported yet (ROADMAP queue 1, item 6).
+a ``generator=`` where JAX's take ``key=``.  The potentials are evaluated
+under ``torch.no_grad()`` outside the Laplacian engine; a constant array
+(``cs``, ``coords``, ``charges``) goes to float32 on the input's device,
+as the JAX package's float32 arrays.
 """
 from __future__ import annotations
 
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from neuralsvd_tpu_torch.operators.diff_ops import VectorizedLaplacian
@@ -21,9 +25,62 @@ def hydrogen_potential(x, charge: float = 1.0):
     return -(charge / torch.linalg.vector_norm(x, dim=-1)).reshape(-1, 1)
 
 
+def hydrogen_mol_ion_potential(x, R: float, charge: float = 2.0):
+    """H2+ two-center Coulomb; nuclei at ±R along the last axis."""
+    x = x.reshape(x.shape[0], -1)
+    e = torch.zeros(x.shape[-1], dtype=x.dtype, device=x.device)
+    e[-1] = 1.0
+    return (hydrogen_potential(x - R * e, charge)
+            + hydrogen_potential(x + R * e, charge))
+
+
+def infinite_well_potential(x):
+    return torch.zeros((x.shape[0], 1), dtype=x.dtype, device=x.device)
+
+
 def harmonic_oscillator_potential(x, k: float = 1.0):
     x = x.reshape(x.shape[0], -1)
     return (k * torch.sum(x ** 2, dim=-1)).reshape(-1, 1)
+
+
+def _const(a, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a), dtype=like.dtype, device=like.device)
+
+
+def cosine_potential(x, cs):
+    x = x.reshape(x.shape[0], -1)
+    return torch.sum(torch.cos(x) * _const(cs, x)[None, :], dim=-1).reshape(-1, 1)
+
+
+def nuclear_energy(coords, charges):
+    """Σ_{i<j} Z_i Z_j / |R_i - R_j| over the nuclei (a scalar tensor)."""
+    diff = coords[:, None, :] - coords[None, :, :]
+    dists = torch.linalg.vector_norm(diff, dim=-1)
+    coulombs = charges[:, None] * charges[None, :] / torch.where(
+        dists > 0, dists, torch.ones_like(dists))
+    return torch.sum(torch.triu(coulombs, diagonal=1))
+
+
+def nuclear_potential(rs, coords, charges):
+    """-Σ_{e,a} Z_a / |r_e - R_a|; rs (B, n_electrons, D) -> (B,)."""
+    dists = torch.linalg.vector_norm(
+        rs[:, :, None, :] - coords[None, None, :, :], dim=-1)
+    return -torch.sum(charges / dists, dim=(-1, -2))
+
+
+def electronic_potential(rs):
+    """Σ_{i<j} 1 / |r_i - r_j| over the electrons; (B, n, D) -> (B,)."""
+    i, j = np.triu_indices(rs.shape[-2], k=1)
+    dists = torch.linalg.vector_norm(rs[:, i, :] - rs[:, j, :], dim=-1)
+    return torch.sum(1.0 / dists, dim=-1)
+
+
+def local_potential_energy(rs, coords, charges):
+    """The molecule's potential energy at electron positions rs, (B, 1)."""
+    coords, charges = _const(coords, rs), _const(charges, rs)
+    return (nuclear_energy(coords, charges)
+            + nuclear_potential(rs, coords, charges)
+            + electronic_potential(rs)).reshape(-1, 1)
 
 
 class NegativeHamiltonian:

@@ -4,7 +4,7 @@ Port of ``neuralsvd_tpu/ops/gram.py``.  Contractions run in float32; on the
 GPU ``torch.backends.cuda.matmul.allow_tf32`` must stay False (PyTorch's
 default) or eigenvalue estimates degrade the way bf16 grams do on the TPU.
 The ``axis_name`` (data-parallel pmean) argument of the JAX version is not
-ported yet (ROADMAP queue 1, item 14).
+ported yet (ROADMAP queue 1, item 9).
 """
 from __future__ import annotations
 

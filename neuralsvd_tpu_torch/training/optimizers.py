@@ -289,7 +289,7 @@ def _build_base(name, learning_rate, momentum, weight_decay, rmsprop_decay,
         parts.append(_scale_by_lr(lr))
         return chain(*parts)
     raise NotImplementedError(
-        f"optimizer {name!r} is not ported yet (ROADMAP queue 1, item 8)")
+        f"optimizer {name!r} is not ported yet (ROADMAP queue 1, item 7)")
 
 
 def select_state(keep_new, new, old):

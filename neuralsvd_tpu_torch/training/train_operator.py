@@ -26,9 +26,12 @@ block and advance within it; both are registered with the graph, whose
 replays advance them as eager steps do.  So a block gives the same batches
 as a graph, as eager steps, or after a resume.
 
-Not ported yet: data parallelism (``mesh``, ROADMAP queue 1, item 9), the
-mode rescue (``rescue_init_fn``, item 5) and the SpINx refresh
-(``spinx_refresh``, item 8); each raises.
+The mode rescue (``rescue_init_fn``, training/rescue.py) runs at an eval,
+between blocks, on the host, and changes the state in place: the driver
+goes on replaying the same captured graph.
+
+Not ported yet: data parallelism (``mesh``, ROADMAP queue 1, item 9) and
+the SpINx refresh (``spinx_refresh``, item 8); each raises.
 """
 from __future__ import annotations
 
@@ -61,6 +64,7 @@ log = logging.getLogger(__name__)
 
 SAMPLE_STREAM = 0
 PROBE_STREAM = 0x0BE5
+RESCUE_STREAM = 0x0DE5
 GRAPH_WARMUP_STEPS = 3  # eager steps on the capture stream before capture
 # The profiler keeps a kernel only if its device timestamp, converted to
 # host time, falls inside the trace window, and on an H100 that conversion
@@ -235,6 +239,7 @@ class ScannedTrainStep:
             self.eager_step(ts)
         self.graph, self._graph_state = graph, ts
         self._graph_ptrs = state_pointers(ts)
+        log.info("captured a CUDA graph of one train step")
 
     def __call__(self, ts: TrainState, start: int, n: Optional[int] = None):
         n = self.steps_per_call if n is None else n
@@ -329,6 +334,7 @@ def train_operator(
     grad_clip: float = 0.0,
     mesh=None,
     rescue_init_fn: Optional[Callable] = None,
+    rescue_until: float = 0.7,
     initial_ts: Optional[TrainState] = None,
     start_iter: int = 0,
     use_graph: bool = True,
@@ -337,6 +343,12 @@ def train_operator(
     """Host driver: blocks of ``print_freq`` steps, a print row after each,
     an eval of the EMA parameters every ``eval_freq`` steps with its
     mode-health report, and ``checkpoint_fn(ts, it, outputs)`` after it.
+    With ``rescue_init_fn`` (``generator -> fresh params``) set, an eval
+    in the first ``rescue_until`` fraction of training that diagnoses dead
+    or duplicate modes also repairs them in place (training/rescue.py):
+    ParallelMLP towers by perturbed clones of healthy modes with matched
+    amplitudes, other models by fresh draws; its random numbers come from
+    a CPU generator seeded from (seed + 1, iteration).
 
     Full blocks (``print_freq`` > 1, ``num_iters`` >= ``print_freq``, no
     ``monitor``) run as ``ScannedTrainStep`` blocks: a replayed CUDA graph
@@ -363,9 +375,6 @@ def train_operator(
     if mesh is not None:
         raise NotImplementedError(
             "data parallelism (mesh) is not ported yet (ROADMAP queue 1, item 9)")
-    if rescue_init_fn is not None:
-        raise NotImplementedError(
-            "the mode rescue is not ported yet (ROADMAP queue 1, item 5)")
     if spinx_refresh is not None:
         raise NotImplementedError(
             "SpINx is not ported yet (ROADMAP queue 1, item 8)")
@@ -407,15 +416,55 @@ def train_operator(
         cov = np.asarray(outputs["cov"])
         if normalize:
             cov = cov * np.sqrt(np.outer(norms, norms))
-        report = format_mode_health(mode_health(cov, np.asarray(outputs["quad"])))
+        health = mode_health(cov, np.asarray(outputs["quad"]))
+        report = format_mode_health(health)
         if report:
             log.warning("it%d mode health:\n%s", it_done, report)
         else:
             log.info("it%d mode health: all %d modes healthy", it_done,
                      method.neigs)
+        if (rescue_init_fn is not None and not health["healthy"].all()
+                and it_done <= rescue_until * num_iters):
+            run_rescue(it_done, cov, np.asarray(outputs["quad"]))
         timings.setdefault("eval", []).append(time.perf_counter() - t0)
         if checkpoint_fn is not None:
             checkpoint_fn(ts, it_done, outputs)
+
+    rescue_grace: list = []
+
+    def run_rescue(it_done, cov, quad):
+        from neuralsvd_tpu_torch.models.wavefunctions import scale_mode_amplitudes
+        from neuralsvd_tpu_torch.training.rescue import rescue_modes
+
+        def measure_norms(params):
+            # batch norms on one val batch (a relative measure only)
+            x = torch.as_tensor(next(iter(val_batches())), device=device)
+            with torch.no_grad():
+                f = method.eval_apply(params, ts.method_state, x)
+            return torch.mean(f * f, dim=0).cpu().numpy()
+
+        scale_fn = (scale_mode_amplitudes
+                    if any(k.startswith("base.ws.") for k in ts.params)  # ParallelMLP
+                    else None)
+        pointers = state_pointers(ts)
+        generator = torch.Generator().manual_seed(
+            block_seed(seed + 1, it_done, RESCUE_STREAM))
+        _, info = rescue_modes(
+            ts, rescue_init_fn, generator, cov, quad, method.neigs,
+            measure_norms=measure_norms if scale_fn else None,
+            scale_fn=scale_fn, clone_healthy_tail=scale_fn is not None,
+            grace_slots=rescue_grace)
+        if state_pointers(ts) != pointers:
+            raise RuntimeError("the rescue replaced a tensor of the TrainState")
+        rescue_grace[:] = list(info["tail_slots"]) if info["n_spurious"] else []
+        log.warning("it%d rescue: exiled + re-initialized %d modes", it_done,
+                    info["n_spurious"])
+        if info["n_spurious"]:
+            log.info("it%d rescue: tail slots %s, clone sources %s, amplitude "
+                     "factors %s; state tensors kept in place", it_done,
+                     info["tail_slots"].tolist(),
+                     np.asarray(info.get("clone_sources", [])).tolist(),
+                     np.asarray(info["amplitude_factors"]).tolist())
 
     total_skips = 0
     start = time.time()

@@ -229,8 +229,7 @@ def test_checkpoint_round_trip(tmp_path):
 
 def test_train_operator_refuses_unported_options():
     model, op, sampler, imp, method, opt = _setup()
-    for kw, item in ((dict(mesh=object()), "item 9"), (dict(rescue_init_fn=len), "item 5"),
-                     (dict(spinx_refresh=len), "item 8")):
+    for kw, item in ((dict(mesh=object()), "item 9"), (dict(spinx_refresh=len), "item 8")):
         with pytest.raises(NotImplementedError, match=item):
             train_operator(method, op, sampler, opt, model, 4, **kw)
 

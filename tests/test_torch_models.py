@@ -150,13 +150,29 @@ def test_same_seed_same_model():
         assert na == nb and torch.equal(pa, pb)
 
 
-# ids as when the box mask and the shared trunk, now ported, were the
-# first and third cases
-@pytest.mark.parametrize("override", [
-    dict(parallel=False, matmul_precision="highest"), dict(apply_exp_mask=True),
-    dict(parallel=False, apply_exp_mask=True),
-    dict(compute_dtype="bfloat16"), dict(matmul_precision="high"),
+# ids as when the box mask, the shared trunk and the exponential mask
+# were not ported; override1 and override2 (the exponential mask on the
+# per-mode towers and on the shared trunk) now build and match JAX
+@pytest.mark.parametrize("override,ported", [
+    (dict(parallel=False, matmul_precision="highest"), False),
+    (dict(apply_exp_mask=True), True),
+    (dict(parallel=False, apply_exp_mask=True), True),
+    (dict(compute_dtype="bfloat16"), False), (dict(matmul_precision="high"), False),
 ], ids=[f"override{i}" for i in range(5)])
-def test_unported_options_raise(override):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_wavefunctions(**dict(SMALL, **override), device="cpu")
+def test_unported_options_raise(override, ported):
+    """An unported option raises, naming its ROADMAP item; a ported one
+    gives JAX's outputs on carried params (rtol 1e-5, atol 1e-6 of the
+    largest)."""
+    kw = dict(SMALL, **override)
+    if not ported:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            make_wavefunctions(**kw, device="cpu")
+        return
+    jinit, japply = jax_make_wavefunctions(**kw)
+    params = jinit(jax.random.key(2))
+    model = make_wavefunctions(**kw, device="cpu")
+    model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params)))
+    x = _x()
+    want = np.asarray(japply(params, jnp.asarray(x)))
+    got = model(torch.as_tensor(x)).detach().numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6 * np.abs(want).max())

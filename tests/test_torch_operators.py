@@ -155,15 +155,32 @@ def test_tf_carries_no_gradient_and_fs_does(carried):
     assert all(torch.isfinite(g).all() and g.abs().sum() > 0 for g in grads)
 
 
-# ids as when the forward engine and the Hutchinson probes, now ported,
-# were the first two cases
-@pytest.mark.parametrize("kw", [
-    dict(potential_type="cosine", laplacian_mode="jvp"),
-    dict(problem="fp"),
+# ids as when the forward engine and the Hutchinson probes were the first
+# two cases; kw2, the cosine potential, is ported now and matches JAX
+@pytest.mark.parametrize("kw,ported", [
+    (dict(potential_type="cosine", laplacian_mode="jvp"), True),
+    (dict(problem="fp"), False),
 ], ids=["kw2", "kw3"])
-def test_unported_operator_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_problem(**kw)
+def test_unported_operator_options_raise(carried, kw, ported):
+    """An unported problem raises, naming its ROADMAP item; a ported one
+    gives JAX's (Tf, fs) (rtol 1e-4, atol 1e-5 of Tf's scale) and ground
+    truth (exactly)."""
+    if not ported:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            get_problem(**kw)
+        return
+    jf, model = carried
+    x = _x()
+    kw = dict(kw, ndim=2, neigs=4, laplacian_eps=-1.0)
+    jop, jgt, _ = jax_get_problem(**kw)
+    top, tgt, _ = get_problem(**kw)
+    Tf_j, fs_j = jop(jf, jnp.asarray(x))
+    Tf_t, fs_t = top(model, torch.as_tensor(x))
+    np.testing.assert_allclose(Tf_t.numpy(), np.asarray(Tf_j), rtol=1e-4,
+                               atol=1e-5 * np.abs(np.asarray(Tf_j)).max())
+    np.testing.assert_allclose(fs_t.detach().numpy(), np.asarray(fs_j), rtol=1e-5,
+                               atol=1e-6 * np.abs(np.asarray(fs_j)).max())
+    np.testing.assert_array_equal(tgt, jgt)
 
 
 def test_unknown_sampler_mode_raises_naming_it():
