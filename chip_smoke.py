@@ -11,11 +11,15 @@ seconds:
 2. build      the hand-written kernels, one nvcc call into an emptied
               neuralsvd_tpu_torch/csrc/build/, and each kernel's registers,
               shared memory and spills from ptxas (no spill allowed);
-3. kernels    each kernel against its plain PyTorch version at seven shapes
+3. kernels    each kernel against its plain PyTorch version at eight shapes
               (E4, two odd ones, 1000 x 129 halves one column past K1's
-              64-wide tiles, the CDK path's 4096 x 513 pair, and the two
-              PDE recipes' 512 x 36 and 512 x 55), and CUDA-event timings
-              of kernel, plain version and library call;
+              64-wide tiles, the CDK path's 4096 x 513 pair, the two PDE
+              recipes' 512 x 36 and 512 x 55, and the Fokker–Planck
+              recipe's 512 x 7), and CUDA-event timings of kernel, plain
+              version and library call; and the EVD packaging of the three
+              (forward and backward) against the plain EVD loss at the E4,
+              recipe and Fokker–Planck shapes, timed beside the sum of its
+              kernels' bounds;
 4. trainer    the hydrogen-2D E4 configuration at full width (L = 16,
               B = 512, per-mode 128³ softplus towers, 1024 Fourier maps +
               radial + 4 envelopes, gaussian_mixture sampling with √w
@@ -71,7 +75,24 @@ seconds:
               fallback call and agrees with nested JVPs.  For both: kernel
               vs plain loss and grads on one batch, each kernel's launches
               measured as in pde_cli (one a step), steps/s of a graph block;
-9. cdk_train  the Sketchy CDK trainer (cli/sketchy.py::run_training) at the
+9. pde_methods NeuralEF on hydrogen.sh (its args=( ... ) list with --loss
+              neuralef: L 36, finite differences, the batch-L2 norm and
+              its EMAs) and the repo's 2D Fokker–Planck recipe
+              (scripts/validate_fokker_planck.py: --problem fp, L 7,
+              64³ towers, the forward engine with return_grad, shift 4,
+              sequential NestedLoRA, Adam) through the PDE entry point in
+              graph blocks of RECIPE_BLOCK with one eval each: every loss
+              finite, no skipped step; NeuralEF: no gram kernel launched,
+              the norm EMA off its ones, one block as a graph against the
+              same block as eager steps, and the loss and grads on the card
+              against a CPU copy on a small batch (float64, rtol 1e-4);
+              Fokker–Planck: one launch of each kernel a step (measured as
+              in pde_cli), kernel vs plain loss and grads at the initial
+              parameters, no fallback-rule call; both runs' graph-block
+              steps/s and eval seconds; Nyström (an RBF kernel on 2000
+              points of the FP domain, numpy samples and no device) runs
+              on the card and equals the CPU run;
+10. cdk_train the Sketchy CDK trainer (cli/sketchy.py::run_training) at the
               paper's width (512-8192-512 lrelu0.2 towers, L 512, B 4096,
               SGD momentum 0.9, lr 5e-3 warmup-cosine, grad clip 1.0, joint
               nesting) on synthetic class-correlated 512-d features, two
@@ -83,7 +104,7 @@ seconds:
               alone on device-resident batches and its peak device memory.
 
 Then the {"kernels": [...]} line (numbers at the CDK shape, launches of
-the five main paths (e4 trainer, pde_cli, hydrogen, oscillator, cdk; the
+the six main paths (e4 trainer, pde_cli, hydrogen, oscillator, fp, cdk; the
 CLI paths' are the eager launches counted by the wrappers plus the
 replayed launches counted in the traced block, each also under "paths"),
 per-path numbers under "paths", every shape's under "shapes"), the
@@ -113,6 +134,7 @@ from neuralsvd_tpu_torch.cli.sketchy import get_args, make_trainer, run_training
 from neuralsvd_tpu_torch.data.samplers import get_sampler
 from neuralsvd_tpu_torch.data.sketchy import ArrayPairLoader
 from neuralsvd_tpu_torch.methods.nestedlora import NestedLoRA
+from neuralsvd_tpu_torch.methods.nystrom import Nystrom, run_nystrom
 from neuralsvd_tpu_torch.methods.spectrum import compute_spectrum_evd
 from neuralsvd_tpu_torch.models.mlp import parse_dims
 from neuralsvd_tpu_torch.models.wavefunctions import make_wavefunctions
@@ -233,6 +255,35 @@ OSC_ITERS = 750  # one eval, at the end
 HYD_TRACED = (HYD_EVAL, RECIPE_BLOCK)
 OSC_TRACED = (RECIPE_BLOCK, RECIPE_BLOCK)
 
+# NeuralEF on hydrogen.sh: the same list with --loss neuralef (the script
+# takes the loss as $1 and already passes the --neuralef.* flags); only
+# steps are cut (NEF_ITERS of 500000), in graph blocks of RECIPE_BLOCK with
+# one eval at the end
+NEF_ITERS = 500
+NEF_CPU_ROWS = 64  # the card vs CPU check of loss and grads, in float64
+NEF_CPU_RTOL = 1e-4
+# the repo's 2D Fokker–Planck recipe (scripts/validate_fokker_planck.py:
+# 129-139, 296-313): per-mode 64³ softplus towers on 16 deterministic
+# Fourier maps, uniform sampling on [-π, π]² (the uniform sampler reads
+# --sampling_scale), the forward engine with return_grad, the top 6 modes
+# and one guard (L 7) over a shift of 4, sequential nesting, Adam at 1e-3
+# on the cosine schedule, EMA 0.995, B 512; cut to FP_ITERS steps
+FP_ARGV = ("--problem fp --ndim 2 --neigs 7 --mlp_hidden_dims 64,64,64 "
+           "--nonlinearity softplus --parallel true --use_fourier_feature true "
+           "--fourier_deterministic true --fourier_mapping_size 16 --fourier_scale 1 "
+           "--apply_boundary false --sampling_mode uniform "
+           "--sampling_scale 3.141592653589793 --lim pi --laplacian_eps -1 "
+           "--operator_shift 4 --neuralsvd.sequential true --optimizer adam --lr 1e-3 "
+           "--use_lr_scheduler true --ema_decay 0.995 --batch_size 512 --seed 0").split()
+FP_L, FP_SHIFT, FP_ITERS = 7, 4.0, 1000
+FP_TRACED = (RECIPE_BLOCK, RECIPE_BLOCK)
+# Nyström (methods/nystrom.py) on the FP domain: an RBF kernel (width 1) on
+# NY_TRAIN uniform points of [-π, π]², the top FP_L eigenpairs extended to
+# NY_VAL new points, numpy samples with no device (so: the card) against
+# the same call on the CPU; eigvals rtol NY_RTOL, eigenfunctions up to sign
+# within NY_RTOL of the largest entry (f32 rounding: ~4e-7 against float64)
+NY_TRAIN, NY_VAL, NY_RTOL = 2000, 1000, 1e-5
+
 # CDK: the Sketchy paper's configuration (scripts/exps/sketchy.sh:15-36) on
 # synthetic features; joint nesting (the script's intent, see ROADMAP §3)
 CDK_ARGV = ["--network_dims", "8192,512", "--neigs", "512", "--batch_size", "4096",
@@ -250,7 +301,11 @@ CDK_TOWER_RTOL = 1e-4  # GPU vs CPU towers: f32 products of depth 8192
 # the EVD path and the two halves (f, g) on the CDK path
 KERNEL_SHAPES = [("E4", BATCH, NEIGS), ("unaligned", 96, 5), ("wide", 2048, 64),
                  ("edge", 2000, 129), ("cdk", 2 * CDK_B, CDK_L + 1),
-                 ("hydrogen", BATCH, HYDROGEN_L), ("oscillator", BATCH, OSCILLATOR_L)]
+                 ("hydrogen", BATCH, HYDROGEN_L), ("oscillator", BATCH, OSCILLATOR_L),
+                 ("fp", BATCH, FP_L)]
+# the EVD packaging (K1-K3 in the loss's forward and backward) is timed at
+# the shapes of the paths that take it
+PACKAGING_SHAPES = ("E4", "hydrogen", "oscillator", "fp")
 KERNEL_RTOL = 1e-5   # of the plain version on |inputs|: f32 rounding scale
 LOSS_RTOL = 1e-5     # kernel vs plain loss on one batch
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6  # atol in units of the largest entry
@@ -392,7 +447,7 @@ def _kernel_inputs(label, B, L, gen):
     dev = DEVICE
     f = torch.randn(B, L, generator=gen, device=dev)
     Tf = torch.randn(B, L, generator=gen, device=dev)
-    if label in ("E4", "edge"):
+    if label in ("E4", "edge", "fp"):
         vmask, mmask = sequential_nesting_masks(L)
     elif label == "cdk":
         vmask, mmask = joint_nesting_masks(step_weights(L - 1), set_first_mode_const=True)
@@ -407,6 +462,7 @@ def phase_kernels():
     """Every kernel against its plain version; timings at each shape."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     rows = {k: [] for k in REPLACES}
+    packaging = []
     for label, B, L in KERNEL_SHAPES:
         f, Tf, f1, f2, vmask, mmask = _kernel_inputs(label, B, L, gen)
         Bh = B // 2
@@ -464,8 +520,37 @@ def phase_kernels():
                                    rel_err=rel, ms=ms, plain_ms=plain_ms,
                                    library_ms=library_ms, bound_ms=bound_ms,
                                    bound_by=bound_by))
+        if label in PACKAGING_SHAPES:
+            packaging.append(_packaging_row(label, f, Tf, vmask, mmask, rows))
     emit("kernels", rtol=KERNEL_RTOL, results=rows)
-    return rows
+    emit("kernels_packaging", results=packaging)
+    return rows, packaging
+
+
+def _packaging_row(label, f, Tf, vmask, mmask, rows):
+    """The EVD packaging's forward and backward (one call each of K1, K2
+    and K3) against the plain EVD loss on the same (f, Tf): loss at
+    LOSS_RTOL, the gradient of f at the gradient tolerances, and the
+    CUDA-event ms of each; its bound is the sum of the three kernels'
+    bounds at this shape."""
+    def run(loss_fn):
+        a = f.detach().requires_grad_()
+        loss = loss_fn(a, Tf, *torch.chunk(a, 2), vmask, mmask)
+        return loss, torch.autograd.grad(loss, a)[0]
+
+    (loss_k, grad_k), (loss_p, grad_p) = (run(nestedlora_evd_loss_kernels),
+                                          run(nestedlora_evd_loss))
+    loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    check(loss_rel <= LOSS_RTOL, f"packaging at {label}: loss rel {loss_rel:.3g}")
+    grad_excess = _excess(grad_k, grad_p, GRAD_RTOL, GRAD_ATOL)
+    check(grad_excess <= 1.0, f"packaging at {label}: grad {grad_excess:.3g}x tolerance")
+    parts = [next(r for r in rows[k] if r["shape"] == label) for k in REPLACES]
+    return dict(shape=label, B=f.shape[0], L=f.shape[1], loss_rel=loss_rel,
+                grad_tol_used=grad_excess,
+                ms=time_ms(lambda: run(nestedlora_evd_loss_kernels)),
+                plain_ms=time_ms(lambda: run(nestedlora_evd_loss)),
+                bound_ms=sum(r["bound_ms"] for r in parts),
+                bound_by=[r["bound_by"] for r in parts])
 
 
 def _e4_setup(device, laplacian_mode="forward", laplacian_probes=0):
@@ -916,16 +1001,10 @@ def _recipe_argv(argv, iters, eval_freq, traced=None, **flags):
     return out + (_profile_argv(traced) if traced else [])
 
 
-def _kernel_vs_plain(argv, ts):
-    """The recipe's kernel loss and grads against the plain path on one
-    batch.  At the CLI's initial parameters (the model as built from
-    --seed), at the JAX tolerances, as phase trainer does for E4.  At the
-    trained parameters of ``ts`` neither float32 path meets those
-    tolerances at every gradient entry (a float32 product of ~1e3 terms
-    with cancellation), so there both are held against a float64
-    evaluation of the same loss on the same (fs, Tf): the kernel path's
-    worst gradient excess over the tolerance may not pass
-    max(1, RECIPE_F64_FACTOR x the plain path's)."""
+def _kernel_vs_plain_at_init(argv):
+    """The CLI's run parts for ``argv`` (the model as built from --seed), a
+    batch, and the kernel loss and grads against the plain path's on it
+    at the JAX tolerances."""
     cfg = parse_pde_config(argv + ["--device", DEVICE])
     run = pde.build(cfg)
     plain = NestedLoRA(run.model, neigs=cfg.neigs, step=cfg.loss.neuralsvd.step,
@@ -938,8 +1017,23 @@ def _kernel_vs_plain(argv, ts):
     loss_p, grads_p, _, _ = plain.loss_and_grad(params, {}, x, run.operator,
                                                 run.importance_train)
     loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
-    check(loss_rel <= LOSS_RTOL, f"recipe kernel vs plain loss: rel {loss_rel:.3g}")
-    out = {"init": {"loss_rel": loss_rel, "grad_tol_used": _check_grads(grads_k, grads_p)}}
+    check(loss_rel <= LOSS_RTOL, f"kernel vs plain loss: rel {loss_rel:.3g}")
+    return run, x, {"loss_rel": loss_rel, "grad_tol_used": _check_grads(grads_k, grads_p)}
+
+
+def _kernel_vs_plain(argv, ts):
+    """The recipe's kernel loss and grads against the plain path on one
+    batch.  At the CLI's initial parameters (the model as built from
+    --seed), at the JAX tolerances, as phase trainer does for E4.  At the
+    trained parameters of ``ts`` neither float32 path meets those
+    tolerances at every gradient entry (a float32 product of ~1e3 terms
+    with cancellation), so there both are held against a float64
+    evaluation of the same loss on the same (fs, Tf): the kernel path's
+    worst gradient excess over the tolerance may not pass
+    max(1, RECIPE_F64_FACTOR x the plain path's)."""
+    run, x, init = _kernel_vs_plain_at_init(argv)
+    params = dict(run.model.named_parameters())
+    out = {"init": init}
 
     # the trained parameters: both float32 paths against float64
     with torch.no_grad():
@@ -1102,6 +1196,167 @@ def phase_pde_recipes():
     return {"hydrogen": hydrogen["launches"], "oscillator": oscillator["launches"]}
 
 
+def _graph_vs_eager(cfg, trained, start):
+    """One block of RECIPE_BLOCK steps from the state ``trained`` as a
+    replayed graph and as eager steps, same seed, each on the CLI's run
+    parts: (excess over PDE_STATE_RTOL/ATOL, bit for bit)."""
+    states = []
+    for use_graph in (True, False):
+        run = pde.build(cfg)
+        block = make_scanned_train_step(
+            run.method, run.operator, run.optimizer, run.sample,
+            importance=run.importance_train, ema_decay=cfg.ema_decay,
+            steps_per_call=RECIPE_BLOCK, grad_clip=cfg.grad_clip, seed=cfg.seed,
+            use_graph=use_graph)
+        ts = init_train_state(run.model, run.optimizer, run.method)
+        load_state_tree(ts, trained)
+        block(ts, start)
+        torch.cuda.synchronize()
+        check((block.graph is not None) == use_graph, "graph vs eager: capture")
+        states.append(state_tree(ts))
+    excess, bitwise = _state_excess(*states)
+    check(excess <= 1.0, f"graph vs eager block: {excess:.3g}x tolerance")
+    return {"steps": RECIPE_BLOCK, "tol_used": excess, "bit_for_bit": bitwise}
+
+
+def _neuralef_card_vs_cpu(cfg, ts):
+    """NeuralEF's loss, grads and new norm state at the trained state on
+    NEF_CPU_ROWS rows, on the card against a CPU copy, model and operator
+    in float64 (finite differences at eps 0.01 would leave two float32
+    evaluations ~1e-3 apart): rtol NEF_CPU_RTOL, grads also atol 1e-6 of
+    the largest entry."""
+    out = {}
+    for dev in (DEVICE, "cpu"):  # the batch is drawn on the card
+        run = pde.build(cfg, dev)
+        if dev == DEVICE:
+            x = run.sample(torch.Generator(device=DEVICE).manual_seed(SEED + 4))
+            x = x[:NEF_CPU_ROWS].double()
+        run.model.double()
+        params = dict(run.model.named_parameters())
+        with torch.no_grad():
+            for k, p in params.items():
+                p.copy_(ts.params[k])
+        state = {k: v.to(dev, torch.float64 if v.is_floating_point() else v.dtype)
+                 for k, v in ts.method_state.items()}
+        loss, grads, _, new_state = run.method.loss_and_grad(
+            params, state, x.to(dev), run.operator, run.importance_train)
+        out[dev] = (loss.item(), {k: g.cpu() for k, g in grads.items()},
+                    {k: v.cpu() for k, v in new_state.items()})
+    (loss_g, grads_g, state_g), (loss_c, grads_c, state_c) = out[DEVICE], out["cpu"]
+    loss_rel = abs(loss_g / loss_c - 1)
+    check(loss_rel <= NEF_CPU_RTOL, f"NeuralEF card vs CPU loss: rel {loss_rel:.3g}")
+    grad_excess = max(_excess(grads_g[k], r, NEF_CPU_RTOL, GRAD_ATOL) for k, r in grads_c.items())
+    check(grad_excess <= 1.0, f"NeuralEF card vs CPU grads: {grad_excess:.3g}x tolerance")
+    for k, v in state_c.items():
+        check(torch.allclose(state_g[k], v, rtol=NEF_CPU_RTOL, atol=0.0),
+              f"NeuralEF card vs CPU state {k}")
+    return {"rows": NEF_CPU_ROWS, "loss_rel": loss_rel, "grad_tol_used": grad_excess}
+
+
+def _neuralef_hydrogen(tmp):
+    """hydrogen.sh with --loss neuralef: graph blocks, one eval, the norm
+    EMA, graph vs eager, card vs CPU."""
+    argv = _recipe_argv(_with_flags(HYDROGEN_ARGV, loss="neuralef"), NEF_ITERS, NEF_ITERS)
+    cfg = parse_pde_config(argv + ["--device", DEVICE])
+    check(cfg.loss.name == "neuralef" and cfg.loss.neuralef.unbiased
+          and cfg.loss.neuralef.batchnorm_mode == "unbiased", f"NeuralEF flags {cfg.loss}")
+    timings = {}
+    cuda_gram.reset_launch_counts()
+    t0 = time.perf_counter()
+    ts, eigvals, run_dir, records = _pde_run(argv, os.path.join(tmp, "nef"), timings)
+    run_s = time.perf_counter() - t0
+    counts = cuda_gram.launch_counts()
+    check(not any(counts.values()), f"NeuralEF launched gram kernels: {counts}")
+    rows, health = _check_run("neuralef", ts, eigvals, run_dir, records, NEF_ITERS,
+                              [NEF_ITERS], neigs=HYDROGEN_L)
+    check([n for n, _ in timings.get("block_graph", [])]
+          == [RECIPE_BLOCK] * (NEF_ITERS // RECIPE_BLOCK) and "block_eager" not in timings,
+          f"NeuralEF blocks {timings}")
+    captures = _records_of(records, "captured a CUDA graph")
+    check(len(captures) == 1, f"{len(captures)} captures in the NeuralEF run")
+    state = ts.method_state
+    norms = {k: state[k].detach().cpu() for k in ("norm_biased", "norm_unbiased")}
+    check(bool(state["initialized"]) and all(
+        torch.isfinite(v).all().item() and (v != 1.0).all().item() for v in norms.values()),
+          f"NeuralEF norm state {state}")
+    trained = state_tree(ts)
+    return {"argv": argv, "iters": NEF_ITERS, "run_s": run_s, "rows": rows,
+            "eigvals": np.asarray(eigvals[-1]).tolist(), "health": health,
+            "gram_kernel_launches": counts,
+            "norm_unbiased": [norms["norm_unbiased"].min().item(),
+                              norms["norm_unbiased"].max().item()],
+            "graph_vs_eager": _graph_vs_eager(cfg, trained, NEF_ITERS),
+            "card_vs_cpu": _neuralef_card_vs_cpu(cfg, ts),
+            "eval_s": timings["eval"], "block_s": timings.get("block_graph"),
+            "graph_block_steps_per_s": _block_rate(timings, "block_graph")}
+
+
+def _fokker_planck(tmp):
+    """The 2D Fokker–Planck recipe: graph blocks, one eval, the kernels
+    once a step, no fallback rule, kernel vs plain at the initial
+    parameters; λ₀ − shift printed."""
+    argv = _recipe_argv(FP_ARGV, FP_ITERS, FP_ITERS, FP_TRACED)
+    timings = {}
+    cuda_gram.reset_launch_counts()
+    forward_laplacian.fallback_rule.calls = 0
+    t0 = time.perf_counter()
+    ts, eigvals, run_dir, records = _pde_run(argv, os.path.join(tmp, "fp"), timings)
+    run_s = time.perf_counter() - t0
+    fallbacks = forward_laplacian.fallback_rule.calls
+    check(fallbacks == 0, f"{fallbacks} fallback-rule calls on the Fokker–Planck path")
+    launches, traced_kernels = _measured_launches("fp", run_dir, FP_TRACED)
+    rows, health = _check_run("fp", ts, eigvals, run_dir, records, FP_ITERS, [FP_ITERS],
+                              neigs=FP_L)
+    check([n for n, _ in timings.get("block_graph", [])]
+          == [RECIPE_BLOCK] * (FP_ITERS // RECIPE_BLOCK) and "block_eager" not in timings,
+          f"Fokker–Planck blocks {timings}")
+    _, _, init = _kernel_vs_plain_at_init(argv)
+    learned = np.asarray(eigvals[-1])
+    return {"argv": FP_ARGV, "iters": FP_ITERS, "run_s": run_s, "rows": rows,
+            "eigvals": learned.tolist(), "learned_minus_shift": (learned - FP_SHIFT).tolist(),
+            "lambda0_minus_shift": float(learned.max() - FP_SHIFT), "health": health,
+            "launches": launches, "traced_block_kernels_per_step": traced_kernels,
+            "kernel_vs_plain_init": init, "fallback_calls": fallbacks,
+            "eval_s": timings["eval"], "block_s": timings.get("block_graph"),
+            "graph_block_steps_per_s": _block_rate(timings, "block_graph")}
+
+
+def _rbf(x, y):
+    return torch.exp(-0.5 * torch.sum((x[:, None, :] - y[None, :, :]) ** 2, dim=-1))
+
+
+def _nystrom():
+    """Nyström with numpy samples and no device: the samples, the empirical
+    kernel and the extension on the card, equal to the CPU run."""
+    rng = np.random.default_rng(SEED)
+    xs = rng.uniform(-np.pi, np.pi, (NY_TRAIN, 2)).astype(np.float32)
+    xval = rng.uniform(-np.pi, np.pi, (NY_VAL, 2)).astype(np.float32)
+    check(Nystrom(_rbf, xs[:8], 2).xs.is_cuda, "Nyström left its samples on the host")
+    t0 = time.perf_counter()
+    ev, ef, evd_s = run_nystrom(_rbf, FP_L, xs, xval)
+    run_s = time.perf_counter() - t0
+    ev_c, ef_c, _ = run_nystrom(_rbf, FP_L, xs, xval, device="cpu")
+    signs = np.sign(np.sum(ef * ef_c, axis=0))
+    ev_err = float(np.max(np.abs(ev - ev_c) / np.abs(ev_c)))
+    ef_err = float(np.max(np.abs(ef * signs - ef_c)) / np.max(np.abs(ef_c)))
+    check(ev_err <= NY_RTOL and ef_err <= NY_RTOL,
+          f"Nyström on the card vs the CPU: eigvals {ev_err}, eigenfunctions {ef_err}")
+    return {"train": NY_TRAIN, "val": NY_VAL, "neigs": FP_L, "eigvals": ev.tolist(),
+            "eigvals_rel_err": ev_err, "eigfuncs_err": ef_err, "run_s": run_s,
+            "evd_s": evd_s}
+
+
+def phase_pde_methods():
+    """NeuralEF on hydrogen.sh and the Fokker–Planck recipe through the
+    PDE entry point, and Nyström on the FP domain."""
+    with tempfile.TemporaryDirectory() as tmp:
+        neuralef = _neuralef_hydrogen(tmp)
+        fp = _fokker_planck(tmp)
+    emit("pde_methods", block=RECIPE_BLOCK, neuralef=neuralef, fokker_planck=fp,
+         nystrom=_nystrom())
+    return {"fp": fp["launches"]}
+
+
 def _cdk_data():
     """Synthetic class-correlated 512-d features, made in bulk from SEED
     (the recipe of tests/test_cdk_retrieval.py:63-77): per-class centres
@@ -1244,11 +1499,12 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     name, smi = phase_device()
     phase_build()
-    rows = phase_kernels()
+    rows, _ = phase_kernels()
     e4_counts, model, importance, x = phase_trainer()
     pde_launches = phase_pde_cli()
     recipe_launches = phase_pde_recipes()
-    measured = {"pde_cli": pde_launches, **recipe_launches}
+    method_launches = phase_pde_methods()
+    measured = {"pde_cli": pde_launches, **recipe_launches, **method_launches}
     counts = {"e4": e4_counts,
               **{path: {k: v["launches"] for k, v in m.items()} for path, m in measured.items()}}
     phase_hutchinson(model, importance, x)
@@ -1263,7 +1519,8 @@ def main():
                                                       "plain_ms", "bound_ms",
                                                       "bound_by", "library_ms")}}
                  for path, shape in (("e4", "E4"), ("pde_cli", "E4"), ("cdk", "cdk"),
-                                     ("hydrogen", "hydrogen"), ("oscillator", "oscillator"))}
+                                     ("hydrogen", "hydrogen"), ("oscillator", "oscillator"),
+                                     ("fp", "fp"))}
         for path, m in measured.items():
             paths[path].update(m[kname])
         cdk = paths["cdk"]

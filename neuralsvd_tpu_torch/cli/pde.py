@@ -9,11 +9,12 @@ after every eval, ``--resume`` from the latest checkpoint, and
 ``stats.npz`` at the end.
 
 The flags are the JAX CLI's (utils/config.py) plus ``--device`` (default:
-the GPU); every potential of ``--problem sch``, the exponential mask and
-``--rescue true`` (the mode rescue at evals) run.  Refused before any
-training, each naming its ROADMAP item: ``--loss`` other than
-neuralsvd/nestedlora and ``--problem fp`` (queue 1, item 8), ``--mesh``
-(item 9), ``--matmul_precision`` (item 10).  As in the JAX CLI,
+the GPU); ``--loss neuralsvd|nestedlora|neuralef``, every potential of
+``--problem sch``, the Fokker–Planck problem ``--problem fp``, the
+exponential mask and ``--rescue true`` (the mode rescue at evals) run.
+Refused before any training, each naming its ROADMAP item: ``--loss
+spin|spinx`` (queue 1, item 8b), ``--mesh`` (item 9),
+``--matmul_precision`` (item 10).  As in the JAX CLI,
 ``--weight_normalization`` reaches no model.
 """
 from __future__ import annotations
@@ -62,12 +63,9 @@ log = logging.getLogger("neuralsvd_tpu_torch.pde")
 
 def check_ported(cfg: PDEConfig) -> None:
     """Raise NotImplementedError for a configuration the port cannot run."""
-    if cfg.loss.name not in ("neuralsvd", "nestedlora"):
+    if cfg.loss.name in ("spin", "spinx"):
         raise NotImplementedError(
-            f"--loss {cfg.loss.name} is not ported yet (ROADMAP queue 1, item 8)")
-    if cfg.problem != "sch":
-        raise NotImplementedError(
-            f"--problem {cfg.problem} is not ported yet (ROADMAP queue 1, item 8)")
+            f"--loss {cfg.loss.name} is not ported yet (ROADMAP queue 1, item 8b)")
     if cfg.mesh:
         raise NotImplementedError(
             "--mesh (data parallelism) is not ported yet (ROADMAP queue 1, item 9)")
@@ -88,7 +86,8 @@ def build(cfg: PDEConfig, dev=None) -> SimpleNamespace:
         hydrogen_mol_ion_R=cfg.hydrogen_mol_ion_R, mol_name=cfg.mol_name,
         laplacian_eps=cfg.laplacian_eps, laplacian_mode=cfg.laplacian_mode,
         laplacian_probes=cfg.laplacian_probes,
-        operator_scale=cfg.operator_scale, operator_shift=cfg.operator_shift)
+        operator_scale=cfg.operator_scale, operator_shift=cfg.operator_shift,
+        scale_operator=cfg.scale_operator)
 
     model_kw = dict(
         ndim=cfg.ndim, neigs=cfg.neigs,
@@ -130,8 +129,10 @@ def build(cfg: PDEConfig, dev=None) -> SimpleNamespace:
             cfg.batch_size, seed=cfg.seed + 777, sampling_weights=weights,
             device=dev)
 
+    method_opts = (cfg.loss.neuralef if cfg.loss.name == "neuralef"
+                   else cfg.loss.neuralsvd)
     method = get_evd_method(cfg.loss.name, model, cfg.neigs, sort=cfg.sort,
-                            **vars(cfg.loss.neuralsvd))
+                            **vars(method_opts))
 
     lr_schedule = (cosine_annealing(cfg.lr, cfg.num_iters)
                    if cfg.use_lr_scheduler else None)

@@ -9,9 +9,11 @@ mask's ``{"mask": {"scales": (L,)}}`` where there is one;
 ``hetero_params_from_jax`` maps the
 two-tower tree ``{"x": {"layers": [{"w": (in, out), "b": (out,)}, ...]},
 "y": ...}`` onto that of ``models.two_tower.HeteroNetwork`` (the same
-(in, out) layout, so no transpose).  Leaves are already numpy arrays; so
-both packages compute the same function in the tests.  Nothing here
-imports JAX.
+(in, out) layout, so no transpose); ``method_state_from_jax`` carries a
+method's state (NeuralEF's ``norm_biased``, ``norm_unbiased`` (1, L) and
+the bool ``initialized``).  Leaves are already numpy arrays; so both
+packages compute the same function in the tests.  Nothing here imports
+JAX.
 """
 from __future__ import annotations
 
@@ -63,4 +65,14 @@ def hetero_params_from_jax(tree) -> Dict[str, torch.Tensor]:
             for name, leaf in layer.items():
                 out[f"{side}.layers.{i}.{name}"] = torch.tensor(
                     np.asarray(leaf, dtype=np.float32))
+    return out
+
+
+def method_state_from_jax(state) -> Dict[str, torch.Tensor]:
+    """A method state of numpy leaves -> {name: tensor}: bool leaves stay
+    bool, the rest become float32 ({} stays {})."""
+    out = {}
+    for name, leaf in state.items():
+        a = np.asarray(leaf)
+        out[name] = torch.tensor(a if a.dtype == np.bool_ else a.astype(np.float32))
     return out

@@ -1,27 +1,36 @@
 """Method factories.
 
-Port of ``neuralsvd_tpu/methods/factories.py``: the NestedLoRA branch of
-``get_evd_method`` (:13) and ``get_cdk_method`` (:40).  The other EVD
-methods (NeuralEF, SpIN, SpINx) are not ported yet (ROADMAP queue 1,
-item 8); the data-parallel ``axis_name`` waits for item 9.
+Port of ``neuralsvd_tpu/methods/factories.py``: the NestedLoRA and
+NeuralEF branches of ``get_evd_method`` (:13-32) and ``get_cdk_method``
+(:40).  SpIN and SpINx are not ported yet (ROADMAP queue 1, item [8b]);
+the data-parallel ``axis_name`` waits for item [9].
 """
 from __future__ import annotations
 
 from torch import nn
 
 from neuralsvd_tpu_torch.methods.nestedlora import NestedLoRA, NestedLoRAForCDK
+from neuralsvd_tpu_torch.methods.neuralef import NeuralEigenfunctions
 
 
 def get_evd_method(method_name: str, model: nn.Module, neigs: int,
                    sort: bool = False, **opts):
     """name -> method instance; options mirror the reference's namespaced
-    flags (--neuralsvd.step, --neuralsvd.sequential, --use_pallas)."""
+    flags (--neuralsvd.step, --neuralsvd.sequential, --use_pallas,
+    --neuralef.batchnorm_mode, --neuralef.unbiased, --neuralef.include_diag)."""
     if method_name in ("neuralsvd", "nestedlora"):
         return NestedLoRA(model, neigs, step=opts.get("step", 1),
                           sequential=opts.get("sequential", False), sort=sort,
                           use_pallas=opts.get("use_pallas", "auto"))
-    raise NotImplementedError(
-        f"{method_name} is not ported yet (ROADMAP queue 1, item 8)")
+    if method_name == "neuralef":
+        return NeuralEigenfunctions(
+            model, neigs, batchnorm_mode=opts.get("batchnorm_mode", "unbiased"),
+            unbiased=opts.get("unbiased", False),
+            include_diag=opts.get("include_diag", False), sort=sort)
+    if method_name in ("spin", "spinx"):
+        raise NotImplementedError(
+            f"{method_name} is not ported yet (ROADMAP queue 1, item 8b)")
+    raise NotImplementedError(method_name)
 
 
 def get_cdk_method(method_name: str, model: nn.Module, neigs: int, **opts):

@@ -19,8 +19,8 @@ against 103.4-103.6 through the plain path, in turns in one process
 (profile_torch_e4.py --path cdk), and the E4 step is host bound either
 way.
 
-Not ported yet (ROADMAP queue 1, item 7): the kernel-operator path
-(``loss_and_grad_kernel``) and the data-parallel ``axis_name``.
+Not ported yet: the kernel-operator path (``loss_and_grad_kernel``,
+ROADMAP queue 1, item [6]) and the data-parallel ``axis_name`` (item [9]).
 """
 from __future__ import annotations
 

@@ -1,0 +1,207 @@
+"""NeuralEF / mu-EigenGame: the loss and the method behind the EVD interface.
+
+Port of ``neuralsvd_tpu/methods/neuralef.py``: ``neuralef_loss`` (:22-73),
+a ``torch.autograd.Function`` whose backward returns the saved terms
+scaled, 4x the variance term and 2x each align term, and nothing for Tφ.
+This is deliberately NOT the gradient of the forward scalar; do not "fix"
+it.  ``NeuralEigenfunctions`` (:76-241) divides the model's outputs by
+their batch L2 norm while training (the gradient flows through the norm)
+and keeps EMAs of those norms, which the eval divides by.
+
+The batch norm couples the rows of a batch, so under finite differences φ
+must come from the same stacked model call as the probe points, as in the
+JAX package: the training model is marked ``batch_coupled`` and
+``operators/diff_ops.VectorizedLaplacian`` then takes fs from that call,
+with autograd on.  The exact engines move all rows together (global
+coordinate shifts), so there Tφ includes the norm's dependence on the
+shifted batch, as in JAX.
+
+The EMA state (``norm_biased``, ``norm_unbiased`` (1, L) and
+``initialized``, a bool tensor) is returned by ``loss_and_grad`` and
+written in place by the train step (``train_state.assign_state``), also
+on a skipped step, as JAX keeps it; so a captured step updates it on
+every replay.  Not ported yet: the kernel-operator path
+(``loss_and_grad_kernel``, ROADMAP queue 1, item [6]) and the
+data-parallel ``axis_name`` (item [9]).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+from torch.func import functional_call
+
+from neuralsvd_tpu_torch.ops.gram import compute_gram
+
+
+class NeuralEFLoss(torch.autograd.Function):
+    """(unbiased, diagonal, φ, Tφ, φ1, Tφ1, φ2, Tφ2) -> scalar loss.
+
+    ``unbiased``: coefficients from the plain grams of φ1, φ2
+    (mu-EigenGame), else from the quad forms normalised by their diagonal
+    (+1e-5, the original NeuralEF); both keep ``triu(k=diagonal)``.
+    """
+
+    @staticmethod
+    def forward(ctx, unbiased, diagonal, phi, Tphi, phi1, Tphi1, phi2, Tphi2):
+        variance = -Tphi / phi.shape[0]
+        if unbiased:
+            coeff1 = torch.triu(compute_gram(phi1), diagonal)
+            coeff2 = torch.triu(compute_gram(phi2), diagonal)
+        else:
+            quad1 = compute_gram(phi1, Tphi1)
+            quad2 = compute_gram(phi2, Tphi2)
+            coeff1 = torch.triu(quad2, diagonal) / (torch.diagonal(quad2) + 1e-5)[:, None]
+            coeff2 = torch.triu(quad1, diagonal) / (torch.diagonal(quad1) + 1e-5)[:, None]
+        align1 = torch.einsum("bl...,lm->bm...", Tphi1, coeff1) / phi1.shape[0]
+        align2 = torch.einsum("bl...,lm->bm...", Tphi2, coeff2) / phi2.shape[0]
+        loss = (torch.sum(phi * variance)
+                + 0.5 * (torch.sum(phi1 * align1) + torch.sum(phi2 * align2)))
+        ctx.save_for_backward(variance, align1, align2)
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        variance, align1, align2 = ctx.saved_tensors
+        # the estimator's scaling (neuralsvd_tpu/methods/neuralef.py:65-70)
+        return (None, None, g * 4 * variance, None, g * 2 * align1, None,
+                g * 2 * align2, None)
+
+
+def neuralef_loss(unbiased: bool, diagonal: int, phi, Tphi, phi1, Tphi1,
+                  phi2, Tphi2) -> torch.Tensor:
+    return NeuralEFLoss.apply(unbiased, diagonal, phi, Tphi, phi1, Tphi1,
+                              phi2, Tphi2)
+
+
+def batch_norm(out: torch.Tensor) -> torch.Tensor:
+    """(B, L) -> (1, L): sqrt(Σ_b out² / B), written with the ops the
+    forward-Laplacian engine has rules for (``torch.linalg.norm`` would
+    take its fallback)."""
+    return torch.sqrt(torch.sum(out * out, dim=0, keepdim=True) / out.shape[0])
+
+
+class NeuralEigenfunctions:
+    """NeuralEF behind the uniform method interface.
+
+    ``batchnorm_mode``: "biased" | "unbiased" | "none": whether the model's
+    outputs are divided by their batch L2 norm in training, and which EMA
+    of it the eval divides by.
+    """
+
+    name = "neuralef"
+    momentum = 0.9  # of the norm EMAs
+
+    def __init__(self, model: nn.Module, neigs: int,
+                 batchnorm_mode: str = "unbiased", unbiased: bool = False,
+                 include_diag: bool = False, sort: bool = False):
+        if batchnorm_mode not in ("biased", "unbiased", "none"):
+            raise ValueError(f"unknown batchnorm_mode {batchnorm_mode!r}")
+        self.model = model
+        self.neigs = neigs
+        self.batchnorm_mode = batchnorm_mode
+        self.unbiased = unbiased
+        self.diagonal = 0 if include_diag else 1
+        self.sort = sort  # read by callers, as in the JAX package
+        self.eigvals: Optional[np.ndarray] = None
+        self.sort_indices: Optional[np.ndarray] = None
+
+    def register_eigvals(self, eigvals):
+        self.eigvals = np.asarray(eigvals)
+        self.sort_indices = np.argsort(self.eigvals)[::-1].copy()
+
+    def reset_eigvals(self):
+        self.eigvals = None
+        self.sort_indices = None
+
+    def init_state(self, params):
+        if self.batchnorm_mode == "none":
+            return {}
+        device = next(iter(params.values())).device
+        return {
+            "norm_biased": torch.ones((1, self.neigs), device=device),
+            "norm_unbiased": torch.ones((1, self.neigs), device=device),
+            "initialized": torch.zeros((), dtype=torch.bool, device=device),
+        }
+
+    def _raw(self, params, x):
+        out = functional_call(self.model, params, (x,))
+        if self.sort_indices is not None:
+            out = out[:, torch.as_tensor(self.sort_indices).to(out.device)]
+        return out
+
+    def _train_model(self, params, state):
+        """(model, collect): ``model`` divides by the live batch norm (the
+        gradient flows through it); ``collect(raw)`` gives the new EMA
+        state from the unnormalised outputs of the batch."""
+        if self.batchnorm_mode == "none":
+            return (lambda x: self._raw(params, x)), (lambda raw: state)
+
+        def model(x):
+            out = self._raw(params, x)
+            return out / batch_norm(out)
+
+        model.batch_coupled = True
+
+        def collect(raw):
+            with torch.no_grad():
+                bn = batch_norm(raw)
+                init = state["initialized"]
+                m = self.momentum
+                biased = torch.where(init, m * state["norm_biased"] + (1 - m) * bn, bn)
+                unbiased = torch.where(
+                    init, torch.sqrt(m * state["norm_unbiased"] ** 2 + (1 - m) * bn ** 2),
+                    bn)
+                return {"norm_biased": biased, "norm_unbiased": unbiased,
+                        "initialized": torch.ones_like(init)}
+
+        return model, collect
+
+    def eval_apply(self, params, state, x):
+        out = functional_call(self.model, params, (x,))
+        if self.batchnorm_mode == "none":
+            return out
+        key = "norm_biased" if self.batchnorm_mode == "biased" else "norm_unbiased"
+        return out / state[key]
+
+    def register_norm(self, params, state, data, batch_size: int = 8192):
+        """A new state whose norms are the exact L2 norms of the outputs
+        over ``data`` (Σ f² accumulated in full batches of ``batch_size``
+        and one ragged tail, as the JAX package sums them)."""
+        if self.batchnorm_mode == "none":
+            return state
+        device = next(iter(params.values())).device
+        data = torch.as_tensor(data, device=device)
+        n = data.shape[0]
+        sq = torch.zeros((1, self.neigs), device=device)
+        with torch.no_grad():
+            for i in range(0, n, batch_size):
+                f = functional_call(self.model, params, (data[i:i + batch_size],))
+                sq = sq + torch.sum(f * f, dim=0, keepdim=True)
+        norm = torch.sqrt(sq / n)
+        return {**state, "norm_biased": norm, "norm_unbiased": norm.clone(),
+                "initialized": torch.ones((), dtype=torch.bool, device=device)}
+
+    def loss_and_grad(self, params, state, x, operator, importance=None):
+        """(loss, grads {name: tensor}, aux {f, Tf, eigvals}, new state)."""
+        model, collect = self._train_model(params, state)
+        Tphi, phi = operator(model, x, importance)
+        if phi.shape[0] % 2:
+            raise ValueError("the batch must split into two equal halves")
+        phi1, phi2 = torch.chunk(phi, 2)
+        Tphi1, Tphi2 = torch.chunk(Tphi, 2)
+        loss = neuralef_loss(self.unbiased, self.diagonal, phi, Tphi, phi1, Tphi1,
+                             phi2, Tphi2)
+        with torch.no_grad():
+            new_state = collect(self._raw(params, x))  # unnormalised outputs
+        names = list(params)
+        grads = torch.autograd.grad(loss, [params[k] for k in names],
+                                    allow_unused=True, materialize_grads=True)
+        return (loss.detach(), dict(zip(names, grads)),
+                dict(f=phi.detach(), Tf=Tphi, eigvals=None), new_state)
+
+    def loss_and_grad_kernel(self, *args, **kwargs):
+        raise NotImplementedError(
+            "the kernel-operator path is not ported yet (ROADMAP queue 1, item 6)")

@@ -7,8 +7,9 @@ radius-√μ L2 ball (the CDK loss's boundedness constraint).  Parameters are
 ``{"x.layers.<i>.w", "x.layers.<i>.b", "y.layers.<i>.w", ...}``, with
 weights (in, out) as in the JAX tree ``{"x": {"layers": [{"w", "b"}]}}``.
 
-Not ported yet (ROADMAP queue 1, items 15 and 16): the ``num_classes``
-online heads, ``compute_dtype`` (bf16 towers) and ``make_siam_network``.
+Not ported yet: ``compute_dtype`` (bf16 towers, ROADMAP queue 1, item
+[7a]), the ``num_classes`` online heads and ``make_siam_network`` (item
+[7b]).
 """
 from __future__ import annotations
 

@@ -1,13 +1,45 @@
 """Operator protocol helpers.
 
 Port of ``neuralsvd_tpu/operators/base.py:7-37`` (``OperatorWrapper``);
-``generator=`` takes the place of JAX's ``key=``.
+``generator=`` takes the place of JAX's ``key=``.  ``DeviceConstant``
+keeps a potential's constant arrays on the input's device.
 ``MatrixOperator`` and ``KernelOperator`` are not ported yet (ROADMAP
 queue 1, item 6).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+class DeviceConstant:
+    """A potential's constant array (``cs``, ``coords``, ``charges``, the
+    electron pairs) with its tensors, one per (dtype, device), each made at
+    its first use and kept on this object, which the potential holds for
+    its lifetime.  A step captured in a CUDA graph, whose eager warm-up
+    made the tensor, then copies nothing from the host (a host-to-device
+    copy cannot be captured).  Callers must not write to the tensors."""
+
+    def __init__(self, a):
+        self.array = np.asarray(a)
+        self._tensors: dict = {}
+
+    def like(self, x: torch.Tensor, dtype=None) -> torch.Tensor:
+        key = (dtype or x.dtype, x.device)
+        t = self._tensors.get(key)
+        if t is None:
+            t = self._tensors[key] = torch.tensor(self.array, dtype=key[0],
+                                                  device=key[1])
+        return t
+
+
+def device_constant(a, like: torch.Tensor, dtype=None) -> torch.Tensor:
+    """``a`` as a tensor of ``dtype`` (default: ``like``'s) on ``like``'s
+    device: the kept tensor of a ``DeviceConstant``, else a new copy of
+    the array (a potential called directly, outside an operator)."""
+    if isinstance(a, DeviceConstant):
+        return a.like(like, dtype)
+    return torch.tensor(np.asarray(a), dtype=dtype or like.dtype, device=like.device)
 
 
 class OperatorWrapper:

@@ -17,7 +17,14 @@ under ``torch.no_grad()`` (forward-mode tangents are still computed there),
 because the EVD loss sends no gradient through Tf (ops/nestedlora.py).
 ``fs`` is computed by a separate model call in the ambient grad mode, as
 ``(√w·f(x)) / clip(√w, 1e-5)`` under importance conjugation, so gradients
-reach the parameters through it.
+reach the parameters through it.  That is right for a function whose rows
+depend on their own inputs only.  A function marked ``batch_coupled``
+(NeuralEF's training model, which divides by the batch L2 norm of its own
+input rows) takes, under finite differences, fs from the stacked call on
+the (2D+1)·B probe rows, with autograd on, as the JAX package does: its
+rows are normalised over all the probe rows, and the backward runs over
+them.  The exact engines need no such care: their fs is the model on the B
+rows in JAX too.
 """
 from __future__ import annotations
 
@@ -54,6 +61,15 @@ def batched_fd_laplacian(f: Callable, xs: torch.Tensor, eps: float,
         grad = torch.movedim((f_plus - f_minus) / (2 * eps), 0, -1)
         return lap, grad, fs
     return lap, 0.0, fs
+
+
+def conjugate(f: Callable, importance: Callable) -> Callable:
+    """g = √w·f, marked ``batch_coupled`` where f is."""
+    def g(x):
+        return torch.sqrt(importance(x)) * f(x)
+
+    g.batch_coupled = getattr(f, "batch_coupled", False)
+    return g
 
 
 def _nested_jvp_laplacian(f: Callable, xs_flat: torch.Tensor):
@@ -137,19 +153,28 @@ class VectorizedLaplacian:
             lap, grads = _nested_jvp_laplacian(f, xs)
         return lap, (torch.movedim(grads, 0, -1) if return_grad else 0.0)
 
+    def _lap_and_fs(self, f, xs, return_grad, generator):
+        """(lap, grad or 0., fs): lap and grad without an autograd graph, fs
+        with one (from the stacked probe call for a ``batch_coupled`` f
+        under finite differences)."""
+        if self.eps > 0 and getattr(f, "batch_coupled", False):
+            lap, grad, fs = batched_fd_laplacian(f, xs, self.eps, return_grad)
+            return lap.detach(), (grad.detach() if return_grad else grad), fs
+        lap, grad = self._lap(f, xs, return_grad, generator)
+        return lap, grad, f(xs)
+
     def __call__(self, f: Callable, xs: torch.Tensor,
                  importance: Optional[Callable] = None,
                  return_grad: bool = False,
                  generator: Optional[torch.Generator] = None):
         xs = xs.reshape(xs.shape[0], -1)
         if importance is None:
-            lap, grad = self._lap(f, xs, return_grad, generator)
-            return lap, grad, f(xs)
-        g = lambda x: torch.sqrt(importance(x)) * f(x)  # noqa: E731
-        lap_g, grad_g = self._lap(g, xs, return_grad, generator)
+            return self._lap_and_fs(f, xs, return_grad, generator)
+        lap_g, grad_g, gs = self._lap_and_fs(conjugate(f, importance), xs,
+                                             return_grad, generator)
         sqrt_ws = torch.clamp(torch.sqrt(importance(xs)), min=1e-5)  # (B, 1)
         lap = lap_g / sqrt_ws
-        fs = g(xs) / sqrt_ws
+        fs = gs / sqrt_ws
         if return_grad:
             return lap, grad_g / sqrt_ws[..., None], fs
         return lap, grad_g, fs

@@ -1,10 +1,11 @@
 """Problem registry: name -> (operator, analytic ground-truth spectrum).
 
-Port of the ``sch`` branch of ``neuralsvd_tpu/operators/problems.py:64-163``
-with every potential: ``infinite_well``, ``harmonic_oscillator``,
+Port of ``neuralsvd_tpu/operators/problems.py:64-163``: the ``sch`` branch
+with every potential (``infinite_well``, ``harmonic_oscillator``,
 ``cosine`` (Han, Lu & Zhou (2020) constants and eigenvalues, copied),
-``hydrogen``, ``hydrogen_mol_ion`` and ``quantum_chemistry``.  The
-Fokker–Planck problem (``fp``) is not ported yet (ROADMAP queue 1, item 8).
+``hydrogen``, ``hydrogen_mol_ion`` and ``quantum_chemistry``) and the
+Fokker–Planck problem ``fp`` in 1, 2, 5 or 10 dimensions (its constants
+``_FP_CS`` copied), scaled by ``scale_operator``.
 """
 from __future__ import annotations
 
@@ -13,7 +14,11 @@ from typing import Optional
 
 import numpy as np
 
-from neuralsvd_tpu_torch.operators.base import OperatorWrapper
+from neuralsvd_tpu_torch.operators.base import DeviceConstant, OperatorWrapper
+from neuralsvd_tpu_torch.operators.fokker_planck import (
+    NegativeLinearFokkerPlanck,
+    sin_of_cos_potential,
+)
 from neuralsvd_tpu_torch.operators.ground_truths import (
     HarmonicOscillator,
     Hydrogen2D,
@@ -51,6 +56,14 @@ _COSINE_5D_CS = [0.162944737278636, 0.181158387415124, 0.025397363258701,
 _COSINE_10D_CS = _COSINE_5D_CS + [0.019508080999882, 0.055699643773410,
                                   0.109376303840997, 0.191501367086860,
                                   0.192977707039855]
+# the Fokker–Planck potential's constants by dimension
+# (neuralsvd_tpu/operators/problems.py:56-61)
+_FP_CS = {
+    1: [1.0],
+    2: [1.0, 1.0],
+    5: [1.0, 0.8, 0.6, 0.4, 0.2],
+    10: [0.1, 0.3, 0.2, 0.5, 0.2, 0.1, 0.3, 0.4, 0.2, 0.2],
+}
 
 
 def get_problem(
@@ -67,17 +80,26 @@ def get_problem(
     laplacian_probes: int = 0,
     operator_scale: float = 1.0,
     operator_shift: float = 0.0,
+    scale_operator: float = 1.0,
 ):
     """Build (operator, ground_truth_spectrum, n_particles).
 
     ``ground_truth_spectrum`` is already transformed by the same affine
     spectral map as the operator (None where there is no closed form).
     """
-    if problem != "sch":
-        raise NotImplementedError(
-            f"problem {problem!r} is not ported yet (ROADMAP queue 1, item 8)")
     ground_truth = None
     n_particles = 1
+    if problem == "fp":
+        if ndim not in _FP_CS:
+            raise ValueError(f"the Fokker–Planck problem has no constants for ndim {ndim}")
+        operator = NegativeLinearFokkerPlanck(
+            local_potential_ftn=partial(sin_of_cos_potential, cs=DeviceConstant(_FP_CS[ndim])),
+            scale=scale_operator, laplacian_eps=laplacian_eps,
+            laplacian_mode=laplacian_mode)
+        return _wrap(operator, np.zeros(neigs), n_particles, operator_scale,
+                     operator_shift)
+    if problem != "sch":
+        raise NotImplementedError(problem)
     scale_kinetic = 1.0
     if potential_type == "infinite_well":
         assert ndim == 2
@@ -100,7 +122,7 @@ def get_problem(
         else:
             cs = _COSINE_10D_CS
             ground_truth = np.asarray([0.098087448866409] + [0.0] * (neigs - 1))
-        pot = partial(cosine_potential, cs=cs)
+        pot = partial(cosine_potential, cs=DeviceConstant(cs))
     elif potential_type == "hydrogen":
         pot = partial(hydrogen_potential, charge=charge)
         if ndim == 2:
@@ -113,8 +135,10 @@ def get_problem(
     elif potential_type == "quantum_chemistry":
         assert ndim in (2, 3)
         mol = Molecule.from_name(mol_name)
-        pot = partial(local_potential_energy, coords=mol.coords[:, :ndim],
-                      charges=mol.charges)
+        pot = partial(local_potential_energy,
+                      coords=DeviceConstant(mol.coords[:, :ndim]),
+                      charges=DeviceConstant(mol.charges),
+                      pairs=DeviceConstant(np.stack(np.triu_indices(mol.n_electrons, k=1))))
         n_particles = mol.n_electrons
         scale_kinetic = 0.5
     else:
@@ -126,8 +150,12 @@ def get_problem(
     # the spectrum eval zeroes T(phi) at x == 0 only for potentials that
     # are singular there
     operator.singular_at_origin = potential_type in ("hydrogen", "quantum_chemistry")
-    operator = OperatorWrapper(operator, scale=operator_scale,
-                               shift=operator_shift)
+    return _wrap(operator, ground_truth, n_particles, operator_scale, operator_shift)
+
+
+def _wrap(operator, ground_truth, n_particles, operator_scale, operator_shift):
+    """The affine spectral map on the operator and on its ground truth."""
+    operator = OperatorWrapper(operator, scale=operator_scale, shift=operator_shift)
     if ground_truth is not None:
         ground_truth = operator_scale * ground_truth + operator_shift
     return operator, ground_truth, n_particles

@@ -6,8 +6,11 @@ cosine and the quantum-chemistry local energy) and ``NegativeHamiltonian``
 (:82-113), whose ``needs_key`` operators (the Hutchinson Laplacian) take
 a ``generator=`` where JAX's take ``key=``.  The potentials are evaluated
 under ``torch.no_grad()`` outside the Laplacian engine; a constant array
-(``cs``, ``coords``, ``charges``) goes to float32 on the input's device,
-as the JAX package's float32 arrays.
+(``cs``, ``coords``, ``charges``, the electron pairs) goes to float32 (the
+pairs to int64) on the input's device, as the JAX package's float32
+arrays; ``get_problem`` hands each as a ``base.DeviceConstant``, which
+makes that tensor once, so that a captured train step copies nothing
+from the host.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from neuralsvd_tpu_torch.operators.base import device_constant
 from neuralsvd_tpu_torch.operators.diff_ops import VectorizedLaplacian
 
 
@@ -43,13 +47,9 @@ def harmonic_oscillator_potential(x, k: float = 1.0):
     return (k * torch.sum(x ** 2, dim=-1)).reshape(-1, 1)
 
 
-def _const(a, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(a), dtype=like.dtype, device=like.device)
-
-
 def cosine_potential(x, cs):
     x = x.reshape(x.shape[0], -1)
-    return torch.sum(torch.cos(x) * _const(cs, x)[None, :], dim=-1).reshape(-1, 1)
+    return torch.sum(torch.cos(x) * device_constant(cs, x)[None, :], dim=-1).reshape(-1, 1)
 
 
 def nuclear_energy(coords, charges):
@@ -68,19 +68,22 @@ def nuclear_potential(rs, coords, charges):
     return -torch.sum(charges / dists, dim=(-1, -2))
 
 
-def electronic_potential(rs):
-    """Σ_{i<j} 1 / |r_i - r_j| over the electrons; (B, n, D) -> (B,)."""
-    i, j = np.triu_indices(rs.shape[-2], k=1)
+def electronic_potential(rs, pairs=None):
+    """Σ_{i<j} 1 / |r_i - r_j| over the electrons; (B, n, D) -> (B,).
+    ``pairs``: the (2, n(n-1)/2) indices i < j (default: made here)."""
+    if pairs is None:
+        pairs = np.stack(np.triu_indices(rs.shape[-2], k=1))
+    i, j = device_constant(pairs, rs, torch.int64)
     dists = torch.linalg.vector_norm(rs[:, i, :] - rs[:, j, :], dim=-1)
     return torch.sum(1.0 / dists, dim=-1)
 
 
-def local_potential_energy(rs, coords, charges):
+def local_potential_energy(rs, coords, charges, pairs=None):
     """The molecule's potential energy at electron positions rs, (B, 1)."""
-    coords, charges = _const(coords, rs), _const(charges, rs)
+    coords, charges = device_constant(coords, rs), device_constant(charges, rs)
     return (nuclear_energy(coords, charges)
             + nuclear_potential(rs, coords, charges)
-            + electronic_potential(rs)).reshape(-1, 1)
+            + electronic_potential(rs, pairs)).reshape(-1, 1)
 
 
 class NegativeHamiltonian:

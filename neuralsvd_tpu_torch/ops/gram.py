@@ -1,6 +1,7 @@
 """Gram/covariance contractions — the O(B·L²) core of every loss.
 
-Port of ``neuralsvd_tpu/ops/gram.py``.  Contractions run in float32; on the
+Port of ``neuralsvd_tpu/ops/gram.py`` (``compute_lambda``, ``compute_gram``,
+``compute_loss_metric``, ``off_diagonal``).  Contractions run in float32; on the
 GPU ``torch.backends.cuda.matmul.allow_tf32`` must stay False (PyTorch's
 default) or eigenvalue estimates degrade the way bf16 grams do on the TPU.
 The ``axis_name`` (data-parallel pmean) argument of the JAX version is not
@@ -11,9 +12,17 @@ from __future__ import annotations
 import torch
 
 
+def compute_gram(f: torch.Tensor, g: torch.Tensor | None = None) -> torch.Tensor:
+    """E[f gᵀ] cross-gram: (B, L[, O]) x (B, L[, O]) -> (L, L); g defaults
+    to f (NeuralEF's coefficients, methods/neuralef.py)."""
+    if g is None:
+        g = f
+    return torch.einsum("bl...,bm...->lm", f, g) / f.shape[0]
+
+
 def compute_lambda(f: torch.Tensor) -> torch.Tensor:
     """E[f fᵀ] gram over the batch: (B, L[, O]) -> (L, L)."""
-    return torch.einsum("bl...,bm...->lm", f, f) / f.shape[0]
+    return compute_gram(f)
 
 
 def compute_loss_metric(f1: torch.Tensor, f2: torch.Tensor,

@@ -12,8 +12,8 @@ operator this is the functional gradient, and the operator application
 never enters the backward graph.
 
 The f1/f2 sample groups MUST be statistically independent.  The SVD loss
-and the data-parallel ``axis_name`` are not ported yet (ROADMAP queue 1,
-items 1 and 14).
+(ROADMAP queue 1, item [8b]) and the data-parallel ``axis_name`` (item
+[9]) are not ported yet.
 """
 from __future__ import annotations
 

@@ -31,7 +31,7 @@ between blocks, on the host, and changes the state in place: the driver
 goes on replaying the same captured graph.
 
 Not ported yet: data parallelism (``mesh``, ROADMAP queue 1, item 9) and
-the SpINx refresh (``spinx_refresh``, item 8); each raises.
+the SpINx refresh (``spinx_refresh``, item [8b]); each raises.
 """
 from __future__ import annotations
 
@@ -377,7 +377,7 @@ def train_operator(
             "data parallelism (mesh) is not ported yet (ROADMAP queue 1, item 9)")
     if spinx_refresh is not None:
         raise NotImplementedError(
-            "SpINx is not ported yet (ROADMAP queue 1, item 8)")
+            "SpINx is not ported yet (ROADMAP queue 1, item 8b)")
     ts = (initial_ts if initial_ts is not None
           else init_train_state(model, optimizer, method))
     device = ts.step.device

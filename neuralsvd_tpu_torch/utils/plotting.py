@@ -7,9 +7,16 @@ would plot, since the card's machine has no matplotlib:
 - ``plot_and_save_spectrum`` -> ``spectrum_<tag>.npz``: each spectrum
   series, |orthogonality| and the ground truth;
 - ``plot_1d_eigfuncs`` -> ``eigfuncs_<tag>.npz``: x sorted and the first
-  ``max_modes`` eigenfunctions in that order;
+  ``max_modes`` eigenfunctions in that order, strided to at most
+  ``MAX_1D_POINTS`` points;
 - ``plot_2d_eigfuncs`` -> ``eigfuncs2d_<tag>.npz``: the first
-  ``max_modes`` eigenfunctions as (side, side) images.
+  ``max_modes`` eigenfunctions as images strided to at most
+  ``MAX_2D_SIDE`` points a side.
+
+The eigenfunction files are float32 and of bounded size, as the JAX
+package's one 150-dpi PNG an eval is: at hydrogen.sh's 1000 x 1000 grid
+and L 36 an eval writes 36 x 250 x 250 values (9 MB), not the full grid
+(144 MB, 7.2 GB over a run's 50 evals).
 """
 from __future__ import annotations
 
@@ -17,6 +24,14 @@ import os
 from typing import Optional
 
 import numpy as np
+
+MAX_2D_SIDE = 256
+MAX_1D_POINTS = 4096
+
+
+def _stride(n: int, most: int) -> int:
+    """The smallest stride that leaves at most ``most`` of ``n`` points."""
+    return -(-n // most)
 
 
 def term_plot_spectrum(spectrum: dict, width: int = 72, height: int = 14):
@@ -67,24 +82,29 @@ def plot_and_save_spectrum(spectrum: dict, orthogonality,
 
 def plot_1d_eigfuncs(x, eigfuncs, log_dir: str, tag: str = "",
                      max_modes: int = 16):
-    """Write ``eigfuncs_<tag>.npz``: x sorted, eigenfunctions in its order."""
+    """Write ``eigfuncs_<tag>.npz``: x sorted, eigenfunctions in its order,
+    every k-th point where there are more than ``MAX_1D_POINTS``."""
     L = min(eigfuncs.shape[1], max_modes)
     order = np.argsort(np.asarray(x).ravel())
+    order = order[::_stride(len(order), MAX_1D_POINTS)]
     os.makedirs(log_dir, exist_ok=True)
     path = os.path.join(log_dir, f"eigfuncs_{tag}.npz")
-    np.savez(path, x=np.asarray(x).ravel()[order],
-             eigfuncs=np.asarray(eigfuncs)[order, :L])
+    np.savez(path, x=np.asarray(x).ravel()[order].astype(np.float32),
+             eigfuncs=np.asarray(eigfuncs)[order, :L].astype(np.float32))
     return path
 
 
 def plot_2d_eigfuncs(eigfuncs, log_dir: str, tag: str = "",
                      max_modes: int = 36):
-    """Write ``eigfuncs2d_<tag>.npz``: (L, side, side) images of the first
-    ``max_modes`` eigenfunctions on the square validation grid."""
+    """Write ``eigfuncs2d_<tag>.npz``: (L, s, s) float32 images of the first
+    ``max_modes`` eigenfunctions on the square validation grid, every k-th
+    grid point along each axis so that s <= ``MAX_2D_SIDE``."""
     eigfuncs = np.asarray(eigfuncs)
     side = int(round(np.sqrt(eigfuncs.shape[0])))
     L = min(eigfuncs.shape[1], max_modes)
-    images = eigfuncs[:side * side, :L].T.reshape(L, side, side)
+    k = _stride(side, MAX_2D_SIDE)
+    images = eigfuncs[:side * side, :L].T.reshape(L, side, side)[:, ::k, ::k]
+    images = images.astype(np.float32)
     os.makedirs(log_dir, exist_ok=True)
     path = os.path.join(log_dir, f"eigfuncs2d_{tag}.npz")
     np.savez(path, images=images)

@@ -10,15 +10,21 @@ are the CDK path's at the Sketchy paper width: f and g of 4096 rows and
 L = 512 + the constant mode = 513 columns (not a multiple of the kernels'
 64-wide tiles, nor of the 4 floats of a 16-byte copy), and a sweep of
 widths on both sides of the tile edges; K2 also at the smoke's five shapes.
-The last tests capture a small E4-style train step in a CUDA graph and hold
-its replays against the same steps run eagerly.
+The last tests capture a small E4-style train step (and a NeuralEF and a
+Fokker–Planck step) in a CUDA graph and hold its replays against the same
+steps run eagerly; Nyström's default device is checked to be the card.
 """
+import math
+
+import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 from neuralsvd_tpu_torch.data.samplers import get_sampler
 from neuralsvd_tpu_torch.methods.nestedlora import NestedLoRA
+from neuralsvd_tpu_torch.methods.neuralef import NeuralEigenfunctions
+from neuralsvd_tpu_torch.methods.nystrom import Nystrom, run_nystrom
 from neuralsvd_tpu_torch.models.wavefunctions import make_wavefunctions
 from neuralsvd_tpu_torch.operators.diff_ops import VectorizedLaplacian
 from neuralsvd_tpu_torch.ops import cuda_gram, forward_laplacian
@@ -356,6 +362,117 @@ def test_replacing_a_state_tensor_after_capture_raises(cuda_device):
         graph(ts, 2 * GRAPH_STEPS)
     torch.cuda.synchronize()
     assert int(ts.step) == 2 * GRAPH_STEPS
+
+
+def _method_setup(device, kind, use_graph):
+    """A NeuralEF step (finite differences at eps 0.1, or the forward
+    engine), the Fokker–Planck recipe's step (sequential NestedLoRA
+    through the kernels, forward engine with return_grad) or a cosine
+    -potential step (its constants on the device) in blocks."""
+    periodic = kind in ("fp", "cosine")
+    model = make_wavefunctions(**dict(GRAPH_MODEL, fourier_append_radial=not periodic,
+                                      fourier_append_envelopes=() if periodic else
+                                      GRAPH_MODEL["fourier_append_envelopes"]),
+                               seed=1, device=device)
+    if kind in ("fp", "cosine"):
+        operator, _, _ = (
+            get_problem(problem="fp", ndim=2, neigs=6, laplacian_eps=-1.0, operator_shift=4.0)
+            if kind == "fp" else
+            get_problem(potential_type="cosine", ndim=2, neigs=6, laplacian_eps=-1.0,
+                        operator_shift=10.0))
+        sampler, importance = get_sampler("uniform", 256, 1, 2, 3.141592653589793,
+                                          device=device)
+        method = NestedLoRA(model, neigs=6, sequential=True)
+        optimizer = build_optimizer("adam", 1e-3, lr_schedule=cosine_annealing(1e-3, 60))
+    else:
+        operator, _, _ = get_problem(problem="sch", potential_type="hydrogen", ndim=2,
+                                     neigs=6, laplacian_eps=0.1 if kind == "fd" else -1.0,
+                                     operator_scale=100.0)
+        sampler, importance = get_sampler("gaussian_mixture", 256, 1, 2,
+                                          (0.5, 2.0, 6.0, 16.0), device=device)
+        method = NeuralEigenfunctions(model, neigs=6, unbiased=True)
+        optimizer = build_optimizer("rmsprop", 1e-4, lr_schedule=cosine_annealing(1e-4, 60))
+    block = make_scanned_train_step(method, operator, optimizer, sampler,
+                                    importance=importance, ema_decay=0.995,
+                                    steps_per_call=GRAPH_STEPS, seed=7,
+                                    use_graph=use_graph)
+    return init_train_state(model, optimizer, method), block
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fd", "forward", "fp", "cosine"],
+                         ids=["neuralef-fd", "neuralef-forward", "fokker-planck", "cosine"])
+def test_method_graph_blocks_match_eager_steps(cuda_device, kind):
+    """Two blocks of replays against the same steps run eagerly, whole
+    state within rtol 1e-5 / atol 1e-6 of the largest entry; NeuralEF's
+    norm EMA (written in place, with its bool ``initialized``) included
+    and moved off its ones."""
+    ts, graph = _method_setup(cuda_device, kind, use_graph=True)
+    start = state_tree(ts)
+    losses = [graph(ts, s)[1]["loss"] for s in (0, GRAPH_STEPS)]
+    torch.cuda.synchronize()
+    assert graph.graph is not None
+    got = state_tree(ts)
+    assert all(torch.isfinite(x).all() for x in losses)
+    if kind in ("fd", "forward"):
+        assert bool(got["method_state"]["initialized"])
+        assert not torch.equal(got["method_state"]["norm_unbiased"], torch.ones(1, 6))
+    ts_e, eager = _method_setup(cuda_device, kind, use_graph=False)
+    load_state_tree(ts_e, start)
+    eager_losses = [eager(ts_e, s)[1]["loss"] for s in (0, GRAPH_STEPS)]
+    _assert_states_close(got, state_tree(ts_e))
+    for a, b in zip(losses, eager_losses):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_versions_at_the_fp_shape(cuda_device):
+    """K1-K3 at the Fokker–Planck recipe's 512 x 7 (halves 256 x 7: 28-byte
+    rows on the 4-byte copy path, fewer columns than one 64-wide tile),
+    sequential masks: within 1e-5 of each plain version's scale."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    f = torch.randn(512, 7, generator=gen, device=cuda_device)
+    Tf = torch.randn(512, 7, generator=gen, device=cuda_device)
+    f1, f2 = torch.chunk(f, 2)
+    vmask, mmask = (torch.as_tensor(m, device=cuda_device) for m in sequential_nesting_masks(7))
+    want = cuda_gram.masked_gram_pair_ref(f1, f2, mmask)
+    _within(cuda_gram.masked_gram_pair(f1, f2, mmask), want,
+            cuda_gram.masked_gram_pair_ref(f1.abs(), f2.abs(), mmask))
+    _within((cuda_gram.weighted_dot(f, Tf, vmask),),
+            (cuda_gram.weighted_dot_ref(f, Tf, vmask),),
+            (cuda_gram.weighted_dot_ref(f.abs(), Tf.abs(), vmask),))
+    mlam1, mlam2 = want[3], want[4]
+    _within(cuda_gram.metric_grads(f1, f2, mlam1, mlam2, 1 / 128, 1 / 128),
+            cuda_gram.metric_grads_ref(f1, f2, mlam1, mlam2, 1 / 128, 1 / 128),
+            cuda_gram.metric_grads_ref(f1.abs(), f2.abs(), mlam1.abs(), mlam2.abs(),
+                                       1 / 128, 1 / 128))
+
+
+def _rank3_kernel(x, y):
+    """k(x, y) = Σ_k λ_k φ_k(x) φ_k(y), φ_k = √2 sin(πkx), on x's device."""
+    lam = torch.tensor([2.0, 1.0, 0.5], device=x.device)
+    k = torch.arange(1, 4, dtype=x.dtype, device=x.device)
+    phi = lambda z: math.sqrt(2.0) * torch.sin(math.pi * k * z.reshape(-1, 1))
+    return (phi(x) * lam) @ phi(y).T
+
+
+@pytest.mark.cuda
+def test_nystrom_runs_on_the_card_by_default(cuda_device):
+    """Numpy samples given to Nyström with no device go to the card, the
+    empirical kernel and the extension run there, and the result equals
+    the CPU run's (eigvals rtol 1e-5; eigenfunctions up to sign, rtol 1e-4,
+    atol 1e-5 of the largest entry)."""
+    rng = np.random.default_rng(5)
+    xs = rng.uniform(0, 1, size=600).astype(np.float32)
+    xval = np.linspace(0, 1, 200).astype(np.float32)
+    ny = Nystrom(_rank3_kernel, xs, dim=3)
+    assert ny.xs.device.type == "cuda" and ny.eigvecs.device.type == "cuda"
+    assert ny(xval).device.type == "cuda"
+    ev, ef, _ = run_nystrom(_rank3_kernel, 3, xs, xval)
+    ev_c, ef_c, _ = run_nystrom(_rank3_kernel, 3, xs, xval, device="cpu")
+    np.testing.assert_allclose(ev, ev_c, rtol=1e-5)
+    signs = np.sign(np.sum(ef * ef_c, axis=0))
+    np.testing.assert_allclose(ef * signs, ef_c, rtol=1e-4, atol=1e-5 * np.abs(ef_c).max())
 
 
 @pytest.mark.cuda

@@ -18,6 +18,7 @@ import torch
 from neuralsvd_tpu.methods import spectrum as jax_spectrum
 from neuralsvd_tpu.training import ewm as jax_ewm
 from neuralsvd_tpu_torch.cli import pde
+from neuralsvd_tpu_torch.data import samplers
 from neuralsvd_tpu_torch.data.samplers import get_sampler
 from neuralsvd_tpu_torch.methods import spectrum
 from neuralsvd_tpu_torch.methods.nestedlora import NestedLoRA
@@ -348,3 +349,30 @@ def test_plot_writers_write_the_arrays(tmp_path):
     with np.load(plotting.plot_1d_eigfuncs(x, ef, str(tmp_path), tag="it3")) as z:
         assert (np.diff(z["x"]) >= 0).all() and z["eigfuncs"].shape == (64, 5)
     assert "RQ" in plotting.term_plot_spectrum({"RQ": [1.0, np.nan, 3.0]})
+
+
+def test_eigenfunction_files_are_bounded(tmp_path):
+    """At hydrogen.sh's grid (lim 50, val_eps 0.1: 1000 x 1000 points) and
+    L 36, an eval's 2D eigenfunction file holds every 4th grid point along
+    each axis, 36 x 250 x 250 float32 values, at most 10 MB; a 1D grid of
+    10⁵ points is cut to at most 4096, in its sorted order; float64 input
+    is written as float32."""
+    data, _, _ = samplers.make_val_grid(2, 50.0, 0.1, 512)
+    n = data.shape[0]
+    assert n == 1000 * 1000
+    rng = np.random.default_rng(0)
+    ef = rng.standard_normal((n, 36), dtype=np.float32)
+    path = plotting.plot_2d_eigfuncs(ef, str(tmp_path), tag="it10000")
+    assert os.path.getsize(path) <= 10 * 2 ** 20
+    with np.load(path) as z:
+        images = z["images"]
+    assert images.shape == (36, 250, 250) and images.dtype == np.float32
+    np.testing.assert_array_equal(images[7], ef[:, 7].reshape(1000, 1000)[::4, ::4])
+    del ef
+    x = rng.uniform(-5, 5, (100_000, 1))
+    ef1 = rng.standard_normal((100_000, 3))
+    with np.load(plotting.plot_1d_eigfuncs(x, ef1, str(tmp_path), tag="it1")) as z:
+        assert z["x"].shape == (4000,) and z["eigfuncs"].shape == (4000, 3)
+        assert z["eigfuncs"].dtype == np.float32 and (np.diff(z["x"]) >= 0).all()
+        order = np.argsort(x.ravel())[::25]
+        np.testing.assert_array_equal(z["eigfuncs"], ef1[order].astype(np.float32))

@@ -41,7 +41,7 @@ KERNEL_RTOL = 1e-5
 # ragged chunks and ragged stages
 CASES = [(33, 1, "joint"), (40, 16, "sequential"), (100, 63, "joint"),
          (70, 64, "sequential"), (50, 65, "joint"), (40, 129, "sequential"),
-         (300, 130, "joint")]
+         (300, 130, "joint"), (256, 7, "sequential")]  # the last: the FP recipe's halves
 
 
 def _emulated_source() -> str:
@@ -199,7 +199,8 @@ def test_emulated_kernels_take_4_byte_copies_of_misaligned_rows(emulated):
 # the CDK pair (4096 x 513: 17 chunks, 248 slots, ~4 rounds), at a
 # fraction of its 527 blocks
 K2_CASES = [(512, 16, None), (96, 5, None), (33, 1, None), (70, 128, None), (40, 129, None),
-            (200, 129, None), (100, 512, None), (64, 513, 5), (300, 512, 3), (2000, 129, 7)]
+            (200, 129, None), (100, 512, None), (64, 513, 5), (300, 512, 3), (2000, 129, 7),
+            (512, 7, None)]
 
 
 @pytest.mark.parametrize("reverse", [False, True])

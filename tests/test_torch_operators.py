@@ -156,10 +156,11 @@ def test_tf_carries_no_gradient_and_fs_does(carried):
 
 
 # ids as when the forward engine and the Hutchinson probes were the first
-# two cases; kw2, the cosine potential, is ported now and matches JAX
+# two cases; kw2, the cosine potential, and kw3, the Fokker–Planck
+# problem, are ported now and match JAX
 @pytest.mark.parametrize("kw,ported", [
     (dict(potential_type="cosine", laplacian_mode="jvp"), True),
-    (dict(problem="fp"), False),
+    (dict(problem="fp"), True),
 ], ids=["kw2", "kw3"])
 def test_unported_operator_options_raise(carried, kw, ported):
     """An unported problem raises, naming its ROADMAP item; a ported one
