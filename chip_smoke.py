@@ -40,7 +40,8 @@ seconds:
               with laplacian_probes=2, every loss finite;
 6. cdk_loss   the CDK loss at the paper's width (B 4096, L 512 + the
               constant mode) on the towers' outputs: kernel packaging vs
-              plain loss, with and without batch weights, ratios included;
+              plain loss, with and without batch weights, ratios included,
+              and the CUDA-event ms of each one's forward + backward;
               the towers on the GPU vs a CPU copy on a small batch;
 7. pde_cli    the PDE entry point (neuralsvd_tpu_torch.cli.pde.main) on the
               E4 flags (PDE_E4_ARGV) for PDE_ITERS steps in graph blocks of
@@ -92,7 +93,23 @@ seconds:
               steps/s and eval seconds; Nyström (an RBF kernel on 2000
               points of the FP domain, numpy samples and no device) runs
               on the card and equals the CPU run;
-10. cdk_train the Sketchy CDK trainer (cli/sketchy.py::run_training) at the
+10. pde_spin  SpIN and SpINx on hydrogen.sh (its args=( ... ) list with
+              --loss spin, then spinx: L 36, 10.67M parameters, B 512,
+              finite differences at eps 0.01, --rescue true, --spin.decay
+              0.01) through the PDE entry point in graph blocks of
+              RECIPE_BLOCK with two evals, the first inside the rescue's
+              window: every loss finite, no skipped step, no gram kernel
+              launched, one capture; SpIN's compact j_avg of 36·P·4 bytes
+              and the peak device memory; SpINx's weights refreshed off
+              their ones; each checkpoint's bytes and write seconds; one
+              block as a graph against the same block as eager steps; one
+              loss_and_grad on the card against a CPU copy (float64, 64
+              rows: loss, grads and the new state); SpIN's compact j_avg
+              against the dense one on the card at hydrogen.sh's widths
+              with L 4; and where a SpIN step's time goes (the device time
+              of its three profiler ranges over eager steps, and the busy
+              share of a replayed block);
+11. cdk_train the Sketchy CDK trainer (cli/sketchy.py::run_training) at the
               paper's width (512-8192-512 lrelu0.2 towers, L 512, B 4096,
               SGD momentum 0.9, lr 5e-3 warmup-cosine, grad clip 1.0, joint
               nesting) on synthetic class-correlated 512-d features, two
@@ -135,6 +152,8 @@ from neuralsvd_tpu_torch.data.samplers import get_sampler
 from neuralsvd_tpu_torch.data.sketchy import ArrayPairLoader
 from neuralsvd_tpu_torch.methods.nestedlora import NestedLoRA
 from neuralsvd_tpu_torch.methods.nystrom import Nystrom, run_nystrom
+from neuralsvd_tpu_torch.methods.spin import PROFILE_RANGES as SPIN_PARTS
+from neuralsvd_tpu_torch.methods.spin import SpIN
 from neuralsvd_tpu_torch.methods.spectrum import compute_spectrum_evd
 from neuralsvd_tpu_torch.models.mlp import parse_dims
 from neuralsvd_tpu_torch.models.wavefunctions import make_wavefunctions
@@ -164,6 +183,7 @@ from neuralsvd_tpu_torch.training.train_operator import (
     make_train_step,
 )
 from neuralsvd_tpu_torch.training.train_state import (
+    clone_tree,
     init_train_state,
     load_state_tree,
     state_tree,
@@ -283,6 +303,19 @@ FP_TRACED = (RECIPE_BLOCK, RECIPE_BLOCK)
 # the same call on the CPU; eigvals rtol NY_RTOL, eigenfunctions up to sign
 # within NY_RTOL of the largest entry (f32 rounding: ~4e-7 against float64)
 NY_TRAIN, NY_VAL, NY_RTOL = 2000, 1000, 1e-5
+
+# SpIN and SpINx on hydrogen.sh: the same list with --loss spin|spinx (the
+# script takes the loss as $1; --spin.decay stays at its default 0.01);
+# only steps and evals are cut (SPIN_ITERS of 500000, an eval every
+# SPIN_EVAL, the first inside the rescue's window of 0.7 x SPIN_ITERS), in
+# graph blocks of RECIPE_BLOCK
+SPIN_ITERS, SPIN_EVAL = 500, 250
+SPIN_CPU_ROWS = 64  # the card vs CPU check of one loss_and_grad, float64
+SPIN_CPU_RTOL = 1e-4
+SPIN_SMALL_L = 4  # compact vs dense j_avg on the card at hydrogen.sh's widths
+SPIN_DENSE_RTOL = 1e-4
+SPIN_EAGER_PROFILED, SPIN_REPLAYED = 5, 20  # steps traced for a step's parts
+TOP_KERNELS = 12  # a profiled replayed block lists its costliest kernels
 
 # CDK: the Sketchy paper's configuration (scripts/exps/sketchy.sh:15-36) on
 # synthetic features; joint nesting (the script's intent, see ROADMAP §3)
@@ -835,25 +868,26 @@ def _pde_setup(ts_tree, steps_per_call, use_graph, laplacian_probes=0):
     return ts, block
 
 
-def _state_excess(got, want):
+def _state_excess(got, want, rtol=PDE_STATE_RTOL, atol=PDE_STATE_ATOL):
     """Largest |got - want| over (rtol·|want| + atol·max|want|), leaf by leaf,
     and whether every leaf is equal bit for bit."""
     if isinstance(want, torch.Tensor):
         if not want.is_floating_point():
             return (0.0 if torch.equal(got, want) else float("inf")), torch.equal(got, want)
-        return _excess(got, want, PDE_STATE_RTOL, PDE_STATE_ATOL), torch.equal(got, want)
+        return _excess(got, want, rtol, atol), torch.equal(got, want)
     items = (zip(got, want) if isinstance(want, (list, tuple))
              else ((got[k], want[k]) for k in want))
     worst, same = 0.0, True
     for a, b in items:
-        e, eq = _state_excess(a, b)
+        e, eq = _state_excess(a, b, rtol, atol)
         worst, same = max(worst, e), same and eq
     return worst, same
 
 
-def _profile_block(block, ts, start):
+def _profile_block(block, ts, start, gram_per_step=1):
     """One replayed block under torch.profiler: device busy share, kernels
-    and device ms a step, and each gram kernel's launches a step."""
+    and device ms a step, and each gram kernel's launches a step (checked
+    to be ``gram_per_step``)."""
     from torch.profiler import ProfilerActivity, profile
 
     block(ts, start)  # captures
@@ -877,13 +911,16 @@ def _profile_block(block, ts, start):
     device_us_total = sum(device_us(e) for e in kernels)
     per_step = {k: sum(e.count for e in kernels if k in e.key) / n
                 for k in GRAM_KERNELS.values()}
-    check(all(v == 1 for v in per_step.values()),
+    top = sorted(kernels, key=device_us, reverse=True)[:TOP_KERNELS]
+    check(all(v == gram_per_step for v in per_step.values()),
           f"gram kernels a step in a replayed block: {per_step}")
     return {"steps": n, "wall_ms_per_step": wall_s / n * 1e3,
             "device_ms_per_step": device_us_total / n / 1e3,
             "device_busy_share": device_us_total / 1e6 / wall_s,
             "kernels_per_step": sum(e.count for e in kernels) / n,
-            "gram_kernels_per_step": per_step}
+            "gram_kernels_per_step": per_step,
+            "top_kernels": [{"name": e.key[:100], "ms_per_step": device_us(e) / n / 1e3,
+                             "per_step": e.count / n} for e in top]}
 
 
 def phase_pde_cli():
@@ -1357,6 +1394,207 @@ def phase_pde_methods():
     return {"fp": fp["launches"]}
 
 
+def _to(tree, device, dtype):
+    """A nest of dicts of tensors on ``device``, floating ones in ``dtype``."""
+    if isinstance(tree, dict):
+        return {k: _to(v, device, dtype) for k, v in tree.items()}
+    return tree.to(device, dtype if tree.is_floating_point() else tree.dtype)
+
+
+def _spin_card_vs_cpu(cfg, ts):
+    """One loss_and_grad of the run's method at the trained state on
+    SPIN_CPU_ROWS rows, on the card and on a CPU copy, model, operator and
+    state in float64 (finite differences at eps 0.01 leave two float32
+    evaluations ~1e-3 apart): loss, grads and the new state at rtol
+    SPIN_CPU_RTOL, atol 1e-6 of each tensor's largest entry."""
+    out = {}
+    for dev in (DEVICE, "cpu"):  # the batch is drawn on the card
+        run = pde.build(cfg, dev)
+        if dev == DEVICE:
+            x = run.sample(torch.Generator(device=DEVICE).manual_seed(SEED + 5))
+            x = x[:SPIN_CPU_ROWS].double()
+        run.model.double()
+        params = dict(run.model.named_parameters())
+        with torch.no_grad():
+            for k, p in params.items():
+                p.copy_(ts.params[k])
+        loss, grads, _, state = run.method.loss_and_grad(
+            params, _to(ts.method_state, dev, torch.float64), x.to(dev), run.operator,
+            run.importance_train)
+        out[dev] = (loss.item(), clone_tree(grads, "cpu"), clone_tree(state, "cpu"))
+        del run, params, grads, state
+    (loss_g, grads_g, state_g), (loss_c, grads_c, state_c) = out[DEVICE], out["cpu"]
+    loss_rel = abs(loss_g / loss_c - 1)
+    check(loss_rel <= SPIN_CPU_RTOL, f"{cfg.loss.name} card vs CPU loss: rel {loss_rel:.3g}")
+    grad_excess, _ = _state_excess(grads_g, grads_c, SPIN_CPU_RTOL, GRAD_ATOL)
+    state_excess, _ = _state_excess(state_g, state_c, SPIN_CPU_RTOL, GRAD_ATOL)
+    check(grad_excess <= 1.0 and state_excess <= 1.0,
+          f"{cfg.loss.name} card vs CPU: grads {grad_excess:.3g}x, state "
+          f"{state_excess:.3g}x the tolerance")
+    return {"rows": SPIN_CPU_ROWS, "loss_rel": loss_rel, "grad_tol_used": grad_excess,
+            "state_tol_used": state_excess}
+
+
+def _spin_compact_vs_dense(argv):
+    """SpIN at hydrogen.sh's widths with L SPIN_SMALL_L on the card: the
+    compact j_avg (L passes) against the dense one (L² one-hot passes) over
+    two steps on the same batches: grads and the diagonal blocks at rtol
+    SPIN_DENSE_RTOL, atol 1e-6 of the largest entry; the blocks off the
+    diagonal exactly zero."""
+    cfg = parse_pde_config(_with_flags(argv, neigs=SPIN_SMALL_L) + ["--device", DEVICE])
+    run = pde.build(cfg)
+    compact = run.method
+    dense = SpIN(run.model, SPIN_SMALL_L, decay=cfg.loss.spin.decay)
+    dense.per_mode = frozenset()
+    params = dict(run.model.named_parameters())
+    check(compact.per_mode == set(params), f"per-mode leaves {sorted(compact.per_mode)}")
+    states = [m.init_state(params) for m in (compact, dense)]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
+    for _ in range(2):
+        x = run.sample(gen)
+        grads = [m.loss_and_grad(params, st, x, run.operator, run.importance_train)[1]
+                 for m, st in zip((compact, dense), states)]
+    torch.cuda.synchronize()
+    grad_excess, _ = _state_excess(grads[0], grads[1], SPIN_DENSE_RTOL, GRAD_ATOL)
+    off = ~torch.eye(SPIN_SMALL_L, dtype=torch.bool, device=DEVICE)
+    diag = {k: torch.diagonal(j, dim1=1, dim2=2).movedim(-1, 1)
+            for k, j in states[1]["j_avg"].items()}
+    check(not any(j[:, off].any().item() for j in states[1]["j_avg"].values()),
+          "dense j_avg: a block off the diagonal is not zero")
+    j_excess, _ = _state_excess(states[0]["j_avg"], diag, SPIN_DENSE_RTOL, GRAD_ATOL)
+    check(grad_excess <= 1.0 and j_excess <= 1.0,
+          f"compact vs dense: grads {grad_excess:.3g}x, j_avg {j_excess:.3g}x the tolerance")
+    return {"L": SPIN_SMALL_L, "compact_bytes": compact.state_bytes(params),
+            "dense_bytes": dense.state_bytes(params), "grad_tol_used": grad_excess,
+            "j_avg_tol_used": j_excess}
+
+
+def _range_device_ms(trace_path, names, steps):
+    """Device ms a step of the kernels, copies and fills launched inside
+    each profiler range of ``names`` (by the host time of their launch,
+    which finds the backward's kernels too: the autograd engine launches
+    them from its own thread while the range's thread waits), and of all
+    of them, from a chrome trace of ``steps`` eager steps."""
+    with open(trace_path) as fh:
+        events = json.load(fh)["traceEvents"]
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    ranges = [(e["name"], e["ts"], e["ts"] + e["dur"]) for e in events
+              if e.get("cat") == "user_annotation" and e.get("name") in names]
+    out = dict.fromkeys(names, 0.0)
+    for e in device:
+        t = launched.get(e.get("args", {}).get("correlation"))
+        for name, t0, t1 in ranges:
+            if t is not None and t0 <= t <= t1:
+                out[name] += e["dur"]
+                break
+    total = sum(e["dur"] for e in device)
+    return {k: v / steps / 1e3 for k, v in out.items()}, total / steps / 1e3
+
+
+def _spin_step_parts(cfg, trained, start):
+    """Where a SpIN step's time goes: the device ms of each of its profiler
+    ranges (SPIN_PARTS) a step over SPIN_EAGER_PROFILED eager steps, and a
+    replayed block of SPIN_REPLAYED steps under the profiler (device busy
+    share, device ms, kernels a step and the costliest kernels), from the
+    trained state."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run = pde.build(cfg)
+    block = make_scanned_train_step(
+        run.method, run.operator, run.optimizer, run.sample,
+        importance=run.importance_train, ema_decay=cfg.ema_decay,
+        steps_per_call=SPIN_REPLAYED, grad_clip=cfg.grad_clip, seed=cfg.seed)
+    ts = init_train_state(run.model, run.optimizer, run.method)
+    load_state_tree(ts, trained)
+    block.begin_block(DEVICE, start)
+    block.eager_step(ts)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
+        for i in range(SPIN_EAGER_PROFILED):
+            block.begin_block(DEVICE, start + 1 + i)  # rewinds the traces
+            block.eager_step(ts)
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        parts, eager_ms = _range_device_ms(path, SPIN_PARTS, SPIN_EAGER_PROFILED)
+    check(all(v > 0 for v in parts.values()), f"SpIN step parts without device time: {parts}")
+    return {"eager_device_ms_per_step": parts, "eager_total_device_ms_per_step": eager_ms,
+            "replayed": _profile_block(block, ts, start + 1, gram_per_step=0)}
+
+
+def _spin_hydrogen(tmp, loss):
+    """hydrogen.sh with --loss spin|spinx: graph blocks, two evals (the
+    rescue's window includes the first), the method state, the checkpoint,
+    graph vs eager, card vs CPU; for SpIN also where a step's time goes."""
+    argv = _recipe_argv(_with_flags(HYDROGEN_ARGV, loss=loss), SPIN_ITERS, SPIN_EVAL)
+    cfg = parse_pde_config(argv + ["--device", DEVICE])
+    check(cfg.loss.name == loss and cfg.loss.spin.decay == 0.01 and cfg.rescue
+          and cfg.laplacian_eps == 0.01 and cfg.neigs == HYDROGEN_L, f"{loss} flags {cfg}")
+    timings = {}
+    cuda_gram.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ts, eigvals, run_dir, records = _pde_run(argv, os.path.join(tmp, loss), timings)
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts = cuda_gram.launch_counts()
+    check(not any(counts.values()), f"{loss} launched gram kernels: {counts}")
+    evals = list(range(SPIN_EVAL, SPIN_ITERS + 1, SPIN_EVAL))
+    rows, health = _check_run(loss, ts, eigvals, run_dir, records, SPIN_ITERS, evals,
+                              neigs=HYDROGEN_L)
+    check([n for n, _ in timings.get("block_graph", [])]
+          == [RECIPE_BLOCK] * (SPIN_ITERS // RECIPE_BLOCK) and "block_eager" not in timings,
+          f"{loss} blocks {timings}")
+    captures = _records_of(records, "captured a CUDA graph")
+    check(len(captures) == 1, f"{len(captures)} captures in the {loss} run")
+    n_params = sum(p.numel() for p in ts.params.values())
+    state = ts.method_state
+    out = {"argv": argv, "iters": SPIN_ITERS, "evals": evals, "run_s": run_s, "rows": rows,
+           "eigvals": np.asarray(eigvals[-1]).tolist(), "health": health,
+           "rescues": [r.getMessage() for r in _records_of(records, "it%d rescue: exiled")],
+           "gram_kernel_launches": counts, "params": n_params, "peak_mem_bytes": peak,
+           "eval_s": timings["eval"], "block_s": timings["block_graph"],
+           "graph_block_steps_per_s": _block_rate(timings, "block_graph"),
+           "checkpoint_bytes": os.path.getsize(os.path.join(run_dir, f"ckpt_{SPIN_ITERS}")),
+           "checkpoint_s": timings["checkpoint"]}
+    check(all(torch.isfinite(v).all().item() for v in (state["sigma_avg"], state["chol"])),
+          f"{loss} state not finite")
+    if loss == "spin":
+        j_bytes = sum(j.numel() * j.element_size() for j in state["j_avg"].values())
+        check(j_bytes == HYDROGEN_L * n_params * 4, f"j_avg holds {j_bytes} bytes")
+        check(all(torch.isfinite(j).all().item() for j in state["j_avg"].values()),
+              "j_avg not finite")
+        out.update(j_avg_bytes=j_bytes, dense_j_avg_bytes=HYDROGEN_L ** 2 * n_params * 4)
+    else:
+        w = state["weights"]
+        check(torch.isfinite(w).all().item() and not (w == 1).all().item(),
+              f"SpINx weights {w}")
+        out.update(weights=[w.min().item(), w.max().item()],
+                   refresh_s=timings["spinx_refresh"])
+    trained = state_tree(ts)
+    out["graph_vs_eager"] = _graph_vs_eager(cfg, trained, SPIN_ITERS)
+    out["card_vs_cpu"] = _spin_card_vs_cpu(cfg, ts)
+    if loss == "spin":
+        out["step_parts"] = _spin_step_parts(cfg, trained, SPIN_ITERS)
+    return out
+
+
+def phase_pde_spin():
+    """SpIN and SpINx on hydrogen.sh through the PDE entry point, and the
+    compact j_avg against the dense one."""
+    with tempfile.TemporaryDirectory() as tmp:
+        spin = _spin_hydrogen(tmp, "spin")
+        spinx = _spin_hydrogen(tmp, "spinx")
+    emit("pde_spin", block=RECIPE_BLOCK, spin=spin, spinx=spinx,
+         compact_vs_dense=_spin_compact_vs_dense(_with_flags(HYDROGEN_ARGV, loss="spin")))
+
+
 def _cdk_data():
     """Synthetic class-correlated 512-d features, made in bulk from SEED
     (the recipe of tests/test_cdk_retrieval.py:63-77): per-class centres
@@ -1411,6 +1649,14 @@ def phase_cdk_loss(train):
             rel[name] = ((got - want).abs().max() / want.abs().max()).item()
             check(rel[name] <= LOSS_RTOL, f"cdk {label} {name}: rel {rel[name]:.3g}")
         rel["grad_tol_used"] = _check_grads(grads[0], grads[1])
+
+        def fwd_bwd(fn):
+            a, b = fx.detach().requires_grad_(), gy.detach().requires_grad_()
+            return torch.autograd.grad(fn(True, a, b, vmask, mmask, bw)[0], [a, b])
+
+        # forward + backward, CUDA events, as _packaging_row times the EVD one
+        rel["ms"] = time_ms(lambda: fwd_bwd(nestedlora_cdk_loss_kernels))
+        rel["plain_ms"] = time_ms(lambda: fwd_bwd(nestedlora_cdk_loss))
         results[label] = rel
     # the towers on the GPU vs a CPU copy of the same parameters, 64 rows
     cpu_model = copy.deepcopy(tr.model).cpu()
@@ -1504,6 +1750,7 @@ def main():
     pde_launches = phase_pde_cli()
     recipe_launches = phase_pde_recipes()
     method_launches = phase_pde_methods()
+    phase_pde_spin()
     measured = {"pde_cli": pde_launches, **recipe_launches, **method_launches}
     counts = {"e4": e4_counts,
               **{path: {k: v["launches"] for k, v in m.items()} for path, m in measured.items()}}

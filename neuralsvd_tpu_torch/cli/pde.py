@@ -9,13 +9,16 @@ after every eval, ``--resume`` from the latest checkpoint, and
 ``stats.npz`` at the end.
 
 The flags are the JAX CLI's (utils/config.py) plus ``--device`` (default:
-the GPU); ``--loss neuralsvd|nestedlora|neuralef``, every potential of
-``--problem sch``, the Fokker–Planck problem ``--problem fp``, the
+the GPU); every ``--loss`` (neuralsvd, nestedlora, neuralef, spin and
+spinx, whose NTK weights are refreshed after each eval), every potential
+of ``--problem sch``, the Fokker–Planck problem ``--problem fp``, the
 exponential mask and ``--rescue true`` (the mode rescue at evals) run.
-Refused before any training, each naming its ROADMAP item: ``--loss
-spin|spinx`` (queue 1, item 8b), ``--mesh`` (item 9),
-``--matmul_precision`` (item 10).  As in the JAX CLI,
-``--weight_normalization`` reaches no model.
+Refused before any training, each naming its ROADMAP item: ``--mesh``
+(queue 1, item 9), ``--matmul_precision`` (item 10), and ``--loss
+spin|spinx`` on the forward-Laplacian engine or with Hutchinson probes
+(item 8c: SpIN and SpINx differentiate through Tφ, and those have no
+backward yet).  As in the JAX CLI, ``--weight_normalization`` reaches no
+model.
 """
 from __future__ import annotations
 
@@ -63,9 +66,14 @@ log = logging.getLogger("neuralsvd_tpu_torch.pde")
 
 def check_ported(cfg: PDEConfig) -> None:
     """Raise NotImplementedError for a configuration the port cannot run."""
-    if cfg.loss.name in ("spin", "spinx"):
+    if cfg.loss.name in ("spin", "spinx") and (
+            cfg.laplacian_probes > 0
+            or (cfg.laplacian_eps <= 0 and cfg.laplacian_mode == "forward")):
         raise NotImplementedError(
-            f"--loss {cfg.loss.name} is not ported yet (ROADMAP queue 1, item 8b)")
+            f"--loss {cfg.loss.name} differentiates through Tφ, and the "
+            "forward-Laplacian engine and the Hutchinson estimator have no backward "
+            "yet (ROADMAP queue 1, item 8c): use --laplacian_eps > 0 or "
+            "--laplacian_mode jvp, without --laplacian_probes")
     if cfg.mesh:
         raise NotImplementedError(
             "--mesh (data parallelism) is not ported yet (ROADMAP queue 1, item 9)")
@@ -129,8 +137,8 @@ def build(cfg: PDEConfig, dev=None) -> SimpleNamespace:
             cfg.batch_size, seed=cfg.seed + 777, sampling_weights=weights,
             device=dev)
 
-    method_opts = (cfg.loss.neuralef if cfg.loss.name == "neuralef"
-                   else cfg.loss.neuralsvd)
+    method_opts = {"neuralef": cfg.loss.neuralef, "spin": cfg.loss.spin,
+                   "spinx": cfg.loss.spin}.get(cfg.loss.name, cfg.loss.neuralsvd)
     method = get_evd_method(cfg.loss.name, model, cfg.neigs, sort=cfg.sort,
                             **vars(method_opts))
 
@@ -206,6 +214,15 @@ def main(cfg: PDEConfig, timings=None, use_graph: bool = True):
             plot_2d_eigfuncs(outputs["eigfuncs"], log_dir, tag=f"it{it}")
         save_checkpoint(os.path.join(log_dir, f"ckpt_{it}"), state_tree(ts))
 
+    spinx_refresh = None
+    if cfg.loss.name == "spinx":
+        def spinx_refresh(ts, generator):
+            """SpINx's NTK weights from one batch drawn from ``generator``."""
+            x = run.sample(generator)
+            method.refresh_weights(ts.params, ts.method_state,
+                                   x.reshape(x.shape[0], -1), run.operator,
+                                   run.importance_train)
+
     # --resume: restart from the latest ckpt_<it>; the generators are seeded
     # from the absolute iteration, so sampling continues exactly
     initial_ts, start_iter = None, 0
@@ -227,6 +244,7 @@ def main(cfg: PDEConfig, timings=None, use_graph: bool = True):
             print_freq=cfg.print_freq, log_writer=logger,
             seed=cfg.seed, monitor=cfg.print_local_energies,
             post_align=cfg.post_align, checkpoint_fn=checkpoint_fn,
+            spinx_refresh=spinx_refresh,
             profile_dir=(os.path.join(log_dir, "profile") if cfg.profile
                          else None),
             profile_start=cfg.profile_start, profile_steps=cfg.profile_steps,

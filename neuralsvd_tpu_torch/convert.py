@@ -11,9 +11,11 @@ two-tower tree ``{"x": {"layers": [{"w": (in, out), "b": (out,)}, ...]},
 "y": ...}`` onto that of ``models.two_tower.HeteroNetwork`` (the same
 (in, out) layout, so no transpose); ``method_state_from_jax`` carries a
 method's state (NeuralEF's ``norm_biased``, ``norm_unbiased`` (1, L) and
-the bool ``initialized``).  Leaves are already numpy arrays; so both
-packages compute the same function in the tests.  Nothing here imports
-JAX.
+the bool ``initialized``; SpIN's ``sigma_avg``, ``chol`` and the nested
+``j_avg``, flattened to the port's parameter names, per-mode leaves in
+the compact layout of ``methods/spin.py``; SpINx's ``weights``).  Leaves
+are already numpy arrays; so both packages compute the same function in
+the tests.  Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -68,11 +70,44 @@ def hetero_params_from_jax(tree) -> Dict[str, torch.Tensor]:
     return out
 
 
-def method_state_from_jax(state) -> Dict[str, torch.Tensor]:
+def _named_leaves(tree, prefix=""):
+    """(dotted name, leaf) of a nest of dicts and lists: the port's
+    parameter names for a JAX parameter tree."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named_leaves(v, f"{prefix}{k}.")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _named_leaves(v, f"{prefix}{i}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def _compact_j(name, dense: np.ndarray) -> np.ndarray:
+    """(L, L, L, *rest) -> its diagonal blocks (L, L, *rest), [m, s] =
+    dense[m, s, s]; raises where a block off the diagonal is nonzero."""
+    L = dense.shape[0]
+    off = ~np.eye(L, dtype=bool)
+    if np.any(dense[:, off]):
+        raise ValueError(f"j_avg[{name}] has nonzero blocks off the diagonal: "
+                         "it is not a per-mode parameter")
+    return np.moveaxis(np.diagonal(dense, axis1=1, axis2=2), -1, 1)
+
+
+def method_state_from_jax(state, per_mode=(), dtype=torch.float32) -> Dict[str, torch.Tensor]:
     """A method state of numpy leaves -> {name: tensor}: bool leaves stay
-    bool, the rest become float32 ({} stays {})."""
+    bool, the rest become ``dtype`` ({} stays {}).  SpIN's ``j_avg`` becomes
+    {parameter name: tensor}, the names in ``per_mode`` (the model's
+    ``per_mode_parameters()``) compact."""
+    def tensor(a):
+        a = np.asarray(a)
+        return torch.tensor(a) if a.dtype == np.bool_ else torch.tensor(a, dtype=dtype)
+
     out = {}
     for name, leaf in state.items():
-        a = np.asarray(leaf)
-        out[name] = torch.tensor(a if a.dtype == np.bool_ else a.astype(np.float32))
+        if name == "j_avg":
+            out[name] = {k: tensor(_compact_j(k, np.asarray(j)) if k in per_mode else j)
+                         for k, j in _named_leaves(leaf)}
+        else:
+            out[name] = tensor(leaf)
     return out

@@ -1,9 +1,8 @@
 """Method factories.
 
-Port of ``neuralsvd_tpu/methods/factories.py``: the NestedLoRA and
-NeuralEF branches of ``get_evd_method`` (:13-32) and ``get_cdk_method``
-(:40).  SpIN and SpINx are not ported yet (ROADMAP queue 1, item [8b]);
-the data-parallel ``axis_name`` waits for item [9].
+Port of ``neuralsvd_tpu/methods/factories.py``: ``get_evd_method``
+(:13-37: NestedLoRA, NeuralEF, SpIN and SpINx) and ``get_cdk_method``
+(:40).  The data-parallel ``axis_name`` waits for item [9].
 """
 from __future__ import annotations
 
@@ -11,13 +10,16 @@ from torch import nn
 
 from neuralsvd_tpu_torch.methods.nestedlora import NestedLoRA, NestedLoRAForCDK
 from neuralsvd_tpu_torch.methods.neuralef import NeuralEigenfunctions
+from neuralsvd_tpu_torch.methods.spin import SpIN
+from neuralsvd_tpu_torch.methods.spinx import SpINx
 
 
 def get_evd_method(method_name: str, model: nn.Module, neigs: int,
                    sort: bool = False, **opts):
     """name -> method instance; options mirror the reference's namespaced
     flags (--neuralsvd.step, --neuralsvd.sequential, --use_pallas,
-    --neuralef.batchnorm_mode, --neuralef.unbiased, --neuralef.include_diag)."""
+    --neuralef.batchnorm_mode, --neuralef.unbiased, --neuralef.include_diag,
+    --spin.decay)."""
     if method_name in ("neuralsvd", "nestedlora"):
         return NestedLoRA(model, neigs, step=opts.get("step", 1),
                           sequential=opts.get("sequential", False), sort=sort,
@@ -27,9 +29,10 @@ def get_evd_method(method_name: str, model: nn.Module, neigs: int,
             model, neigs, batchnorm_mode=opts.get("batchnorm_mode", "unbiased"),
             unbiased=opts.get("unbiased", False),
             include_diag=opts.get("include_diag", False), sort=sort)
-    if method_name in ("spin", "spinx"):
-        raise NotImplementedError(
-            f"{method_name} is not ported yet (ROADMAP queue 1, item 8b)")
+    if method_name == "spin":
+        return SpIN(model, neigs, decay=opts.get("decay", 0.01))
+    if method_name == "spinx":
+        return SpINx(model, neigs, decay=opts.get("decay", 0.01))
     raise NotImplementedError(method_name)
 
 

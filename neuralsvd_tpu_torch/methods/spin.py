@@ -1,0 +1,202 @@
+"""SpIN (Spectral Inference Networks): the dual-channel masked gradient.
+
+Port of ``neuralsvd_tpu/methods/spin.py``: ``spin_step`` (:32-39),
+``spin_grad_matrices`` (:42-53) and ``SpIN`` (:56-179).  The gradient is
+the sum of two channels:
+
+- π: the VJP of (Tφ, φ) with the reference's deliberately swapped pair of
+  cotangents (φ·gπ/B for Tφ, Tφ·gπ/B for φ; :99-105), so the operator is
+  called with ``with_graph=True`` (finite differences or nested JVPs);
+- σ: an EMA ``j_avg`` of the Jacobian j[m, l] = 2/B Σ_b φ[b,m] ∂φ[b,l]/∂θ
+  (:107-115), contracted with gσ (:118-119).
+
+``j_avg`` is stored per parameter in one of two layouts of the same
+numbers.  JAX's dense (L, L, *shape), filled by L² reverse passes, for a
+parameter shared by the modes (the shared trunk).  For a parameter whose
+slot l feeds output l only (the model's ``per_mode_parameters()``: the
+ParallelMLP stacks and the exponential mask's scales) every block with
+l ≠ slot is exactly zero, so the port keeps the diagonal blocks, (L,
+*shape) with entry [m, s] = dense[m, s, s], and fills them with L reverse
+passes: pass m sends 2/B φ[:, m] into every output column.  At the
+hydrogen.sh width (L 36, 10.67M parameters) that is 1.54 GB where the
+dense form needs 55.3 GB.
+
+The state (``sigma_avg``, ``chol``, ``j_avg``) is updated in place, also
+on a step the driver then skips, as JAX keeps it, and returned as the same
+tensors: a captured step writes it on every replay without a copy.  The
+Cholesky factor is NaN where its matrix is not positive definite, as
+``jnp.linalg.cholesky`` returns, without a host read.  Not ported yet: the
+kernel-operator path (``loss_and_grad_kernel``, ROADMAP queue 1, item 6)
+and the data-parallel ``axis_name`` (item 9).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+from torch.func import functional_call
+from torch.profiler import record_function
+
+JITTER = 1e-3
+# the profiler ranges of a step: the π channel (operator and its VJP), the
+# σ channel's Jacobian refill, and the j_avg EMA and contraction
+PROFILE_RANGES = ("spin.pi_channel", "spin.sigma_channel", "spin.j_avg")
+
+
+def cholesky_or_nan(a: torch.Tensor) -> torch.Tensor:
+    """The lower Cholesky factor of ``a``; where ``a`` is not positive
+    definite, NaN on and below the diagonal and zero above, as
+    ``jnp.linalg.cholesky`` returns (no error check, so no host read)."""
+    chol, info = torch.linalg.cholesky_ex(a, check_errors=False)
+    return torch.where(info == 0, chol, torch.full_like(chol, float("nan")).tril())
+
+
+def spin_step(sigma, pi, jitter: float = JITTER):
+    """(chol, chol⁻¹, Λ = chol⁻¹ π chol⁻ᵀ, diag Λ) of the whitening step."""
+    L = sigma.shape[0]
+    eye = torch.eye(L, dtype=sigma.dtype, device=sigma.device)
+    chol = cholesky_or_nan(sigma + jitter * eye)
+    chol_inv = torch.linalg.solve_triangular(chol, eye, upper=False)
+    Lambda = chol_inv @ pi @ chol_inv.T
+    return chol, chol_inv, Lambda, torch.diagonal(Lambda)
+
+
+def spin_grad_matrices(sigma_avg, pi):
+    """(loss, eigvals, chol, gσ, gπ): the trace loss and the two masked
+    gradient matrices."""
+    chol, chol_inv, Lambda, eigvals = spin_step(sigma_avg, pi)
+    loss = torch.trace(Lambda)
+    diag_chol_inv = torch.diag(torch.diagonal(chol_inv))
+    gsigma = chol_inv.T @ torch.triu(Lambda @ diag_chol_inv)
+    gpi = -chol_inv.T @ diag_chol_inv
+    return loss, eigvals, chol, gsigma, gpi
+
+
+def require_device_bytes(nbytes: int, device, free: Optional[int] = None) -> None:
+    """Raise MemoryError, naming the bytes, when ``nbytes`` exceed the free
+    memory of a CUDA ``device`` (``free`` defaults to what the device
+    reports; other devices are not checked)."""
+    device = torch.device(device)
+    if free is None:
+        if device.type != "cuda":
+            return
+        free = torch.cuda.mem_get_info(device)[0]
+    if nbytes > free:
+        raise MemoryError(
+            f"SpIN's Jacobian average and its refill need {nbytes} bytes; "
+            f"{free} are free on {device}")
+
+
+def _batched_grad(out, leaves, cotangents, retain_graph):
+    """The VJPs of ``out`` for a stack of cotangents: each leaf's (n,
+    *shape), zeros for a leaf ``out`` does not reach."""
+    grads = torch.autograd.grad(out, leaves, cotangents, is_grads_batched=True,
+                                retain_graph=retain_graph, allow_unused=True)
+    n = cotangents.shape[0]
+    return [g if g is not None else p.new_zeros((n,) + p.shape)
+            for g, p in zip(grads, leaves)]
+
+
+class SpIN:
+    name = "spin"
+
+    def __init__(self, model: nn.Module, neigs: int, decay: float = 0.01):
+        """decay: 0 = frozen moving average, 1 = no memory."""
+        self.model = model
+        self.neigs = neigs
+        self.decay = decay
+        declared = getattr(model, "per_mode_parameters", None)
+        self.per_mode = frozenset(declared() if declared is not None else ())
+
+    def _apply(self, params, x):
+        return functional_call(self.model, params, (x,))
+
+    def _j_shape(self, name, p) -> tuple:
+        L = self.neigs
+        return ((L,) if name in self.per_mode else (L, L)) + tuple(p.shape)
+
+    def state_bytes(self, params) -> int:
+        """The bytes of ``j_avg`` for ``params``."""
+        return sum(torch.Size(self._j_shape(k, p)).numel() * p.element_size()
+                   for k, p in params.items())
+
+    def init_state(self, params):
+        """Zero ``sigma_avg`` and ``j_avg``, identity ``chol``, in the
+        parameters' dtype; raises MemoryError where ``j_avg`` and one
+        refill would not fit the device."""
+        p0 = next(iter(params.values()))
+        require_device_bytes(2 * self.state_bytes(params), p0.device)
+        L = self.neigs
+        return {
+            "sigma_avg": p0.new_zeros((L, L)),
+            "chol": torch.eye(L, dtype=p0.dtype, device=p0.device),
+            "j_avg": {k: p.new_zeros(self._j_shape(k, p)) for k, p in params.items()},
+        }
+
+    def eval_apply(self, params, state, x):
+        """The outputs whitened by the stored Cholesky factor."""
+        out = self._apply(params, x)
+        return torch.linalg.solve_triangular(state["chol"], out.T, upper=False).T
+
+    def _jacobian(self, params, x, phi) -> Dict[str, torch.Tensor]:
+        """j_new[m, l] = 2/B Σ_b φ[b,m] ∂φ[b,l]/∂θ in each leaf's layout,
+        from a B-row model call: L passes (one batched call) when every
+        leaf is per-mode, else L batched calls of one-hot columns."""
+        names = list(params)
+        leaves = [params[k] for k in names]
+        out = self._apply(params, x)
+        B, L = out.shape
+        c = (2.0 / B) * phi.T  # (m, b)
+        if all(k in self.per_mode for k in names):
+            cot = c[:, :, None].expand(L, B, L)
+            return dict(zip(names, _batched_grad(out, leaves, cot, False)))
+        j_new = {k: p.new_empty(self._j_shape(k, p)) for k, p in params.items()}
+        for col in range(L):
+            cot = out.new_zeros((L, B, L))
+            cot[:, :, col] = c
+            grads = _batched_grad(out, leaves, cot, col < L - 1)
+            for k, g in zip(names, grads):
+                j_new[k][:, col] = g[:, col] if k in self.per_mode else g
+        return j_new
+
+    def _contract(self, name, gsigma, j):
+        """Σ_{m,l} gσ[m, l] j[m, l] in the leaf's layout."""
+        if name in self.per_mode:
+            return torch.einsum("ms,ms...->s...", gsigma, j)
+        return torch.tensordot(gsigma, j, dims=2)
+
+    def loss_and_grad(self, params, state, x, operator, importance=None):
+        """(loss, grads {name: tensor}, aux {f, Tf, eigvals}, state); the
+        state's tensors are updated in place and returned.  Its three parts
+        run in the profiler ranges ``PROFILE_RANGES``."""
+        names = list(params)
+        pi_range, sigma_range, j_range = PROFILE_RANGES
+        with record_function(pi_range):
+            Tphi, phi = operator(lambda xx: self._apply(params, xx), x, importance,
+                                 with_graph=True)
+            B = phi.shape[0]
+            phi_d, Tphi_d = phi.detach(), Tphi.detach()
+            with torch.no_grad():
+                sigma_avg = state["sigma_avg"].lerp_(phi_d.T @ phi_d / B, self.decay)
+                pi = phi_d.T @ Tphi_d / B
+                loss, eigvals, chol, gsigma, gpi = spin_grad_matrices(sigma_avg, pi)
+                state["chol"].copy_(chol)
+            # Tφ takes φ·gπ/B and φ takes Tφ·gπ/B: the reference's swapped
+            # pair ("crucial for the correct behavior")
+            grads_pi = torch.autograd.grad(
+                [Tphi, phi], [params[k] for k in names],
+                [phi_d @ gpi / B, Tphi_d @ gpi / B],
+                allow_unused=True, materialize_grads=True)
+        with record_function(sigma_range):
+            j_new = self._jacobian(params, x, phi_d)
+        grads = {}
+        with record_function(j_range), torch.no_grad():
+            for k, g_pi in zip(names, grads_pi):
+                j = state["j_avg"][k].lerp_(j_new.pop(k), self.decay)
+                grads[k] = g_pi + self._contract(k, gsigma, j)
+        return loss, grads, dict(f=phi_d, Tf=Tphi_d, eigvals=eigvals), state
+
+    def loss_and_grad_kernel(self, *args, **kwargs):
+        raise NotImplementedError(
+            "the kernel-operator path is not ported yet (ROADMAP queue 1, item 6)")

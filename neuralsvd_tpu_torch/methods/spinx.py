@@ -1,0 +1,99 @@
+"""SpINx: the trace loss and per-mode residual losses with NTK-style weights.
+
+Port of ``neuralsvd_tpu/methods/spinx.py``: ``spinx_losses`` (:23-40) and
+``SpINx`` (``init_state`` :54-60, ``loss_and_grad`` :85-101,
+``refresh_weights`` :123-137, ``eval_apply`` :139-142).  Gradients are
+plain autograd through the Cholesky whitening and through Tφ (the
+operator is called with ``with_graph=True``).  The EMA'd σ only feeds the
+eval's whitening; the (L+1) loss weights are refreshed between blocks
+from the squared gradient norms of the (L+1) losses, each its own
+backward, so the (L+1) x P Jacobian is never held.  The state is written
+in place (``sigma_avg`` and ``chol`` by the step, ``weights`` by the
+refresh), which keeps a captured step's tensors.  Not ported yet: the
+kernel-operator path (ROADMAP queue 1, item 6) and ``axis_name`` (item 9).
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+from torch.func import functional_call
+
+from neuralsvd_tpu_torch.methods.spin import JITTER, cholesky_or_nan, spin_step
+
+
+def spinx_losses(phi, Tphi, phi1):
+    """((L+1,) losses [trace, per-mode residuals], the batch σ of ``phi1``).
+
+    JAX weighs the trace by ``trace_weights``, constant ones
+    (``spinx.py:52``); the sum is taken unweighted here.
+    """
+    sigma = phi1.T @ phi1 / phi1.shape[0]
+    pi = phi.T @ Tphi / phi.shape[0]
+    _, chol_inv, _, eigvals = spin_step(sigma, pi)
+    residuals = Tphi @ chol_inv.T - (phi @ chol_inv.T) @ torch.diag(eigvals)
+    losses = torch.cat([torch.sum(eigvals)[None], torch.mean(residuals ** 2, dim=0)])
+    return losses, sigma
+
+
+class SpINx:
+    name = "spinx"
+
+    def __init__(self, model: nn.Module, neigs: int, decay: float = 0.01):
+        self.model = model
+        self.neigs = neigs
+        self.decay = decay
+
+    def init_state(self, params):
+        p0 = next(iter(params.values()))
+        L = self.neigs
+        return {"sigma_avg": p0.new_zeros((L, L)),
+                "chol": torch.eye(L, dtype=p0.dtype, device=p0.device),
+                "weights": p0.new_ones((L + 1,))}
+
+    def _apply(self, params, x):
+        return functional_call(self.model, params, (x,))
+
+    def _loss_vector(self, params, x, operator, importance):
+        Tphi, phi = operator(lambda xx: self._apply(params, xx), x, importance,
+                             with_graph=True)
+        losses, sigma = spinx_losses(phi, Tphi, phi)
+        return losses, sigma, phi, Tphi
+
+    def loss_and_grad(self, params, state, x, operator, importance=None):
+        """(loss, grads {name: tensor}, aux {f, Tf, eigvals=None}, state);
+        ``sigma_avg`` and ``chol`` are updated in place."""
+        losses, sigma, phi, Tphi = self._loss_vector(params, x, operator, importance)
+        loss = torch.sum(losses * state["weights"] / self.neigs)
+        names = list(params)
+        grads = torch.autograd.grad(loss, [params[k] for k in names],
+                                    allow_unused=True, materialize_grads=True)
+        with torch.no_grad():
+            sigma_avg = state["sigma_avg"].lerp_(sigma, self.decay)
+            eye = torch.eye(self.neigs, dtype=sigma_avg.dtype, device=sigma_avg.device)
+            state["chol"].copy_(cholesky_or_nan(sigma_avg + JITTER * eye))
+        return (loss.detach(), dict(zip(names, grads)),
+                dict(f=phi.detach(), Tf=Tphi.detach(), eigvals=None), state)
+
+    def refresh_weights(self, params, state, x, operator, importance=None):
+        """weights = sqrt(Σ ntk / ntk), ntk[i] the squared norm of loss i's
+        gradient over every parameter; written into ``state["weights"]``,
+        which is returned."""
+        losses, *_ = self._loss_vector(params, x, operator, importance)
+        leaves = list(params.values())
+        ntk = []
+        for i in range(losses.shape[0]):
+            grads = torch.autograd.grad(losses[i], leaves, retain_graph=i < losses.shape[0] - 1,
+                                        allow_unused=True, materialize_grads=True)
+            ntk.append(sum(torch.sum(g * g) for g in grads))
+        with torch.no_grad():
+            ntk = torch.stack(ntk)
+            state["weights"].copy_(torch.sqrt(torch.sum(ntk) / ntk))
+        return state
+
+    def eval_apply(self, params, state, x):
+        out = self._apply(params, x)
+        return torch.linalg.solve_triangular(state["chol"], out.T, upper=False).T
+
+    def loss_and_grad_kernel(self, *args, **kwargs):
+        raise NotImplementedError(
+            "the kernel-operator path is not ported yet (ROADMAP queue 1, item 6)")

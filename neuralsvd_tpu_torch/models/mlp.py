@@ -154,6 +154,14 @@ class ParallelMLP(nn.Module):
         self.ws = nn.ParameterList(ws)
         self.bs = nn.ParameterList(bs)
 
+    def per_mode_parameters(self):
+        """The names of the parameters whose leading axis is the mode axis
+        and whose slot l feeds output l only: every ``ws``/``bs`` stack
+        (the per-mode weight normalization divides slot l by slot l's
+        norm).  SpIN keeps their Jacobian averages block-diagonal."""
+        return [name for name, _ in self.named_parameters()
+                if name.startswith(("ws.", "bs."))]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.feature_map is not None:
             x = self.feature_map(x)

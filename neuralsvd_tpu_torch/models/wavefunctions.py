@@ -69,6 +69,10 @@ class ExponentialMask(nn.Module):
         self.boundary_mode = boundary_mode
         self.conjugate_importance = conjugate_importance
 
+    def per_mode_parameters(self):
+        """The per-mode scales: slot l feeds output l only."""
+        return ["scales"]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x2 = x.reshape(x.shape[0], -1)
         # the norm as sqrt of a sum, which the forward-Laplacian engine has
@@ -119,6 +123,16 @@ class Wavefunction(nn.Module):
         self.lim = lim
         self.boundary_mode = boundary_mode
         self.mask = mask
+
+    def per_mode_parameters(self):
+        """The names of the parameters whose slot l feeds output l only
+        (the mode axis leading): those the base network and the mask
+        declare; a shared trunk declares none.  The output multiplies the
+        two mode by mode, which keeps each slot on its own output."""
+        return [f"{prefix}.{name}"
+                for prefix, module in (("base", self.base), ("mask", self.mask))
+                if hasattr(module, "per_mode_parameters")
+                for name in module.per_mode_parameters()]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x2 = x.reshape(x.shape[0], -1)

@@ -8,6 +8,8 @@ queue 1, item 6).
 """
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -33,6 +35,13 @@ class DeviceConstant:
         return t
 
 
+def graph_mode(with_graph: bool):
+    """The context an operator computes Tf in: the ambient grad mode with
+    ``with_graph`` (SpIN and SpINx differentiate through Tf), else
+    ``torch.no_grad()``."""
+    return contextlib.nullcontext() if with_graph else torch.no_grad()
+
+
 def device_constant(a, like: torch.Tensor, dtype=None) -> torch.Tensor:
     """``a`` as a tensor of ``dtype`` (default: ``like``'s) on ``like``'s
     device: the kept tensor of a ``DeviceConstant``, else a new copy of
@@ -47,7 +56,7 @@ class OperatorWrapper:
 
     Shifts/scales the spectrum so the top-L eigenvalues are positive and
     well separated.  The ``shift·fs`` term joins Tf without a gradient, like
-    the rest of Tf.
+    the rest of Tf, unless the call asks for Tf ``with_graph``.
     """
 
     def __init__(self, operator, scale: float = 1.0, shift: float = 0.0):
@@ -67,11 +76,12 @@ class OperatorWrapper:
         Laplacian), which want a probe generator bound by the train step."""
         return getattr(self.operator, "needs_key", False)
 
-    def __call__(self, f, x, importance=None, generator=None):
+    def __call__(self, f, x, importance=None, generator=None,
+                 with_graph: bool = False):
+        kw = {"with_graph": True} if with_graph else {}
         if generator is not None and self.needs_key:
-            Tf, fs = self.operator(f, x, importance, generator=generator)
-        else:
-            Tf, fs = self.operator(f, x, importance)
-        with torch.no_grad():
+            kw["generator"] = generator
+        Tf, fs = self.operator(f, x, importance, **kw)
+        with graph_mode(with_graph):
             Tf = self.scale * Tf + self.shift * fs
         return Tf, fs

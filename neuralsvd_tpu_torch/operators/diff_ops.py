@@ -12,9 +12,9 @@ Port of ``neuralsvd_tpu/operators/diff_ops.py``.
   ``ops/forward_laplacian.py``) or to ``exact_laplacian`` ("jvp"), and,
   with ``num_probes > 0`` and a ``generator``, to the Hutchinson estimator.
 
-In the port the Laplacian never carries an autograd graph: it is computed
-under ``torch.no_grad()`` (forward-mode tangents are still computed there),
-because the EVD loss sends no gradient through Tf (ops/nestedlora.py).
+By default the Laplacian carries no autograd graph: it is computed under
+``torch.no_grad()`` (forward-mode tangents are still computed there),
+because the EVD losses send no gradient through Tf (ops/nestedlora.py).
 ``fs`` is computed by a separate model call in the ambient grad mode, as
 ``(√w·f(x)) / clip(√w, 1e-5)`` under importance conjugation, so gradients
 reach the parameters through it.  That is right for a function whose rows
@@ -25,6 +25,13 @@ the (2D+1)·B probe rows, with autograd on, as the JAX package does: its
 rows are normalised over all the probe rows, and the backward runs over
 them.  The exact engines need no such care: their fs is the model on the B
 rows in JAX too.
+
+SpIN and SpINx differentiate through Tf (``neuralsvd_tpu/methods/spin.py:90,105``,
+``spinx.py:85-101``): a call with ``with_graph=True`` returns lap, grad and
+fs with their graphs, under finite differences all from the stacked
+(2D+1)·B-row call, and on nested JVPs from JVPs taken in grad mode (reverse
+over forward).  The forward-Laplacian engine and the Hutchinson estimator
+have no backward (ROADMAP queue 1, item 8c): asked for a graph, they raise.
 """
 from __future__ import annotations
 
@@ -153,25 +160,41 @@ class VectorizedLaplacian:
             lap, grads = _nested_jvp_laplacian(f, xs)
         return lap, (torch.movedim(grads, 0, -1) if return_grad else 0.0)
 
-    def _lap_and_fs(self, f, xs, return_grad, generator):
+    def _lap_and_fs(self, f, xs, return_grad, generator, with_graph=False):
         """(lap, grad or 0., fs): lap and grad without an autograd graph, fs
         with one (from the stacked probe call for a ``batch_coupled`` f
-        under finite differences)."""
+        under finite differences); with ``with_graph`` all three with one."""
+        if with_graph:
+            return self._lap_with_graph(f, xs, return_grad, generator)
         if self.eps > 0 and getattr(f, "batch_coupled", False):
             lap, grad, fs = batched_fd_laplacian(f, xs, self.eps, return_grad)
             return lap.detach(), (grad.detach() if return_grad else grad), fs
         lap, grad = self._lap(f, xs, return_grad, generator)
         return lap, grad, f(xs)
 
+    def _lap_with_graph(self, f, xs, return_grad, generator):
+        """(lap, grad or 0., fs), each with its autograd graph."""
+        if self.eps > 0:
+            return batched_fd_laplacian(f, xs, self.eps, return_grad)
+        if (self.needs_key and generator is not None) or self.exact_mode == "forward":
+            raise NotImplementedError(
+                "a Laplacian with an autograd graph (SpIN, SpINx) needs finite "
+                "differences or laplacian_mode='jvp': the forward-Laplacian engine "
+                "and the Hutchinson estimator have no backward yet (ROADMAP queue 1, "
+                "item 8c)")
+        lap, grads = _nested_jvp_laplacian(f, xs)
+        return lap, (torch.movedim(grads, 0, -1) if return_grad else 0.0), f(xs)
+
     def __call__(self, f: Callable, xs: torch.Tensor,
                  importance: Optional[Callable] = None,
                  return_grad: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 with_graph: bool = False):
         xs = xs.reshape(xs.shape[0], -1)
         if importance is None:
-            return self._lap_and_fs(f, xs, return_grad, generator)
+            return self._lap_and_fs(f, xs, return_grad, generator, with_graph)
         lap_g, grad_g, gs = self._lap_and_fs(conjugate(f, importance), xs,
-                                             return_grad, generator)
+                                             return_grad, generator, with_graph)
         sqrt_ws = torch.clamp(torch.sqrt(importance(xs)), min=1e-5)  # (B, 1)
         lap = lap_g / sqrt_ws
         fs = gs / sqrt_ws

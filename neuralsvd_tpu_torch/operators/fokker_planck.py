@@ -9,8 +9,9 @@ gradients of f and of V come from the same Laplacian with
 ``return_grad=True`` (finite differences, the forward-Laplacian engine or
 nested JVPs).  Under a sampling density w the Laplacian of g = √w·f is
 taken and √w divided out without a clip, as the JAX operator does (not
-through ``VectorizedLaplacian``'s clipped importance path).  Tf carries no
-autograd graph; fs does, as in ``NegativeHamiltonian``.
+through ``VectorizedLaplacian``'s clipped importance path).  fs carries its
+autograd graph, and Tf only with ``with_graph=True``, as in
+``NegativeHamiltonian``.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from typing import Callable, Optional
 
 import torch
 
-from neuralsvd_tpu_torch.operators.base import device_constant
+from neuralsvd_tpu_torch.operators.base import device_constant, graph_mode
 from neuralsvd_tpu_torch.operators.diff_ops import VectorizedLaplacian, conjugate
 
 
@@ -35,15 +36,18 @@ class NegativeLinearFokkerPlanck:
         self.local_potential_ftn = local_potential_ftn
         self.scale = scale
 
-    def __call__(self, f, xs, importance: Optional[Callable] = None):
+    def __call__(self, f, xs, importance: Optional[Callable] = None,
+                 with_graph: bool = False):
         xs = xs.reshape(xs.shape[0], -1)
         if importance is None:
-            lap_f, grad_f, fs = self.laplacian(f, xs, return_grad=True)
+            lap_f, grad_f, fs = self.laplacian(f, xs, return_grad=True,
+                                               with_graph=with_graph)
         else:
             lap_g, grad_g, gs = self.laplacian(conjugate(f, importance), xs,
-                                               return_grad=True)
+                                               return_grad=True, with_graph=with_graph)
             with torch.no_grad():
                 sqrt_ws = torch.sqrt(importance(xs))  # (B, 1)
+            with graph_mode(with_graph):
                 lap_f = lap_g / sqrt_ws
                 grad_f = grad_g / sqrt_ws[..., None]
             fs = gs / sqrt_ws
@@ -51,6 +55,7 @@ class NegativeLinearFokkerPlanck:
             lap_pot, grad_pot, _ = self.laplacian(
                 lambda x: self.local_potential_ftn(x).reshape(-1, 1), xs,
                 return_grad=True)
+        with graph_mode(with_graph):
             # grad_pot: (B, 1, D); lap_pot: (B, 1)
             Kf = -(lap_f + torch.einsum("bd,bld->bl", grad_pot[:, 0, :], grad_f)
                    + fs * lap_pot)

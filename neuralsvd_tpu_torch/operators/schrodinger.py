@@ -19,7 +19,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from neuralsvd_tpu_torch.operators.base import device_constant
+from neuralsvd_tpu_torch.operators.base import device_constant, graph_mode
 from neuralsvd_tpu_torch.operators.diff_ops import VectorizedLaplacian
 
 
@@ -90,8 +90,9 @@ class NegativeHamiltonian:
     """-H f = -(-scale_kinetic ∇²f + V(x) f).
 
     Negated so the top eigenvalues are the lowest-energy states.  Returns
-    (Tf, fs): Tf carries no autograd graph (the EVD loss sends no gradient
-    through it); fs does.
+    (Tf, fs): fs carries its autograd graph, and Tf only with
+    ``with_graph=True`` (SpIN, SpINx; the EVD losses send no gradient
+    through it).
     """
 
     def __init__(self, local_potential_ftn: Callable,
@@ -113,11 +114,14 @@ class NegativeHamiltonian:
         return self.laplacian.needs_key
 
     def __call__(self, f, xs, importance: Optional[Callable] = None,
-                 generator: Optional[torch.Generator] = None):
-        lap, _, fs = self.laplacian(f, xs, importance, generator=generator)
+                 generator: Optional[torch.Generator] = None,
+                 with_graph: bool = False):
+        lap, _, fs = self.laplacian(f, xs, importance, generator=generator,
+                                    with_graph=with_graph)
         with torch.no_grad():
-            kinetic = -self.scale_kinetic * lap
             V = self.local_potential_ftn(
                 xs.reshape(xs.shape[0], self.n_particles, -1)).reshape(-1, 1)
+        with graph_mode(with_graph):
+            kinetic = -self.scale_kinetic * lap
             hamiltonian = kinetic + V * fs
-        return -hamiltonian, fs
+            return -hamiltonian, fs

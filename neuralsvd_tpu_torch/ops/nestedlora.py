@@ -12,7 +12,7 @@ operator this is the functional gradient, and the operator application
 never enters the backward graph.
 
 The f1/f2 sample groups MUST be statistically independent.  The SVD loss
-(ROADMAP queue 1, item [8b]) and the data-parallel ``axis_name`` (item
+(ROADMAP queue 1, item [10]) and the data-parallel ``axis_name`` (item
 [9]) are not ported yet.
 """
 from __future__ import annotations

@@ -26,12 +26,13 @@ block and advance within it; both are registered with the graph, whose
 replays advance them as eager steps do.  So a block gives the same batches
 as a graph, as eager steps, or after a resume.
 
-The mode rescue (``rescue_init_fn``, training/rescue.py) runs at an eval,
-between blocks, on the host, and changes the state in place: the driver
-goes on replaying the same captured graph.
+The mode rescue (``rescue_init_fn``, training/rescue.py) and the SpINx
+weight refresh (``spinx_refresh``) run at an eval, between blocks, on the
+host, and change the state in place: the driver goes on replaying the
+same captured graph.
 
-Not ported yet: data parallelism (``mesh``, ROADMAP queue 1, item 9) and
-the SpINx refresh (``spinx_refresh``, item [8b]); each raises.
+Not ported yet: data parallelism (``mesh``, ROADMAP queue 1, item 9); it
+raises.
 """
 from __future__ import annotations
 
@@ -65,6 +66,7 @@ log = logging.getLogger(__name__)
 SAMPLE_STREAM = 0
 PROBE_STREAM = 0x0BE5
 RESCUE_STREAM = 0x0DE5
+REFRESH_STREAM = 0x5F1E
 GRAPH_WARMUP_STEPS = 3  # eager steps on the capture stream before capture
 # The profiler keeps a kernel only if its device timestamp, converted to
 # host time, falls inside the trace window, and on an H100 that conversion
@@ -127,8 +129,8 @@ def make_train_step(method, operator, optimizer, sampler: Callable,
         op = operator
         if stochastic_op:
             gen = probes if probes is not None else default_probes(x.device, generator)
-            op = lambda f, xv, importance=None: operator(  # noqa: E731
-                f, xv, importance, generator=gen)
+            op = lambda f, xv, importance=None, **kw: operator(  # noqa: E731
+                f, xv, importance, generator=gen, **kw)
         loss, grads, aux, method_state = method.loss_and_grad(
             ts.params, ts.method_state, x, op, importance)
         gnorm = global_norm(grads.values())
@@ -348,7 +350,13 @@ def train_operator(
     or duplicate modes also repairs them in place (training/rescue.py):
     ParallelMLP towers by perturbed clones of healthy modes with matched
     amplitudes, other models by fresh draws; its random numbers come from
-    a CPU generator seeded from (seed + 1, iteration).
+    a CPU generator seeded from (seed + 1, iteration).  ``spinx_refresh(ts,
+    generator)`` runs after ``checkpoint_fn`` at every eval and refreshes
+    SpINx's loss weights in place from a batch it draws from a generator
+    on the device seeded from (seed, iteration, ``REFRESH_STREAM``); JAX
+    draws it with the key of the block's last step
+    (``neuralsvd_tpu/training/train_operator.py:372``), a stream torch
+    cannot reproduce, so the refresh batch differs from JAX's.
 
     Full blocks (``print_freq`` > 1, ``num_iters`` >= ``print_freq``, no
     ``monitor``) run as ``ScannedTrainStep`` blocks: a replayed CUDA graph
@@ -360,8 +368,9 @@ def train_operator(
     ``profile_dir`` set, a ``torch.profiler`` trace of the blocks from
     ``profile_start`` on, ``profile_steps`` steps or more, is written there.
     Given a dict ``timings``, the wall seconds of each block
-    (``block_graph`` or ``block_eager``, keyed by its steps) and of each
-    eval (``eval``) are appended to it; each ends in a device sync.
+    (``block_graph`` or ``block_eager``, keyed by its steps), of each eval
+    (``eval``), checkpoint (``checkpoint``) and SpINx refresh
+    (``spinx_refresh``) are appended to it; each ends in a device sync.
 
     Returns (final TrainState, all_eigvals, all_norms).
     """
@@ -375,9 +384,6 @@ def train_operator(
     if mesh is not None:
         raise NotImplementedError(
             "data parallelism (mesh) is not ported yet (ROADMAP queue 1, item 9)")
-    if spinx_refresh is not None:
-        raise NotImplementedError(
-            "SpINx is not ported yet (ROADMAP queue 1, item 8b)")
     ts = (initial_ts if initial_ts is not None
           else init_train_state(model, optimizer, method))
     device = ts.step.device
@@ -428,7 +434,18 @@ def train_operator(
             run_rescue(it_done, cov, np.asarray(outputs["quad"]))
         timings.setdefault("eval", []).append(time.perf_counter() - t0)
         if checkpoint_fn is not None:
+            t0 = time.perf_counter()
             checkpoint_fn(ts, it_done, outputs)
+            timings.setdefault("checkpoint", []).append(time.perf_counter() - t0)
+        if spinx_refresh is not None:
+            t0 = time.perf_counter()
+            pointers = state_pointers(ts)
+            spinx_refresh(ts, torch.Generator(device=device).manual_seed(
+                block_seed(seed, it_done, REFRESH_STREAM)))
+            if state_pointers(ts) != pointers:
+                raise RuntimeError("the SpINx refresh replaced a tensor of the TrainState")
+            _sync(device)
+            timings.setdefault("spinx_refresh", []).append(time.perf_counter() - t0)
 
     rescue_grace: list = []
 

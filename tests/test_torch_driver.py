@@ -229,10 +229,11 @@ def test_checkpoint_round_trip(tmp_path):
 
 
 def test_train_operator_refuses_unported_options():
+    """Data parallelism raises naming its item (the SpINx refresh, refused
+    here before, runs: tests/test_torch_spin.py)."""
     model, op, sampler, imp, method, opt = _setup()
-    for kw, item in ((dict(mesh=object()), "item 9"), (dict(spinx_refresh=len), "item 8")):
-        with pytest.raises(NotImplementedError, match=item):
-            train_operator(method, op, sampler, opt, model, 4, **kw)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        train_operator(method, op, sampler, opt, model, 4, mesh=object())
 
 
 # -- the monitor statistics ----------------------------------------------------

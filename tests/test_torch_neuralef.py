@@ -284,16 +284,17 @@ def test_registered_eigvals_reorder_the_training_outputs(carried):
 
 
 def test_factory_defaults_and_refusals(carried):
-    """get_evd_method("neuralef") takes the JAX defaults; SpIN and SpINx
-    raise naming their ROADMAP item; the kernel-operator path raises."""
+    """get_evd_method("neuralef") takes the JAX defaults, and so do SpIN and
+    SpINx (decay 0.01); the kernel-operator path raises."""
     params, japply, model = carried
     jm = jax_get_evd_method("neuralef", japply, L)
     tm = get_evd_method("neuralef", model, L)
     assert (tm.batchnorm_mode, tm.unbiased, tm.diagonal, tm.momentum) == (
         jm.batchnorm_mode, jm.unbiased, jm.diagonal, jm.momentum) == ("unbiased", False, 1, 0.9)
     for name in ("spin", "spinx"):
-        with pytest.raises(NotImplementedError, match="8b"):
-            get_evd_method(name, model, L)
+        jspin, tspin = jax_get_evd_method(name, japply, L), get_evd_method(name, model, L)
+        assert (tspin.name, tspin.neigs, tspin.decay) == (jspin.name, jspin.neigs,
+                                                          jspin.decay) == (name, L, 0.01)
     with pytest.raises(NotImplementedError, match="item 6"):
         tm.loss_and_grad_kernel(params, {}, None, None)
     with pytest.raises(ValueError, match="batchnorm_mode"):

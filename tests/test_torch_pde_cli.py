@@ -426,12 +426,12 @@ def _float64_eigvals(cfg, model_kw, state):
     return (torch.diagonal(quad) / torch.diagonal(cov)).numpy()
 
 
-# rescue, exp-mask, cosine, neuralef and fp are ported now: those cases
-# train (match None)
+# rescue, exp-mask, cosine, neuralef, fp, spin and spinx are ported now:
+# those cases train (match None)
 @pytest.mark.parametrize("kw,match", [
     (dict(loss=config.LossConfig(name="neuralef")), None),
-    (dict(loss=config.LossConfig(name="spin")), "8b"),
-    (dict(loss=config.LossConfig(name="spinx")), "8b"),
+    (dict(loss=config.LossConfig(name="spin")), None),
+    (dict(loss=config.LossConfig(name="spinx")), None),
     (dict(problem="fp"), None),
     (dict(mesh="dp"), "item 9"),
     (dict(rescue=True, parallel=True), None),
