@@ -118,10 +118,35 @@ seconds:
               launch of each kernel per step; the run's seconds by part
               (steps with loader and copies, eval, checkpoint, ratios,
               spectrum, truncation sweep); then steps/s of the train step
-              alone on device-resident batches and its peak device memory.
+              alone on device-resident batches and its peak device memory;
+12. pde_tiers the PDE entry point on the E4 flags with --matmul_precision
+              highest, high (3xTF32), default (one TF32 pass) and
+              highest@1,high, one run each in graph blocks of RECIPE_BLOCK:
+              every loss finite, no skipped step, one launch of each kernel
+              a step (measured as in pde_cli), no fallback-rule call, the
+              float32 matmul precision "highest" before and after each run,
+              the tower outputs against a float64 copy on TIER_ROWS rows
+              (per head and tail for the split), the plain EVD loss on fixed
+              float32 inputs computed in hooks inside a tiered
+              loss_and_grad equal bit for bit to the same loss outside;
+              graph-block steps/s in turns; and the E4 towers in bf16
+              (compute_dtype) on the card against a CPU copy, with their
+              forward-engine Laplacian finite;
+13. cdk_bf16  the Sketchy script as written (CDK_ARGV plus --compute_dtype
+              bf16) through run_training: every loss finite, no skipped
+              step, one launch of each kernel a step, float32 master
+              weights, P@100 and mAP beside the f32 run's; the card's bf16
+              tower products against float64 products of the same bf16
+              operands on BF16_ROWS rows (cuBLAS's bf16 reduced-precision
+              reduction on and off, each timed); the bare train step at
+              f32, TF32 (the switch set around the f32 step: a measurement
+              only) and bf16 in turns on the same batches; and a few
+              profiled steps of each (device ms, busy share, device ms by
+              group: GEMMs, gram kernels, the rest; costliest kernels).
 
 Then the {"kernels": [...]} line (numbers at the CDK shape, launches of
-the six main paths (e4 trainer, pde_cli, hydrogen, oscillator, fp, cdk; the
+the eight main paths (e4 trainer, pde_cli, hydrogen, oscillator, fp, cdk,
+pde_tiers, cdk_bf16; the
 CLI paths' are the eager launches counted by the wrappers plus the
 replayed launches counted in the traced block, each also under "paths"),
 per-path numbers under "paths", every shape's under "shapes"), the
@@ -155,7 +180,7 @@ from neuralsvd_tpu_torch.methods.nystrom import Nystrom, run_nystrom
 from neuralsvd_tpu_torch.methods.spin import PROFILE_RANGES as SPIN_PARTS
 from neuralsvd_tpu_torch.methods.spin import SpIN
 from neuralsvd_tpu_torch.methods.spectrum import compute_spectrum_evd
-from neuralsvd_tpu_torch.models.mlp import parse_dims
+from neuralsvd_tpu_torch.models.mlp import parse_dims, tower_product
 from neuralsvd_tpu_torch.models.wavefunctions import make_wavefunctions
 from neuralsvd_tpu_torch.operators.diff_ops import VectorizedLaplacian
 from neuralsvd_tpu_torch.operators.problems import get_problem
@@ -329,6 +354,32 @@ CDK_DIM, CDK_CLASSES, CDK_B, CDK_L = 512, 25, 4096, 512
 CDK_STEPS, CDK_EPOCHS, CDK_EVAL = 16, 2, 8192  # steps an epoch, epochs, eval items
 CDK_TIMED, CDK_WARMUP = 50, 10
 CDK_TOWER_RTOL = 1e-4  # GPU vs CPU towers: f32 products of depth 8192
+# the paper script's bf16 towers (scripts/exps/sketchy.sh:18-21): the same
+# list with --compute_dtype bf16.  The card's bf16 tower products on
+# BF16_ROWS rows are held to float64 products of the same bf16 operands:
+# |card - ref| <= BF16_RTOL·|ref| + BF16_ATOL·max|ref| (the output's
+# rounding to bf16 is at most half of BF16_RTOL, 2^-8 of the value;
+# BF16_ATOL of the largest entry covers the float32 sums of depth 8192)
+CDK_BF16_ARGV = CDK_ARGV + ["--compute_dtype", "bf16"]
+BF16_ROWS, BF16_RTOL, BF16_ATOL = 256, 2.0 ** -7, 2.0 ** -12
+CDK_TURNS = ("f32", "tf32", "bf16", "bf16", "tf32", "f32")  # bare-step timing order
+CDK_PROFILED = 5  # eager f32, TF32 and bf16 steps under the profiler
+
+# the PDE CLI's --matmul_precision tiers on the E4 flags: one run a tier of
+# PDE_TIER_ITERS steps in graph blocks of RECIPE_BLOCK (the first block
+# captures, the second is timed, the third traced), then a second round in
+# the reverse order of PDE_TIER_TURN steps for the rates in turns; tower
+# outputs against a float64 copy on TIER_ROWS rows
+PDE_TIERS = ("highest", "high", "default", "highest@1,high")
+PDE_TIER_ITERS, PDE_TIER_TURN, TIER_ROWS = 3 * RECIPE_BLOCK, 2 * RECIPE_BLOCK, 256
+PDE_TIER_TRACED = (2 * RECIPE_BLOCK, RECIPE_BLOCK)
+# the largest error each tier's tower outputs may have against float64, of
+# the largest entry: IEEE and 3xTF32 are float32-grade, one TF32 pass 2^-11
+TIER_MAX_ERR = {"highest": 2.0 ** -16, "high": 2.0 ** -16, "default": 2.0 ** -6}
+# the bf16 E4 towers on the card against a CPU copy, of the largest entry:
+# each of the four products rounds its output to bf16 (2^-9 relative) on
+# both sides, in different sums
+BF16_CARD_CPU_ATOL = 2.0 ** -5
 
 # full batches (B, L); K1/K3 see the two halves (B/2, L), K2 the whole on
 # the EVD path and the two halves (f, g) on the CDK path
@@ -1736,7 +1787,343 @@ def phase_cdk_train(train, test, valid):
          timed_steps=CDK_TIMED, steps_per_s=CDK_TIMED / seconds,
          ms_per_step=seconds / CDK_TIMED * 1e3,
          step_peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    return counts, _cdk_quality(rows)
+
+
+def _cdk_quality(rows):
+    last = rows[-1]
+    return {k: float(last[k]) for k in ("test_P@K", "test_mAP@all", "valid_P@K",
+                                         "valid_mAP@all")}
+
+
+def _bf16_products_vs_float64(model, x):
+    """Each layer of the bf16 x tower on the card against a float64
+    product of the same bf16 operands (the card's own bf16 input to that
+    layer), with cuBLAS's bf16 reduced-precision reduction on (PyTorch's
+    default, what the port runs) and off: the excess over the tolerance,
+    the largest error of the largest entry, and the ms of the layer's
+    product each way."""
+    matmul = torch.backends.cuda.matmul
+    default = matmul.allow_bf16_reduced_precision_reduction
+    tower = model.x
+    out = {}
+    for reduced in (default, not default):
+        matmul.allow_bf16_reduced_precision_reduction = reduced
+        try:
+            h = x.to(torch.bfloat16)
+            layers = []
+            for i, layer in enumerate(tower.layers):
+                w, b = layer.w.detach().to(torch.bfloat16), layer.b.detach().to(torch.bfloat16)
+                prod = tower_product("bi,io->bo", h, w)
+                ref = h.double() @ w.double()
+                tol = BF16_RTOL * ref.abs() + BF16_ATOL * ref.abs().max()
+                layers.append({"depth": int(w.shape[0]), "width": int(w.shape[1]),
+                               "tol_used": ((prod.double() - ref).abs() / tol).max().item(),
+                               "max_err": ((prod.double() - ref).abs().max()
+                                           / ref.abs().max()).item(),
+                               "ms": time_ms(lambda: tower_product("bi,io->bo", h, w),
+                                             iters=20, reps=5)})
+                h = prod + b
+                if i < len(tower.layers) - 1:
+                    h = tower.act(h)
+        finally:
+            matmul.allow_bf16_reduced_precision_reduction = default
+        out["reduced_on" if reduced else "reduced_off"] = layers
+    worst = max(r["tol_used"] for r in out["reduced_on" if default else "reduced_off"])
+    check(worst <= 1.0, f"bf16 tower products vs float64: {worst:.3g}x tolerance")
+    return out
+
+
+def _timed_steps(tr, batches, n, tf32=False):
+    """ms a step of ``n`` bare train steps of ``tr`` on device batches;
+    ``tf32`` sets cuBLAS's TF32 switch around them (a measurement only)."""
+    matmul = torch.backends.cuda.matmul
+    old = matmul.allow_tf32
+    matmul.allow_tf32 = tf32
+    try:
+        skips = torch.zeros((), dtype=torch.int32, device=DEVICE)
+        params, opt_state = tr.params, tr.opt_state
+        losses = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            x, y = batches[i % len(batches)]
+            params, opt_state, _, loss, _, skips = tr.step(params, opt_state, {}, x, y, skips)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        matmul.allow_tf32 = old
+    check(torch.isfinite(torch.stack(losses)).all().item() and int(skips) == 0,
+          "timed CDK steps")
+    return seconds / n * 1e3
+
+
+def _profile_cdk_step(tr, batches, tf32=False):
+    """CDK_PROFILED eager steps of ``tr`` (``tf32``: with cuBLAS's TF32
+    switch set around them) under the profiler: device ms and
+    kernels a step, the busy share, device ms a step by group (cuBLAS
+    GEMMs: the tower products; the gram kernels; the rest), and the
+    costliest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    skips = torch.zeros((), dtype=torch.int32, device=DEVICE)
+    params, opt_state = tr.params, tr.opt_state
+    matmul = torch.backends.cuda.matmul
+    old = matmul.allow_tf32
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
+        matmul.allow_tf32 = tf32
+        try:
+            t0 = time.perf_counter()
+            for i in range(CDK_PROFILED):
+                x, y = batches[i % len(batches)]
+                params, opt_state, _, _, _, skips = tr.step(params, opt_state, {}, x, y, skips)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        finally:
+            matmul.allow_tf32 = old
+        time.sleep(PROFILE_MARGIN_S)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(kernels, "the profiler recorded no CUDA kernel in the bf16 CDK steps")
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+
+    total = sum(device_us(e) for e in kernels)
+    top = sorted(kernels, key=device_us, reverse=True)[:TOP_KERNELS]
+    n = CDK_PROFILED
+
+    def group(name):
+        if any(k in name for k in CUDA_KERNELS):
+            return "gram_kernels"
+        return "gemm" if any(k in name for k in ("nvjet", "gemm", "xmma", "cutlass")) \
+            else "other"
+
+    groups = {}
+    for e in kernels:
+        groups[group(e.key)] = groups.get(group(e.key), 0.0) + device_us(e) / n / 1e3
+    return {"steps": n, "wall_ms_per_step": wall_s / n * 1e3,
+            "device_ms_per_step": total / n / 1e3,
+            "device_busy_share": total / 1e6 / wall_s,
+            "kernels_per_step": sum(e.count for e in kernels) / n,
+            "device_ms_per_step_by_group": groups,
+            "top_kernels": [{"name": e.key[:100], "ms_per_step": device_us(e) / n / 1e3,
+                             "per_step": e.count / n} for e in top]}
+
+
+def phase_cdk_bf16(train, test, valid, f32_quality):
+    """The Sketchy script as written (--compute_dtype bf16) through
+    run_training; its products against float64; the bare step at f32, TF32
+    and bf16 in turns; a few profiled steps of each."""
+    with tempfile.TemporaryDirectory() as log_dir:
+        args = get_args(CDK_BF16_ARGV + ["--num_epochs", str(CDK_EPOCHS),
+                                         "--log_dir", log_dir, "--device", DEVICE])
+        cuda_gram.reset_launch_counts()
+        timings = {}
+        t0 = time.perf_counter()
+        params, trunc = run_training(args, train, test, valid, input_dim=CDK_DIM,
+                                     timings=timings)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = cuda_gram.launch_counts()
+        rows = _csv_rows(log_dir)
+        spectrum = np.load(os.path.join(log_dir, "best_stats.npz"))["spectrum"]
+    steps = CDK_EPOCHS * train.max_steps
+    check(len(rows) == CDK_EPOCHS, f"bf16: {len(rows)} log rows")
+    check(all(np.isfinite(float(r["loss"])) for r in rows), "non-finite bf16 CDK loss")
+    check(int(rows[-1]["skips"]) == 0, f"{rows[-1]['skips']} skipped bf16 CDK steps")
+    check(all(n == steps for n in counts.values()),
+          f"bf16 CDK launch counts {counts} != {steps} each")
+    check(all(p.dtype == torch.float32 for p in params.values()), "bf16 master weights")
+    check(spectrum.shape == (CDK_L + 1,) and np.isfinite(spectrum).all(), "bf16 spectrum")
+
+    f32_tr = make_trainer(_cdk_args(""), CDK_DIM, CDK_STEPS)
+    bf16_tr = make_trainer(get_args(CDK_BF16_ARGV + ["--device", DEVICE]), CDK_DIM, CDK_STEPS)
+    batches = [tuple(torch.as_tensor(a, device=DEVICE) for a in b[:2])
+               for _, b in zip(range(4), train)]
+    products = _bf16_products_vs_float64(bf16_tr.model, batches[0][0][:BF16_ROWS])
+    trainers = {"f32": f32_tr, "tf32": f32_tr, "bf16": bf16_tr}
+    for name in ("f32", "bf16"):
+        _timed_steps(trainers[name], batches, CDK_WARMUP)
+    ms = {name: [] for name in trainers}
+    for name in CDK_TURNS:
+        ms[name].append(_timed_steps(trainers[name], batches, CDK_TIMED, tf32=(name == "tf32")))
+    prof = {name: _profile_cdk_step(trainers[name], batches, tf32=(name == "tf32"))
+            for name in ("f32", "tf32", "bf16")}
+    # what the JAX-order bf16 leaky ReLU (where(x >= 0, x, s·x), three
+    # passes) costs against one F.leaky_relu pass with the same slope
+    towers = (bf16_tr.model.x, bf16_tr.model.y)
+    acts = [t.act for t in towers]
+    slope = torch.tensor(0.2, dtype=torch.bfloat16).item()
+    for t in towers:
+        t.act = lambda v: torch.nn.functional.leaky_relu(v, negative_slope=slope)
+    try:
+        prof["bf16_with_F.leaky_relu"] = _profile_cdk_step(bf16_tr, batches)
+    finally:
+        for t, a in zip(towers, acts):
+            t.act = a
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 left on after the timing")
+    emit("cdk_bf16", argv=CDK_BF16_ARGV, epochs=CDK_EPOCHS, steps=steps, launches=counts,
+         run_s=run_s, run_parts_s=timings, driver_steps_per_s=train.max_steps / timings["steps"][-1],
+         per_epoch=[{k: float(v) for k, v in r.items()} for r in rows],
+         quality={"bf16": _cdk_quality(rows), "f32": f32_quality},
+         trunc=trunc, spectrum_head=spectrum[:8].tolist(),
+         products_vs_float64={"rows": BF16_ROWS, "rtol": BF16_RTOL, "atol_of_max": BF16_ATOL,
+                              **products},
+         step_ms_in_turns={"order": list(CDK_TURNS), "steps": CDK_TIMED, **ms},
+         steps_per_s={k: [1e3 / v for v in vs] for k, vs in ms.items()},
+         step_profiles=prof)
     return counts
+
+
+def _tier_model(cfg, params):
+    """The CLI's model for ``cfg`` (its tier) with ``params``, and a float64
+    copy of it (no tier applies in float64)."""
+    model = pde.build(cfg).model
+    with torch.no_grad():
+        for k, p in model.named_parameters():
+            p.copy_(params[k])
+    return model, copy.deepcopy(model).double()
+
+
+def _tier_errors(prec, model, model64, x):
+    """The tower outputs' largest error against float64, of the largest
+    entry, checked against its tier's TIER_MAX_ERR; for a split spec the
+    head's and the tail's."""
+    with torch.no_grad():
+        out, ref = model(x).double(), model64(x.double())
+    parts = {"all": (slice(None), prec)}
+    if "@" in prec:
+        head, rest = prec.split("@")
+        k, tail = rest.split(",")
+        parts = {"head": (slice(None, int(k)), head), "tail": (slice(int(k), None), tail)}
+    errors = {}
+    for name, (sl, tier) in parts.items():
+        errors[name] = ((out[:, sl] - ref[:, sl]).abs().max() / ref[:, sl].abs().max()).item()
+        check(errors[name] <= TIER_MAX_ERR[tier],
+              f"{prec} {name}: tower error {errors[name]:.3g} > {TIER_MAX_ERR[tier]}")
+    return errors
+
+
+def _loss_inside_a_tiered_run(cfg, params, fixed, ref_loss):
+    """The plain EVD loss on fixed float32 inputs computed in hooks inside
+    one loss_and_grad of the tiered model (after the towers' forward, and
+    in their backward): each value against ``ref_loss`` bit for bit."""
+    run = pde.build(cfg)
+    with torch.no_grad():
+        for k, p in run.model.named_parameters():
+            p.copy_(params[k])
+    seen = []
+
+    def loss_now(*_):
+        seen.append(nestedlora_evd_loss(*fixed).item())
+
+    def forward_hook(module, args, out):
+        loss_now()
+        if isinstance(out, torch.Tensor) and out.requires_grad:
+            out.register_hook(lambda g: loss_now())
+
+    handle = run.model.base.register_forward_hook(forward_hook)
+    try:
+        x = run.sample(torch.Generator(device=DEVICE).manual_seed(SEED + 5))
+        loss, _, _, _ = run.method.loss_and_grad(dict(run.model.named_parameters()), {}, x,
+                                                 run.operator, run.importance_train)
+        torch.cuda.synchronize()
+    finally:
+        handle.remove()
+    check(len(seen) >= 2 and torch.isfinite(loss).item(), f"hooks fired {len(seen)}")
+    check(all(v == ref_loss for v in seen),
+          f"EVD loss inside a tiered run {seen} != {ref_loss} outside")
+    return len(seen)
+
+
+def _bf16_e4_towers():
+    """The E4 ParallelMLP in bf16 (compute_dtype) on the card against a CPU
+    copy on TIER_ROWS rows, and its forward-engine Laplacian there."""
+    kw = dict(ndim=NDIM, neigs=NEIGS, mlp_hidden_dims=HIDDEN, nonlinearity="softplus",
+              parallel=True, use_fourier_feature=True, fourier_mapping_size=FOURIER,
+              fourier_scale=0.1, fourier_append_radial=True,
+              fourier_append_envelopes=ENVELOPES, apply_boundary=False, seed=SEED,
+              compute_dtype=torch.bfloat16)
+    card = make_wavefunctions(**kw, device=DEVICE)
+    cpu = make_wavefunctions(**kw, device="cpu")
+    sampler, _ = get_sampler("gaussian_mixture", TIER_ROWS, 1, NDIM, MIX_SCALES, device=DEVICE)
+    x = sampler(torch.Generator(device=DEVICE).manual_seed(SEED + 6))
+    with torch.no_grad():
+        got, want = card(x), cpu(x.cpu())
+    rel = ((got.cpu() - want).abs().max() / want.abs().max()).item()
+    check(got.dtype == torch.float32 and rel <= BF16_CARD_CPU_ATOL,
+          f"bf16 towers card vs CPU: {rel:.3g} of the largest entry")
+    forward_laplacian.fallback_rule.calls = 0
+    with torch.no_grad():
+        lap, _, fs = forward_laplacian.forward_laplacian(card, x)
+    fallbacks = forward_laplacian.fallback_rule.calls
+    check(fallbacks == 0 and torch.isfinite(lap).all().item() and torch.isfinite(fs).all().item(),
+          f"bf16 forward-engine Laplacian: {fallbacks} fallbacks, finite "
+          f"{torch.isfinite(lap).all().item()}")
+    return {"card_vs_cpu": rel, "atol_of_max": BF16_CARD_CPU_ATOL, "rows": TIER_ROWS,
+            "laplacian_finite": True, "fallback_calls": fallbacks}
+
+
+def phase_pde_tiers():
+    """The PDE CLI's --matmul_precision tiers on the E4 flags."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+    vmask, mmask = sequential_nesting_masks(NEIGS)
+    fixed = (torch.randn(BATCH, NEIGS, generator=gen, device=DEVICE),
+             torch.randn(BATCH, NEIGS, generator=gen, device=DEVICE))
+    fixed = fixed + tuple(torch.chunk(fixed[0], 2)) + (
+        torch.as_tensor(vmask, device=DEVICE), torch.as_tensor(mmask, device=DEVICE))
+    ref_loss = nestedlora_evd_loss(*fixed).item()
+    results, launches = {}, {}
+    rates = {t: [] for t in PDE_TIERS}
+    with tempfile.TemporaryDirectory() as tmp:
+        for prec in PDE_TIERS:
+            check(torch.get_float32_matmul_precision() == "highest", f"before {prec}")
+            argv = _with_flags(PDE_E4_ARGV, matmul_precision=prec, num_iters=PDE_TIER_ITERS,
+                               print_freq=RECIPE_BLOCK, eval_freq=PDE_TIER_ITERS)
+            cuda_gram.reset_launch_counts()
+            forward_laplacian.fallback_rule.calls = 0
+            timings = {}
+            ts, eigvals, run_dir, records = _pde_run(argv + _profile_argv(PDE_TIER_TRACED),
+                                                     os.path.join(tmp, prec), timings)
+            fallbacks = forward_laplacian.fallback_rule.calls
+            check(fallbacks == 0, f"{prec}: {fallbacks} fallback-rule calls")
+            check(torch.get_float32_matmul_precision() == "highest", f"after {prec}")
+            _check_run(prec, ts, eigvals, run_dir, records, PDE_TIER_ITERS, [PDE_TIER_ITERS],
+                       neigs=NEIGS)
+            launches[prec], _ = _measured_launches(prec, run_dir, PDE_TIER_TRACED)
+            n, seconds = timings["block_graph"][1]
+            rates[prec].append(n / seconds)
+            cfg = parse_pde_config(argv + ["--device", DEVICE])
+            model, model64 = _tier_model(cfg, ts.params)
+            sampler, _ = get_sampler("gaussian_mixture", TIER_ROWS, 1, NDIM, MIX_SCALES,
+                                     device=DEVICE)
+            x = sampler(torch.Generator(device=DEVICE).manual_seed(SEED + 7))
+            errors = _tier_errors(prec, model, model64, x)
+            hooks = _loss_inside_a_tiered_run(cfg, ts.params, fixed, ref_loss)
+            results[prec] = {"tower_err_vs_float64": errors, "fallback_calls": fallbacks,
+                             "eigvals": np.asarray(eigvals[-1]).tolist(),
+                             "loss_hooks_bit_for_bit": hooks,
+                             "precision_after": torch.get_float32_matmul_precision()}
+        for prec in reversed(PDE_TIERS):  # the second round, for the rates in turns
+            timings = {}
+            _pde_run(_with_flags(PDE_E4_ARGV, matmul_precision=prec, num_iters=PDE_TIER_TURN,
+                                 print_freq=RECIPE_BLOCK, eval_freq=10 ** 9),
+                     os.path.join(tmp, "turn-" + prec), timings)
+            rates[prec].append(_block_rate(timings, "block_graph"))
+            check(torch.get_float32_matmul_precision() == "highest", f"after {prec} turn")
+    bf16 = _bf16_e4_towers()
+    emit("pde_tiers", argv=PDE_E4_ARGV, tiers=list(PDE_TIERS), iters=PDE_TIER_ITERS,
+         block=RECIPE_BLOCK, results=results, launches=launches,
+         graph_block_steps_per_s_in_turns={"order": list(PDE_TIERS) + list(reversed(PDE_TIERS)),
+                                           **rates},
+         tier_max_err=TIER_MAX_ERR, evd_loss_outside=ref_loss, bf16_e4_towers=bf16)
+    return {k: {"launches": sum(launches[t][k]["launches"] for t in PDE_TIERS),
+                "per_tier": {t: launches[t][k]["launches"] for t in PDE_TIERS}}
+            for k in GRAM_KERNELS}
 
 
 def main():
@@ -1751,13 +2138,16 @@ def main():
     recipe_launches = phase_pde_recipes()
     method_launches = phase_pde_methods()
     phase_pde_spin()
-    measured = {"pde_cli": pde_launches, **recipe_launches, **method_launches}
+    tier_launches = phase_pde_tiers()
+    measured = {"pde_cli": pde_launches, **recipe_launches, **method_launches,
+                "pde_tiers": tier_launches}
     counts = {"e4": e4_counts,
               **{path: {k: v["launches"] for k, v in m.items()} for path, m in measured.items()}}
     phase_hutchinson(model, importance, x)
     train, test, valid = _cdk_data()
     phase_cdk_loss(train)
-    counts["cdk"] = phase_cdk_train(train, test, valid)
+    counts["cdk"], f32_quality = phase_cdk_train(train, test, valid)
+    counts["cdk_bf16"] = phase_cdk_bf16(train, test, valid, f32_quality)
     kernels = []
     for kname, results in rows.items():
         at = {r["shape"]: r for r in results}
@@ -1767,7 +2157,7 @@ def main():
                                                       "bound_by", "library_ms")}}
                  for path, shape in (("e4", "E4"), ("pde_cli", "E4"), ("cdk", "cdk"),
                                      ("hydrogen", "hydrogen"), ("oscillator", "oscillator"),
-                                     ("fp", "fp"))}
+                                     ("fp", "fp"), ("pde_tiers", "E4"), ("cdk_bf16", "cdk"))}
         for path, m in measured.items():
             paths[path].update(m[kname])
         cdk = paths["cdk"]

@@ -12,13 +12,14 @@ The flags are the JAX CLI's (utils/config.py) plus ``--device`` (default:
 the GPU); every ``--loss`` (neuralsvd, nestedlora, neuralef, spin and
 spinx, whose NTK weights are refreshed after each eval), every potential
 of ``--problem sch``, the Fokker–Planck problem ``--problem fp``, the
-exponential mask and ``--rescue true`` (the mode rescue at evals) run.
+exponential mask, ``--rescue true`` (the mode rescue at evals) and
+``--matmul_precision default|high|highest`` or a split spec
+``'<head>@<k>,<tail>'`` (the towers' products only, models/mlp.py) run.
 Refused before any training, each naming its ROADMAP item: ``--mesh``
-(queue 1, item 9), ``--matmul_precision`` (item 10), and ``--loss
-spin|spinx`` on the forward-Laplacian engine or with Hutchinson probes
-(item 8c: SpIN and SpINx differentiate through Tφ, and those have no
-backward yet).  As in the JAX CLI, ``--weight_normalization`` reaches no
-model.
+(queue 1, item 9) and ``--loss spin|spinx`` on the forward-Laplacian
+engine or with Hutchinson probes (item 8c: SpIN and SpINx differentiate
+through Tφ, and those have no backward yet).  As in the JAX CLI,
+``--weight_normalization`` reaches no model.
 """
 from __future__ import annotations
 
@@ -77,9 +78,6 @@ def check_ported(cfg: PDEConfig) -> None:
     if cfg.mesh:
         raise NotImplementedError(
             "--mesh (data parallelism) is not ported yet (ROADMAP queue 1, item 9)")
-    if cfg.matmul_precision:
-        raise NotImplementedError(
-            "--matmul_precision is not ported yet (ROADMAP queue 1, item 10)")
 
 
 def build(cfg: PDEConfig, dev=None) -> SimpleNamespace:
@@ -114,7 +112,8 @@ def build(cfg: PDEConfig, dev=None) -> SimpleNamespace:
         apply_boundary=cfg.apply_boundary, boundary_mode=cfg.boundary_mode,
         lim=cfg.lim, apply_exp_mask=cfg.apply_exp_mask,
         exp_mask_init_scale=cfg.exp_mask_init_scale,
-        hard_mul_const=cfg.hard_mul_const)
+        hard_mul_const=cfg.hard_mul_const,
+        matmul_precision=cfg.matmul_precision or None)
     model = make_wavefunctions(**model_kw, seed=cfg.seed, device=dev)
 
     scale = cfg.sampling_scale

@@ -10,10 +10,13 @@ truncated-dimension sweep with a random-permutation control.
 The JAX CLI plots the spectrum and the density-ratio histograms with
 matplotlib; this one writes the arrays it would plot to
 ``spectrum_<tag>.npz`` and ``ratios_<tag>.npz`` (plots: ROADMAP queue 1,
-item 10).  ``--device`` (default: the GPU) is the port's own flag.  Not
-ported yet: ``--mesh`` (data/tensor parallelism, queue 1, item 9) and
-``--compute_dtype bf16`` (queue 1, item 7) raise NotImplementedError;
-``--optimizer adamw|lars`` raises too (item 7).
+item 10).  ``--device`` (default: the GPU) is the port's own flag.  Every
+flag of the paper script (scripts/exps/sketchy.sh) runs, ``--compute_dtype
+bf16`` (the towers' chain in bfloat16, float32 master weights and CDK
+loss) and every ``--optimizer`` included; ``main`` pins float32 matmuls
+to IEEE (``torch.set_float32_matmul_precision("highest")``), as the JAX
+CLI pins float32.  Not ported yet: ``--mesh`` (data/tensor parallelism,
+queue 1, item 9) raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -168,15 +171,13 @@ def make_trainer(args, input_dim: int, steps_per_epoch: int) -> Trainer:
         raise NotImplementedError(
             "--mesh (data/tensor parallelism) is not ported yet "
             "(ROADMAP queue 1, item 9)")
-    if args.compute_dtype != "f32":
-        raise NotImplementedError(
-            "--compute_dtype bf16 is not ported yet (ROADMAP queue 1, item 7)")
     dev = resolve_device(args.device)
     model = HeteroNetwork(
         input_dim=input_dim, network_dims=parse_dims(args.network_dims),
         nonlinearity=args.activation, mu=args.mu,
         regularize_mode=args.regularize_mode,
-        generator=torch.Generator().manual_seed(args.seed)).to(dev)
+        generator=torch.Generator().manual_seed(args.seed),
+        compute_dtype=args.compute_dtype).to(dev)
     params = dict(model.named_parameters())
     method = get_cdk_method(args.loss_name, model, args.neigs,
                             step=args.nsvd_step,
@@ -229,6 +230,7 @@ def _span(timings, name, dev):
 
 def main(args):
     logging.basicConfig(level=logging.INFO)
+    torch.set_float32_matmul_precision("highest")
     os.makedirs(args.log_dir, exist_ok=True)
     loaders = [SketchyVGGDataLoader(args.batch_size, root_path=args.root_dir,
                                     split=args.sketchy_split,

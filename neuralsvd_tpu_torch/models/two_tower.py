@@ -7,9 +7,14 @@ radius-√μ L2 ball (the CDK loss's boundedness constraint).  Parameters are
 ``{"x.layers.<i>.w", "x.layers.<i>.b", "y.layers.<i>.w", ...}``, with
 weights (in, out) as in the JAX tree ``{"x": {"layers": [{"w", "b"}]}}``.
 
-Not ported yet: ``compute_dtype`` (bf16 towers, ROADMAP queue 1, item
-[7a]), the ``num_classes`` online heads and ``make_siam_network`` (item
-[7b]).
+``compute_dtype`` (e.g. ``torch.bfloat16``, the Sketchy script's
+``--compute_dtype bf16``) runs each tower's chain in that dtype: its
+parameters and input are cast inside the forward and its output is cast
+back to float32 before ``normalize_embedding``, as JAX's ``apply_single``
+does (``two_tower.py:172-177``), so master weights, gradients and the CDK
+loss's inputs stay float32; retrieval (``apply_single``) runs the towers
+in it too.  Not ported yet: the ``num_classes`` online heads and
+``make_siam_network`` (ROADMAP queue 1, item [7b]).
 """
 from __future__ import annotations
 
@@ -43,16 +48,20 @@ def normalize_embedding(z: torch.Tensor, r_up: float, mode: str) -> torch.Tensor
 
 class HeteroNetwork(nn.Module):
     """Two independent MLP towers: ``forward(x, y) -> (fx, gy)``;
-    ``apply_single(v, "x"|"y")`` embeds one side (retrieval time)."""
+    ``apply_single(v, "x"|"y")`` embeds one side (retrieval time); the
+    towers' chain in ``compute_dtype`` (None: float32)."""
 
     def __init__(self, input_dim: int, network_dims: Sequence[int],
                  nonlinearity: str = "lrelu0.2", mu: float = 1.0,
                  regularize_mode: str = "l2_ball",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 compute_dtype=None):
         super().__init__()
         sizes = [input_dim] + list(network_dims)
-        self.x = MLP(sizes, nonlinearity, generator=generator)
-        self.y = MLP(sizes, nonlinearity, generator=generator)
+        self.x = MLP(sizes, nonlinearity, generator=generator,
+                     compute_dtype=compute_dtype)
+        self.y = MLP(sizes, nonlinearity, generator=generator,
+                     compute_dtype=compute_dtype)
         self.r_up = math.sqrt(mu)
         self.regularize_mode = regularize_mode
 

@@ -177,7 +177,8 @@ def make_wavefunctions(
 ) -> Wavefunction:
     """Build the wavefunction model on ``device`` (default: the GPU).
 
-    Weights are drawn on the CPU from ``generator`` (default:
+    ``compute_dtype`` and ``matmul_precision`` reach the tower network
+    (``models/mlp.py``), as in JAX (``wavefunctions.py:134-164``).  Weights are drawn on the CPU from ``generator`` (default:
     ``torch.Generator().manual_seed(seed)``) and then moved, so the same
     seed gives the same model on every device.
     """

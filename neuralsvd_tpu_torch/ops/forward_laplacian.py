@@ -35,7 +35,9 @@ Rules, with the JAX rule each ports:
   the branch the value takes, the a.e. derivative, as nested JVPs give;
 - rounding, sign, detach and ``*_like`` (``_cmp_rule``); comparisons need no
   rule (a mask has no channels);
-- matmul, einsum, linear (``_dot_general_rule``);
+- matmul, einsum, linear (``_dot_general_rule``), and the towers' tiered
+  product ``models.mlp.tower_product`` (its stacked product call made at
+  the tower's precision);
 - ``torch.logsumexp``, with the max held constant as ``jax.nn.logsumexp``
   holds it: with p = softmax(x), j' = Σ p·j and
   l' = Σ p·l + Σ_d (Σ p·j_d² − (Σ p·j_d)²);
@@ -680,6 +682,24 @@ def _einsum_rule(func, args, kwargs):
     duals = [i for i, o in enumerate(ops) if isinstance(o, Dual)]
     if "..." in eq or len(duals) > 2 or (len(duals) == 2 and len(ops) > 2):
         return fallback_rule(func, args, kwargs)
+    return _einsum_channels(eq, ops, torch.einsum)
+
+
+def _tower_product_rule(func, args, kwargs):
+    """``models.mlp.tower_product(eq, a, b, precision)``: the einsum rule,
+    with every product call (the stacked channels' one, and the cross term
+    of two duals) made by ``tower_product`` at the same precision, as JAX's
+    interpreter carries ``precision`` on the ``dot_general`` it reads."""
+    eq = args[0].replace(" ", "")
+    precision = _arg(args, kwargs, 3, "precision")
+    return _einsum_channels(eq, [args[1], args[2]],
+                            lambda spec, *o: func(spec, *o, precision=precision))
+
+
+def _einsum_channels(eq, ops, einsum):
+    """The channels of ``einsum(eq, *ops)`` (one or two dual operands; two
+    only in a two-operand product), each product call made by ``einsum``."""
+    duals = [i for i, o in enumerate(ops) if isinstance(o, Dual)]
     if "->" in eq:
         lhs, out = eq.split("->")
     else:
@@ -701,7 +721,7 @@ def _einsum_rule(func, args, kwargs):
         def product(stacked):
             o = list(operands)
             o[i] = stacked
-            return torch.einsum(spec, *o)
+            return einsum(spec, *o)
 
         return _one_dual_product(product, ops[i], pos, opos)
 
@@ -712,7 +732,7 @@ def _einsum_rule(func, args, kwargs):
     _, jb, lb = single(1, vals)
     j, l = _add(ja, jb), _add(la, lb)
     if a.j is not None and b.j is not None:
-        cross = torch.einsum(f"{c}{subs[0]},{c}{subs[1]}->{out}", a.j, b.j)
+        cross = einsum(f"{c}{subs[0]},{c}{subs[1]}->{out}", a.j, b.j)
         l = _add(l, 2.0 * cross)
     return make_dual(v, j, l)
 
@@ -821,6 +841,7 @@ _RULES.update({
     "logsumexp": _logsumexp_rule,
     "matmul": _matmul_rule, "__matmul__": _matmul_rule,
     "__rmatmul__": _matmul_rule, "einsum": _einsum_rule, "linear": _linear_fn_rule,
+    "tower_product": _tower_product_rule,
 })
 
 

@@ -3,13 +3,18 @@
 Port of ``neuralsvd_tpu/training/optimizers.py``: ``torch_rmsprop``
 (:26-50), ``cosine_annealing`` (:59), ``warmup_cosine_schedule``
 (:70-82), ``reject_spikes`` (:91), ``assert_mode_axis_unambiguous``
-(:130), ``per_mode_lr`` (:158) and ``build_optimizer`` (:198-245) for
-"rmsprop", "adam" and "sgd".  RMSprop has the update order
-of ``torch.optim.RMSprop``:
+(:130), ``per_mode_lr`` (:158), ``lars`` (:190) and ``build_optimizer``
+(:198-245) for every name it takes: "rmsprop", "adam", "adamw", "sgd" and
+"lars".  RMSprop has the update order of ``torch.optim.RMSprop``:
     v <- alpha*v + (1-alpha)*g²;  update = -lr · g / (sqrt(v) + eps)
-(eps outside the sqrt), with optional momentum.  "sgd" is optax's chain
-``add_decayed_weights`` -> ``trace`` -> -lr·schedule(count); "adam" is
-``scale_by_adam`` (eps 1e-7) -> -lr·schedule(count).
+(eps outside the sqrt), with optional momentum.  The others are optax
+chains: "sgd" is ``add_decayed_weights`` -> ``trace`` ->
+-lr·schedule(count); "adam" is ``scale_by_adam`` (eps 1e-7) ->
+-lr·schedule(count); "adamw" is ``scale_by_adam`` ->
+``add_decayed_weights`` (the decay after Adam's scaling) ->
+-lr·schedule(count); "lars" is ``add_decayed_weights`` ->
+``scale_by_trust_ratio`` (0.001) -> ``trace(momentum)`` ->
+-lr·schedule(count).
 
 Every update is written out over dicts of tensors, like the optax
 transformations it ports, so a train step can keep the old state where a
@@ -17,8 +22,7 @@ step is skipped without a host sync (``select_state``): schedule counts
 are device tensors and are kept too, as the JAX step keeps every array
 leaf of its optimizer state.  Schedules and ``reject_spikes`` are
 functions of those device counts and read nothing on the host, so an
-update may be captured in a CUDA graph.  Not ported yet (ROADMAP queue 1,
-item 7, the CDK remainder): "adamw" and "lars".
+update may be captured in a CUDA graph.
 """
 from __future__ import annotations
 
@@ -141,6 +145,22 @@ def _trace(decay: float) -> Optimizer:
     return Optimizer(init, update)
 
 
+def _scale_by_trust_ratio(trust_coefficient: float) -> Optimizer:
+    """optax's ``scale_by_trust_ratio`` (min_norm 0, eps 0): each tensor's
+    update times c·‖p‖/‖u‖, or times 1 where either norm is 0."""
+    def update(grads, state, params):
+        out = {}
+        for k, u in grads.items():
+            p_norm = torch.linalg.vector_norm(params[k])
+            u_norm = torch.linalg.vector_norm(u)
+            ratio = trust_coefficient * p_norm / u_norm
+            zero = (p_norm == 0) | (u_norm == 0)
+            out[k] = u * torch.where(zero, torch.ones_like(ratio), ratio)
+        return out, state
+
+    return Optimizer(lambda params: (), update)
+
+
 def _scale_by_adam(b1: float = 0.9, b2: float = 0.999,
                    eps: float = 1e-7) -> Optimizer:
     def init(params):
@@ -252,12 +272,20 @@ def per_mode_lr(scales, neigs: int) -> Optimizer:
     return Optimizer(lambda params: (), update)
 
 
+def lars(learning_rate, weight_decay: float = 0.0, momentum: float = 0.9,
+         trust_coefficient: float = 0.001) -> Optimizer:
+    """Layer-wise adaptive rate scaling, as the JAX package chains it."""
+    return chain(_add_decayed_weights(weight_decay),
+                 _scale_by_trust_ratio(trust_coefficient), _trace(momentum),
+                 _scale_by_lr(learning_rate))
+
+
 def build_optimizer(name: str, learning_rate: float, momentum: float = 0.0,
                     weight_decay: float = 0.0, rmsprop_decay: float = 0.999,
                     adam_eps: float = 1e-7,
                     lr_schedule: Optional[Callable] = None,
                     spike_reject_factor: float = 0.0) -> Optimizer:
-    """"sgd", "adam" or "rmsprop"; ``lr_schedule(count)`` replaces the
+    """"sgd", "adam", "adamw", "lars" or "rmsprop"; ``lr_schedule(count)`` replaces the
     constant ``learning_rate`` where given; ``spike_reject_factor`` > 0
     chains ``reject_spikes`` before it."""
     base = _build_base(name, learning_rate, momentum, weight_decay,
@@ -280,6 +308,11 @@ def _build_base(name, learning_rate, momentum, weight_decay, rmsprop_decay,
         return chain(core, _scale_by_lr(lambda c: -lr(c)))
     if name == "adam":
         return chain(_scale_by_adam(eps=adam_eps), _scale_by_lr(lr))
+    if name == "adamw":
+        return chain(_scale_by_adam(eps=adam_eps),
+                     _add_decayed_weights(weight_decay), _scale_by_lr(lr))
+    if name == "lars":
+        return lars(lr, weight_decay=weight_decay, momentum=momentum)
     if name == "sgd":
         parts = []
         if weight_decay:
@@ -288,8 +321,7 @@ def _build_base(name, learning_rate, momentum, weight_decay, rmsprop_decay,
             parts.append(_trace(momentum))
         parts.append(_scale_by_lr(lr))
         return chain(*parts)
-    raise NotImplementedError(
-        f"optimizer {name!r} is not ported yet (ROADMAP queue 1, item 7)")
+    raise NotImplementedError(name)
 
 
 def select_state(keep_new, new, old):

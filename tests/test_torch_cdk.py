@@ -233,7 +233,11 @@ def test_warmup_cosine_schedule_matches_jax():
     ("sgd", dict(momentum=0.9, weight_decay=1e-2)),
     ("sgd", dict(momentum=0.0)),
     ("rmsprop", dict(momentum=0.9)),
-], ids=["adam", "sgd-momentum-wd", "sgd", "rmsprop"])
+    ("adamw", dict(weight_decay=1e-2)),
+    ("lars", dict(momentum=0.9, weight_decay=1e-2)),
+    ("lars", dict(momentum=0.0)),
+], ids=["adam", "sgd-momentum-wd", "sgd", "rmsprop", "adamw", "lars-momentum-wd",
+        "lars"])
 @pytest.mark.parametrize("scheduled", [False, True])
 def test_build_optimizer_matches_jax(name, kwargs, scheduled):
     """Three updates on identical gradients (rtol 1e-5: the same f32
@@ -261,9 +265,28 @@ def test_build_optimizer_matches_jax(name, kwargs, scheduled):
 
 
 def test_unported_optimizers_raise():
-    for name in ("adamw", "lars"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_optimizer(name, 1e-3)
+    """adamw and lars (once refused) against optax where the order of their
+    parts shows: adamw decays after Adam's scaling, and lars takes a trust
+    ratio of 1 for a tensor whose parameter or update norm is 0 (rtol
+    1e-5); an unknown name still raises."""
+    params = {"zero": np.zeros((3, 4), np.float32),
+              "w": np.arange(12, dtype=np.float32).reshape(3, 4) / 7,
+              "still": np.ones((5,), np.float32)}
+    grads = {"zero": np.full((3, 4), 0.5, np.float32),
+             "w": np.linspace(-1, 1, 12, dtype=np.float32).reshape(3, 4),
+             "still": np.zeros((5,), np.float32)}
+    for name, kw in (("adamw", dict(weight_decay=0.1)),
+                     ("lars", dict(momentum=0.9, weight_decay=0.0))):
+        jopt = jax_build_optimizer(name, 1e-2, **kw)
+        topt = build_optimizer(name, 1e-2, **kw)
+        jp = {k: jnp.asarray(v) for k, v in params.items()}
+        tp = {k: torch.tensor(v) for k, v in params.items()}
+        ju, _ = jopt.update({k: jnp.asarray(v) for k, v in grads.items()}, jopt.init(jp), jp)
+        tu, _ = topt.update({k: torch.tensor(v) for k, v in grads.items()}, topt.init(tp), tp)
+        for k in params:
+            _close(tu[k].numpy(), ju[k], 1e-5, 1e-9, err_msg=f"{name} {k}")
+    with pytest.raises(NotImplementedError):
+        build_optimizer("lamb", 1e-3)
 
 
 # -- the train step ----------------------------------------------------------

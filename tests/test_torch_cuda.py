@@ -490,3 +490,35 @@ def test_a_step_that_reads_the_host_fails_to_capture(cuda_device):
     block = ScannedTrainStep(reads_the_host, GRAPH_STEPS, seed=7)
     with pytest.raises(RuntimeError):
         block(ts, 0)
+
+
+@pytest.mark.cuda
+def test_tiers_error_ordering_on_the_card(cuda_device):
+    """A per-mode tower product at each tier against float64 on the card:
+    "highest" (IEEE) and "high" (3xTF32) within 2^-18 of the largest
+    entry, "default" (one TF32 pass) between 2^-16 and 2^-8, in that
+    order; the backward products at the tier too; and the float32 matmul
+    precision is "highest" again after each tiered call."""
+    from neuralsvd_tpu_torch.models.mlp import tower_product
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    w = torch.randn(16, 128, 2053, generator=gen, device=cuda_device)
+    x = torch.randn(512, 2053, generator=gen, device=cuda_device)
+    exact = torch.einsum("lhd,bd->lhb", w.double(), x.double())
+    scale = exact.abs().max().item()
+    torch.set_float32_matmul_precision("highest")
+    err, grad_err = {}, {}
+    g = torch.randn(exact.shape, generator=gen, device=cuda_device)
+    grad_exact = torch.einsum("lhb,bd->lhd", g.double(), x.double())
+    for tier in ("highest", "high", "default"):
+        wr = w.clone().requires_grad_()
+        out = tower_product("lhd,bd->lhb", wr, x, tier)
+        (gw,) = torch.autograd.grad(out, wr, g)
+        assert torch.get_float32_matmul_precision() == "highest"
+        err[tier] = (out.double() - exact).abs().max().item() / scale
+        grad_err[tier] = ((gw.double() - grad_exact).abs().max()
+                          / grad_exact.abs().max()).item()
+    assert err["highest"] <= 2.0 ** -18 and err["high"] <= 2.0 ** -18
+    assert 2.0 ** -16 <= err["default"] <= 2.0 ** -8
+    assert max(err["highest"], err["high"]) < err["default"]
+    assert max(grad_err["highest"], grad_err["high"]) < grad_err["default"] <= 2.0 ** -8

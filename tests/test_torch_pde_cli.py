@@ -149,8 +149,10 @@ def test_shared_trunk_unported_options_raise():
         make_mlp_eigfuncs(2, 4, [8], "softplus", weight_normalization=True)
     with pytest.raises(NotImplementedError, match="item 6"):
         make_mlp_eigfuncs(2, 4, [8], "softplus", bias=False)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        make_mlp_eigfuncs(2, 4, [8], "softplus", matmul_precision="high")
+    # the tiers are ported: the shared trunk takes one, not a split spec
+    assert make_mlp_eigfuncs(2, 4, [8], "softplus", matmul_precision="high").precision == "high"
+    with pytest.raises(ValueError, match="ParallelMLP"):
+        make_mlp_eigfuncs(2, 4, [8], "softplus", matmul_precision="highest@1,high")
     params = jax_mlp.make_mlp([2, 3], weight_normalization=True)[0](jax.random.key(0))
     with pytest.raises(NotImplementedError, match="item 6"):
         params_from_jax({"base": jax.tree.map(np.asarray, params)})
@@ -426,8 +428,8 @@ def _float64_eigvals(cfg, model_kw, state):
     return (torch.diagonal(quad) / torch.diagonal(cov)).numpy()
 
 
-# rescue, exp-mask, cosine, neuralef, fp, spin and spinx are ported now:
-# those cases train (match None)
+# rescue, exp-mask, cosine, neuralef, fp, spin, spinx and the precision
+# tiers are ported now: those cases train (match None)
 @pytest.mark.parametrize("kw,match", [
     (dict(loss=config.LossConfig(name="neuralef")), None),
     (dict(loss=config.LossConfig(name="spin")), None),
@@ -435,7 +437,7 @@ def _float64_eigvals(cfg, model_kw, state):
     (dict(problem="fp"), None),
     (dict(mesh="dp"), "item 9"),
     (dict(rescue=True, parallel=True), None),
-    (dict(matmul_precision="high"), "item 10"),
+    (dict(matmul_precision="high"), None),
     (dict(apply_exp_mask=True), None),
     (dict(potential_type="cosine"), None),
 ], ids=["neuralef", "spin", "spinx", "fp", "mesh", "rescue", "precision", "exp-mask",

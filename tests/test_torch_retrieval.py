@@ -277,15 +277,28 @@ def test_main_runs_from_a_feature_root(tmp_path):
     assert len(_csv_rows(tmp_path / "log")) == 1
 
 
+# ids as when bf16 towers and lars raised (item 7); they build and train
+# now (match None), --mesh still raises
 @pytest.mark.parametrize("argv,match", [
     (["--mesh", "dp"], "item 9"),
-    (["--compute_dtype", "bf16"], "item 7"),
-    (["--optimizer", "lars"], "item 7"),
-])
+    (["--compute_dtype", "bf16"], None),
+    (["--optimizer", "lars", "--momentum", "0.9", "--weight_decay", "1e-4"], None),
+], ids=["argv0-item 9", "argv1-item 7", "argv2-item 7"])
 def test_unported_options_raise(argv, match):
     args = get_args(["--device", "cpu", "--network_dims", "8,4", "--neigs", "4"] + argv)
-    with pytest.raises(NotImplementedError, match=match):
-        cli.make_trainer(args, input_dim=6, steps_per_epoch=1)
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            cli.make_trainer(args, input_dim=6, steps_per_epoch=1)
+        return
+    tr = cli.make_trainer(args, input_dim=6, steps_per_epoch=1)
+    rng = np.random.default_rng(0)
+    x, y = (torch.as_tensor(rng.normal(size=(16, 6)).astype(np.float32)) for _ in range(2))
+    before = {k: p.detach().clone() for k, p in tr.params.items()}
+    skips = torch.zeros((), dtype=torch.int32)
+    params, _, _, loss, _, skips = tr.step(tr.params, tr.opt_state, {}, x, y, skips)
+    assert torch.isfinite(loss) and int(skips) == 0
+    assert all(p.dtype == torch.float32 for p in params.values())
+    assert any(not torch.equal(params[k], before[k]) for k in before)
 
 
 class _FrozenClock:
