@@ -11,15 +11,17 @@ seconds:
 2. build      the hand-written kernels, one nvcc call into an emptied
               neuralsvd_tpu_torch/csrc/build/, and each kernel's registers,
               shared memory and spills from ptxas (no spill allowed);
-3. kernels    each kernel against its plain PyTorch version at eight shapes
+3. kernels    each kernel against its plain PyTorch version at ten shapes
               (E4, two odd ones, 1000 x 129 halves one column past K1's
               64-wide tiles, the CDK path's 4096 x 513 pair, the two PDE
-              recipes' 512 x 36 and 512 x 55, and the Fokker–Planck
-              recipe's 512 x 7), and CUDA-event timings of kernel, plain
-              version and library call; and the EVD packaging of the three
-              (forward and backward) against the plain EVD loss at the E4,
-              recipe and Fokker–Planck shapes, timed beside the sum of its
-              kernels' bounds;
+              recipes' 512 x 36 and 512 x 55, the Fokker–Planck
+              recipe's 512 x 7, and the kernel-operator path's 4096 x 16
+              and its split batch, (f1, f2) and (f1, Kf1) of 2048 x 16),
+              and CUDA-event timings of kernel, plain version and library
+              call; and the EVD packaging of the three (forward and
+              backward) against the plain EVD loss at the E4, recipe,
+              Fokker–Planck and kernel-path shapes, timed beside the sum of
+              its kernels' bounds;
 4. trainer    the hydrogen-2D E4 configuration at full width (L = 16,
               B = 512, per-mode 128³ softplus towers, 1024 Fourier maps +
               radial + 4 envelopes, gaussian_mixture sampling with √w
@@ -132,7 +134,34 @@ seconds:
               graph-block steps/s in turns; and the E4 towers in bf16
               (compute_dtype) on the card against a CPU copy, with their
               forward-engine Laplacian finite;
-13. cdk_bf16  the Sketchy script as written (CDK_ARGV plus --compute_dtype
+13. pde_spin_exact  SpIN and SpINx on the E4 flags with the exact
+              Laplacian's forward engine in grad mode (--loss spin|spinx,
+              --laplacian_eps -1 --laplacian_mode forward, full width),
+              SPIN_EXACT_ITERS steps each in graph blocks of RECIPE_BLOCK
+              with one eval, then SpIN on SPIN_HUTCH_PROBES Hutchinson
+              probes for SPIN_HUTCH_ITERS: every loss finite, no skipped
+              step, one capture, no fallback-rule call, no gram kernel
+              launched, one block as a graph against the same block as
+              eager steps, one loss_and_grad on the card against a CPU
+              copy (float64, 64 rows); steps/s, peak device memory and
+              j_avg bytes (16·P·4); and the checkpoint API on SpIN's state:
+              save_resumable after a block, load_resumable into a fresh
+              template on the card, the next block bit for bit with the
+              straight run, and load_pretrained of the run's ckpt EMA
+              parameters into a fresh model whose eval outputs equal the
+              run's (bytes and seconds of each);
+14. kernel_evd the kernel-operator EVD path: an RBF kernel on 2D
+              standard-normal samples at B KEVD_B, L KEVD_L, per-mode 128³
+              towers and the weight-normalized bias-free shared trunk 128³:
+              NestedLoRA's loss_and_grad_kernel with and without
+              split_batch through K1-K3 (one launch each a call) against
+              the plain path; NeuralEF, SpIN and SpINx on the card against
+              a CPU copy (float64); then train_operator on a fixed
+              KEVD_B-landmark KernelOperator for KEVD_ITERS steps in graph
+              blocks with one eval: losses finite, no skipped step,
+              eigenvalues positive (the kernel is PSD), one capture, the
+              kernels' launches measured as in pde_cli, steps/s;
+15. cdk_bf16  the Sketchy script as written (CDK_ARGV plus --compute_dtype
               bf16) through run_training: every loss finite, no skipped
               step, one launch of each kernel a step, float32 master
               weights, P@100 and mAP beside the f32 run's; the card's bf16
@@ -145,8 +174,8 @@ seconds:
               group: GEMMs, gram kernels, the rest; costliest kernels).
 
 Then the {"kernels": [...]} line (numbers at the CDK shape, launches of
-the eight main paths (e4 trainer, pde_cli, hydrogen, oscillator, fp, cdk,
-pde_tiers, cdk_bf16; the
+the nine main paths (e4 trainer, pde_cli, hydrogen, oscillator, fp, cdk,
+pde_tiers, cdk_bf16, kernel_evd; the
 CLI paths' are the eager launches counted by the wrappers plus the
 replayed launches counted in the traced block, each also under "paths"),
 per-path numbers under "paths", every shape's under "shapes"), the
@@ -173,15 +202,16 @@ import torch
 
 from neuralsvd_tpu_torch.cli import pde
 from neuralsvd_tpu_torch.cli.sketchy import get_args, make_trainer, run_training
-from neuralsvd_tpu_torch.data.samplers import get_sampler
+from neuralsvd_tpu_torch.data.samplers import get_sampler, make_val_grid
 from neuralsvd_tpu_torch.data.sketchy import ArrayPairLoader
 from neuralsvd_tpu_torch.methods.nestedlora import NestedLoRA
 from neuralsvd_tpu_torch.methods.nystrom import Nystrom, run_nystrom
 from neuralsvd_tpu_torch.methods.spin import PROFILE_RANGES as SPIN_PARTS
 from neuralsvd_tpu_torch.methods.spin import SpIN
 from neuralsvd_tpu_torch.methods.spectrum import compute_spectrum_evd
-from neuralsvd_tpu_torch.models.mlp import parse_dims, tower_product
+from neuralsvd_tpu_torch.models.mlp import make_mlp_eigfuncs, parse_dims, tower_product
 from neuralsvd_tpu_torch.models.wavefunctions import make_wavefunctions
+from neuralsvd_tpu_torch.operators.base import KernelOperator
 from neuralsvd_tpu_torch.operators.diff_ops import VectorizedLaplacian
 from neuralsvd_tpu_torch.operators.problems import get_problem
 from neuralsvd_tpu_torch.ops import cuda_build, cuda_gram, forward_laplacian
@@ -195,7 +225,13 @@ from neuralsvd_tpu_torch.ops.masks import (
     step_weights,
 )
 from neuralsvd_tpu_torch.ops.nestedlora import nestedlora_cdk_loss, nestedlora_evd_loss
-from neuralsvd_tpu_torch.training.checkpoint import load_checkpoint, save_checkpoint
+from neuralsvd_tpu_torch.training.checkpoint import (
+    load_checkpoint,
+    load_pretrained,
+    load_resumable,
+    save_checkpoint,
+    save_resumable,
+)
 from neuralsvd_tpu_torch.training.optimizers import (
     build_optimizer,
     cosine_annealing,
@@ -206,6 +242,7 @@ from neuralsvd_tpu_torch.training.train_operator import (
     PROFILE_MARGIN_S,
     make_scanned_train_step,
     make_train_step,
+    train_operator,
 )
 from neuralsvd_tpu_torch.training.train_state import (
     clone_tree,
@@ -342,6 +379,16 @@ SPIN_DENSE_RTOL = 1e-4
 SPIN_EAGER_PROFILED, SPIN_REPLAYED = 5, 20  # steps traced for a step's parts
 TOP_KERNELS = 12  # a profiled replayed block lists its costliest kernels
 
+# SpIN and SpINx on the exact Laplacian's engines: the E4 flags (L 16, B
+# 512, 128³ per-mode softplus towers on 2053 features, the forward engine
+# at --laplacian_eps -1 --laplacian_mode forward) with --loss spin|spinx,
+# SPIN_EXACT_ITERS steps in graph blocks of RECIPE_BLOCK with one eval at
+# the end, then --loss spin on Hutchinson probes (--laplacian_probes
+# SPIN_HUTCH_PROBES) for SPIN_HUTCH_ITERS; the checkpoint API on SpIN's
+# state (save_resumable after one block from the trained state,
+# load_resumable into a fresh template, the next block bit for bit)
+SPIN_EXACT_ITERS, SPIN_HUTCH_ITERS, SPIN_HUTCH_PROBES = 2 * RECIPE_BLOCK, RECIPE_BLOCK, 2
+
 # CDK: the Sketchy paper's configuration (scripts/exps/sketchy.sh:15-36) on
 # synthetic features; joint nesting (the script's intent, see ROADMAP §3)
 CDK_ARGV = ["--network_dims", "8192,512", "--neigs", "512", "--batch_size", "4096",
@@ -381,15 +428,34 @@ TIER_MAX_ERR = {"highest": 2.0 ** -16, "high": 2.0 ** -16, "default": 2.0 ** -6}
 # both sides, in different sums
 BF16_CARD_CPU_ATOL = 2.0 ** -5
 
+# the kernel-operator EVD path (phase kernel_evd): an RBF kernel
+# exp(-|a - b|^2) on 2D standard-normal samples (the kernel and sampler of
+# tests/test_training.py:130-168) at B KEVD_B, L KEVD_L; per-mode 128³
+# softplus towers on the raw input and the shared trunk 128³ with weight
+# normalization and no biases; NestedLoRA's loss_and_grad_kernel with and
+# without split_batch, kernels vs plain on the card; NeuralEF, SpIN and
+# SpINx on the card against a CPU copy on KEVD_CPU_ROWS rows in float64;
+# then train_operator on a fixed KEVD_B-landmark KernelOperator for
+# KEVD_ITERS steps in graph blocks of RECIPE_BLOCK, one eval, the
+# --profile window KEVD_TRACED
+KEVD_B, KEVD_L, KEVD_HIDDEN = 4096, 16, [128, 128, 128]
+KEVD_CPU_ROWS, KEVD_CPU_RTOL = 512, 1e-4
+KEVD_ITERS, KEVD_LR = 1000, 1e-3
+KEVD_TRACED = (2 * RECIPE_BLOCK, RECIPE_BLOCK)
+KEVD_VAL_LIM, KEVD_VAL_EPS = 3.0, 0.05  # the eval grid: 120² points
+
 # full batches (B, L); K1/K3 see the two halves (B/2, L), K2 the whole on
-# the EVD path and the two halves (f, g) on the CDK path
+# the EVD path and the two halves (f, g) on the CDK path; on the kernel
+# path's split batch ("kernel_split") K1/K3 see (f1, f2) of B rows each
+# and K2 the pair (f1, Kf1) of B rows
 KERNEL_SHAPES = [("E4", BATCH, NEIGS), ("unaligned", 96, 5), ("wide", 2048, 64),
                  ("edge", 2000, 129), ("cdk", 2 * CDK_B, CDK_L + 1),
                  ("hydrogen", BATCH, HYDROGEN_L), ("oscillator", BATCH, OSCILLATOR_L),
-                 ("fp", BATCH, FP_L)]
+                 ("fp", BATCH, FP_L), ("kernel_evd", KEVD_B, KEVD_L),
+                 ("kernel_split", KEVD_B // 2, KEVD_L)]
 # the EVD packaging (K1-K3 in the loss's forward and backward) is timed at
 # the shapes of the paths that take it
-PACKAGING_SHAPES = ("E4", "hydrogen", "oscillator", "fp")
+PACKAGING_SHAPES = ("E4", "hydrogen", "oscillator", "fp", "kernel_evd", "kernel_split")
 KERNEL_RTOL = 1e-5   # of the plain version on |inputs|: f32 rounding scale
 LOSS_RTOL = 1e-5     # kernel vs plain loss on one batch
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6  # atol in units of the largest entry
@@ -528,16 +594,21 @@ def phase_build():
 
 
 def _kernel_inputs(label, B, L, gen):
+    """(f, Tf, f1, f2, vector mask, matrix mask): f1, f2 the halves of f,
+    or on the split kernel path f = f1 and an independent f2, B rows each."""
     dev = DEVICE
     f = torch.randn(B, L, generator=gen, device=dev)
     Tf = torch.randn(B, L, generator=gen, device=dev)
-    if label in ("E4", "edge", "fp"):
+    if label in ("E4", "edge", "fp", "kernel_evd", "kernel_split"):
         vmask, mmask = sequential_nesting_masks(L)
     elif label == "cdk":
         vmask, mmask = joint_nesting_masks(step_weights(L - 1), set_first_mode_const=True)
     else:
         vmask, mmask = joint_nesting_masks(step_weights(L))
-    f1, f2 = torch.chunk(f, 2)
+    if label == "kernel_split":
+        f1, f2 = f, torch.randn(B, L, generator=gen, device=dev)
+    else:
+        f1, f2 = torch.chunk(f, 2)
     return (f, Tf, f1, f2, torch.as_tensor(vmask, device=dev),
             torch.as_tensor(mmask, device=dev))
 
@@ -549,7 +620,7 @@ def phase_kernels():
     packaging = []
     for label, B, L in KERNEL_SHAPES:
         f, Tf, f1, f2, vmask, mmask = _kernel_inputs(label, B, L, gen)
-        Bh = B // 2
+        Bh = f1.shape[0]
         # K2's operands: (f, Tf) on the EVD path, the pair (f, g) on the CDK path
         dot_a, dot_b = (f1, f2) if label == "cdk" else (f, Tf)
         Bd = dot_a.shape[0]
@@ -605,21 +676,24 @@ def phase_kernels():
                                    library_ms=library_ms, bound_ms=bound_ms,
                                    bound_by=bound_by))
         if label in PACKAGING_SHAPES:
-            packaging.append(_packaging_row(label, f, Tf, vmask, mmask, rows))
+            packaging.append(_packaging_row(label, f, Tf, f2 if label == "kernel_split" else None,
+                                            vmask, mmask, rows))
     emit("kernels", rtol=KERNEL_RTOL, results=rows)
     emit("kernels_packaging", results=packaging)
     return rows, packaging
 
 
-def _packaging_row(label, f, Tf, vmask, mmask, rows):
+def _packaging_row(label, f, Tf, f2, vmask, mmask, rows):
     """The EVD packaging's forward and backward (one call each of K1, K2
     and K3) against the plain EVD loss on the same (f, Tf): loss at
     LOSS_RTOL, the gradient of f at the gradient tolerances, and the
     CUDA-event ms of each; its bound is the sum of the three kernels'
-    bounds at this shape."""
+    bounds at this shape.  The halves are those of f, or (f, ``f2``) on
+    the split kernel path, as ``loss_and_grad_kernel`` passes them."""
     def run(loss_fn):
         a = f.detach().requires_grad_()
-        loss = loss_fn(a, Tf, *torch.chunk(a, 2), vmask, mmask)
+        halves = torch.chunk(a, 2) if f2 is None else (a, f2)
+        loss = loss_fn(a, Tf, *halves, vmask, mmask)
         return loss, torch.autograd.grad(loss, a)[0]
 
     (loss_k, grad_k), (loss_p, grad_p) = (run(nestedlora_evd_loss_kernels),
@@ -2126,6 +2200,297 @@ def phase_pde_tiers():
             for k in GRAM_KERNELS}
 
 
+def _spin_resumable(cfg, trained, start, tmp):
+    """SpIN's checkpoint API on the card: from ``trained``, one graph block,
+    save_resumable, one more block (the straight run); load_resumable into
+    a fresh template on the card and that same block: the two states equal
+    bit for bit.  The bytes and seconds of the save and the load."""
+    def parts():
+        run = pde.build(cfg)
+        block = make_scanned_train_step(
+            run.method, run.operator, run.optimizer, run.sample,
+            importance=run.importance_train, ema_decay=cfg.ema_decay,
+            steps_per_call=RECIPE_BLOCK, grad_clip=cfg.grad_clip, seed=cfg.seed)
+        return block, init_train_state(run.model, run.optimizer, run.method)
+
+    block, ts = parts()
+    load_state_tree(ts, trained)
+    block(ts, start)
+    path = os.path.join(tmp, "resumable.pt")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_resumable(path, ts, chunk=1)
+    save_s = time.perf_counter() - t0
+    block(ts, start + RECIPE_BLOCK)
+    straight = state_tree(ts)
+    del block, ts
+    block, fresh = parts()
+    t0 = time.perf_counter()
+    loaded, chunk = load_resumable(path, fresh)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    check(loaded is fresh and chunk == 1 and fresh.step.is_cuda, "load_resumable")
+    block(fresh, start + RECIPE_BLOCK)
+    _, bitwise = _state_excess(state_tree(fresh), straight)
+    check(bitwise, "a block after load_resumable differs from the straight run")
+    return {"bytes": os.path.getsize(path), "save_s": save_s, "load_s": load_s,
+            "bit_for_bit": bitwise}
+
+
+def _spin_pretrained(cfg, ts, run_dir, iters):
+    """load_pretrained of the run's ckpt_<iters> EMA parameters into a
+    fresh model: its eval outputs on a val batch equal the run's own (EMA
+    params and method state) bit for bit; the bytes and seconds."""
+    run = pde.build(cfg)
+    params = dict(run.model.named_parameters())
+    path = os.path.join(run_dir, f"ckpt_{iters}")
+    t0 = time.perf_counter()
+    loaded = load_pretrained(path, params, keys=("ema_params",))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    x = torch.as_tensor(next(iter(run.val_batches())), device=DEVICE)
+    with torch.no_grad():
+        for k, p in params.items():
+            p.copy_(loaded[k])
+        got = run.method.eval_apply(params, ts.method_state, x)
+        want = run.method.eval_apply(ts.ema_params, ts.method_state, x)
+    check(torch.equal(got, want), "load_pretrained's model differs from the run's")
+    return {"bytes": os.path.getsize(path), "load_s": load_s, "rows": x.shape[0],
+            "bit_for_bit": True}
+
+
+def _spin_exact_run(tmp, label, loss, iters, **flags):
+    """The E4 flags with --loss ``loss`` on the exact Laplacian's engines:
+    graph blocks, one eval, one capture, no fallback call, no gram kernel,
+    graph vs eager; on the exact engine (no probes) the card against a CPU
+    copy in float64."""
+    argv = _recipe_argv(_with_flags(PDE_E4_ARGV, loss=loss, laplacian_mode="forward", **flags),
+                        iters, iters)
+    cfg = parse_pde_config(argv + ["--device", DEVICE])
+    check(cfg.loss.name == loss and cfg.laplacian_eps <= 0 and cfg.laplacian_mode == "forward"
+          and cfg.neigs == NEIGS and cfg.batch_size == BATCH, f"{loss} flags {cfg}")
+    timings = {}
+    cuda_gram.reset_launch_counts()
+    forward_laplacian.fallback_rule.calls = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ts, eigvals, run_dir, records = _pde_run(argv, os.path.join(tmp, label), timings)
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    fallbacks = forward_laplacian.fallback_rule.calls
+    check(fallbacks == 0, f"{loss}: {fallbacks} fallback-rule calls")
+    counts = cuda_gram.launch_counts()
+    check(not any(counts.values()), f"{loss} launched gram kernels: {counts}")
+    rows, health = _check_run(label, ts, eigvals, run_dir, records, iters, [iters],
+                              neigs=NEIGS)
+    check([n for n, _ in timings.get("block_graph", [])] == [RECIPE_BLOCK] * (iters // RECIPE_BLOCK)
+          and "block_eager" not in timings, f"{loss} blocks {timings}")
+    captures = _records_of(records, "captured a CUDA graph")
+    check(len(captures) == 1, f"{len(captures)} captures in the {loss} run")
+    state = ts.method_state
+    check(all(torch.isfinite(v).all().item() for v in (state["sigma_avg"], state["chol"])),
+          f"{loss} state not finite")
+    out = {"argv": argv, "iters": iters, "run_s": run_s, "rows": rows, "health": health,
+           "eigvals": np.asarray(eigvals[-1]).tolist(), "fallback_calls": fallbacks,
+           "gram_kernel_launches": counts, "captures": len(captures),
+           "params": sum(p.numel() for p in ts.params.values()), "peak_mem_bytes": peak,
+           "eval_s": timings["eval"], "block_s": timings["block_graph"],
+           "graph_block_steps_per_s": _block_rate(timings, "block_graph")}
+    if loss == "spin":
+        j_bytes = sum(j.numel() * j.element_size() for j in state["j_avg"].values())
+        check(j_bytes == NEIGS * out["params"] * 4, f"j_avg holds {j_bytes} bytes")
+        check(all(torch.isfinite(j).all().item() for j in state["j_avg"].values()),
+              "j_avg not finite")
+        out["j_avg_bytes"] = j_bytes
+    trained = state_tree(ts)
+    out["graph_vs_eager"] = _graph_vs_eager(cfg, trained, iters)
+    if not flags:
+        out["card_vs_cpu"] = _spin_card_vs_cpu(cfg, ts)
+    return cfg, ts, trained, run_dir, out
+
+
+def phase_pde_spin_exact():
+    """SpIN and SpINx on the E4 flags with the forward-Laplacian engine in
+    grad mode, SpIN on Hutchinson probes, and the checkpoint API."""
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg, ts, trained, run_dir, spin = _spin_exact_run(tmp, "spin", "spin", SPIN_EXACT_ITERS)
+        spin["resumable"] = _spin_resumable(cfg, trained, SPIN_EXACT_ITERS, tmp)
+        spin["pretrained"] = _spin_pretrained(cfg, ts, run_dir, SPIN_EXACT_ITERS)
+        del ts, trained
+        spinx = _spin_exact_run(tmp, "spinx", "spinx", SPIN_EXACT_ITERS)[-1]
+        hutch = _spin_exact_run(tmp, "hutchinson", "spin", SPIN_HUTCH_ITERS,
+                                laplacian_probes=SPIN_HUTCH_PROBES)[-1]
+    emit("pde_spin_exact", block=RECIPE_BLOCK, spin=spin, spinx=spinx, spin_hutchinson=hutch)
+
+
+def _unit_rbf(a, b):
+    """exp(-|a - b|^2), the kernel of tests/test_training.py:130-168."""
+    return torch.exp(-torch.sum((a[:, None, :] - b[None, :, :]) ** 2, dim=-1))
+
+
+def _kevd_models(device):
+    """The kernel path's two models on ``device``: per-mode 128³ softplus
+    towers on the raw 2D input, and the shared trunk 128³ with weight
+    normalization and no biases."""
+    towers = make_wavefunctions(ndim=2, neigs=KEVD_L, mlp_hidden_dims=KEVD_HIDDEN,
+                                nonlinearity="softplus", parallel=True,
+                                use_fourier_feature=False, apply_boundary=False,
+                                seed=SEED, device=device)
+    trunk = make_mlp_eigfuncs(2, KEVD_L, KEVD_HIDDEN, "softplus", bias=False,
+                              weight_normalization=True,
+                              generator=torch.Generator().manual_seed(SEED)).to(device)
+    return {"towers": towers, "wn_trunk": trunk}
+
+
+def _kernel_op(landmarks):
+    return KernelOperator(_unit_rbf, landmarks)
+
+
+def _kevd_nestedlora(models, x):
+    """NestedLoRA's loss_and_grad_kernel on the card, with and without
+    split_batch, on each model: one launch of K1, K2 and K3 a call, and
+    the kernels against the plain path at LOSS_RTOL / the gradient
+    tolerances."""
+    out = {}
+    for mname, model in models.items():
+        params = dict(model.named_parameters())
+        for split in (False, True):
+            res = {}
+            for label, use_pallas in (("kernels", "auto"), ("plain", False)):
+                method = NestedLoRA(model, KEVD_L, sequential=True, use_pallas=use_pallas)
+                cuda_gram.reset_launch_counts()
+                loss, grads, aux, _ = method.loss_and_grad_kernel(params, {}, x, _kernel_op,
+                                                                  split_batch=split)
+                torch.cuda.synchronize()
+                res[label] = (loss.item(), grads, cuda_gram.launch_counts(), aux["f"].shape)
+            (lk, gk, ck, shape), (lp, gp, cp, _) = res["kernels"], res["plain"]
+            check(all(v == 1 for v in ck.values()) and not any(cp.values()),
+                  f"kernel path {mname} split={split}: launches {ck}, plain {cp}")
+            loss_rel = abs(lk - lp) / abs(lp)
+            check(loss_rel <= LOSS_RTOL, f"kernel path {mname} split={split}: loss {loss_rel:.3g}")
+            out[f"{mname}/{'split' if split else 'whole'}"] = {
+                "loss": lk, "loss_rel": loss_rel, "grad_tol_used": _check_grads(gk, gp),
+                "launches": ck, "f_rows": shape[0]}
+    return out
+
+
+def _kevd_card_vs_cpu(models, x):
+    """NeuralEF, SpIN and SpINx's loss_and_grad_kernel, with and without
+    split_batch, on each model: the card against a CPU copy on
+    KEVD_CPU_ROWS rows, model and state in float64 (the Cholesky
+    whitening amplifies float32 rounding): loss, grads and the new state at
+    rtol KEVD_CPU_RTOL; atol 1e-6 of each state tensor's largest entry,
+    and of the largest gradient entry over all parameters (under NeuralEF's
+    batch norm the output is invariant to the last layer's gains, so their
+    gradient is rounding noise around zero, which no scale of its own
+    bounds)."""
+    from neuralsvd_tpu_torch.methods.factories import get_evd_method
+
+    xs = x[:KEVD_CPU_ROWS].double()
+    out = {}
+    for mname, model in models.items():
+        for name in ("neuralef", "spin", "spinx"):
+            for split in (False, True):
+                res = {}
+                for dev in (DEVICE, "cpu"):
+                    m = copy.deepcopy(model).to(dev).double()
+                    params = dict(m.named_parameters())
+                    method = get_evd_method(name, m, KEVD_L)
+                    loss, grads, _, state = method.loss_and_grad_kernel(
+                        params, method.init_state(params), xs.to(dev), _kernel_op,
+                        split_batch=split)
+                    res[dev] = (loss.item(), clone_tree(grads, "cpu"), clone_tree(state, "cpu"))
+                (lg, gg, sg), (lc, gc, sc) = res[DEVICE], res["cpu"]
+                loss_rel = abs(lg / lc - 1)
+                scale = max(g.abs().max().item() for g in gc.values())
+                grad_excess = max(
+                    ((gg[k] - g).abs() / (KEVD_CPU_RTOL * g.abs() + GRAD_ATOL * scale)).max().item()
+                    for k, g in gc.items())
+                state_excess, _ = _state_excess(sg, sc, KEVD_CPU_RTOL, GRAD_ATOL)
+                key = f"{mname}/{name}/{'split' if split else 'whole'}"
+                check(loss_rel <= KEVD_CPU_RTOL and grad_excess <= 1.0 and state_excess <= 1.0,
+                      f"{key} card vs CPU: loss {loss_rel:.3g}, grads {grad_excess:.3g}x, "
+                      f"state {state_excess:.3g}x the tolerance")
+                out[key] = {"loss": lg, "loss_rel": loss_rel, "grad_tol_used": grad_excess,
+                            "state_tol_used": state_excess}
+    return out
+
+
+def _kevd_train(tmp):
+    """train_operator on a fixed KEVD_B-landmark KernelOperator with
+    NestedLoRA and the towers: KEVD_ITERS steps in graph blocks, one eval;
+    every loss finite, no skipped step, positive eigenvalues (the kernel is
+    PSD); K1-K3 launches measured (eager warm-up and a traced block)."""
+    rng = np.random.default_rng(SEED)
+    landmarks = rng.normal(size=(KEVD_B, 2)).astype(np.float32)
+    model = _kevd_models(DEVICE)["towers"]
+    method = NestedLoRA(model, KEVD_L, sequential=True)
+    sample, _ = get_sampler("gaussian", KEVD_B, 1, 2, 1.0, device=DEVICE)
+    optimizer = build_optimizer("rmsprop", KEVD_LR)
+    _, val_batches, _ = make_val_grid(2, KEVD_VAL_LIM, KEVD_VAL_EPS, KEVD_B)
+    run_dir = os.path.join(tmp, "kernel_evd")
+    rows, timings, records = [], {}, _Records()
+
+    class Writer:
+        def writerow(self, r):
+            rows.append(r)
+
+    cuda_gram.reset_launch_counts()
+    logging.basicConfig(level=logging.INFO)  # as cli.pde.main sets it
+    port_log = logging.getLogger("neuralsvd_tpu_torch")
+    port_log.addHandler(records)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        ts, all_eigvals, _ = train_operator(
+            method, _kernel_op(landmarks), sample, optimizer, model, KEVD_ITERS,
+            val_batches=val_batches, ema_decay=EMA_DECAY, eval_freq=KEVD_ITERS,
+            print_freq=RECIPE_BLOCK, log_writer=Writer(), seed=SEED, timings=timings,
+            profile_dir=os.path.join(run_dir, "profile"), profile_start=KEVD_TRACED[0],
+            profile_steps=KEVD_TRACED[1])
+    finally:
+        port_log.removeHandler(records)
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = [r["train_loss"] for r in rows]
+    check(len(losses) == KEVD_ITERS // RECIPE_BLOCK and np.isfinite(losses).all(),
+          f"kernel_evd losses {losses}")
+    check(not any("skips" in r.args for r in records.records
+                  if r.msg == "%s" and isinstance(r.args, dict)), "kernel_evd skipped steps")
+    check(int(ts.step) == KEVD_ITERS and len(all_eigvals) == 1, "kernel_evd steps and evals")
+    eigvals = np.asarray(all_eigvals[-1])
+    check(np.isfinite(eigvals).all() and (eigvals > 0).all(),
+          f"kernel_evd eigenvalues {eigvals} (the RBF kernel is PSD)")
+    check([n for n, _ in timings.get("block_graph", [])]
+          == [RECIPE_BLOCK] * (KEVD_ITERS // RECIPE_BLOCK), f"kernel_evd blocks {timings}")
+    captures = _records_of(records.records, "captured a CUDA graph")
+    check(len(captures) == 1, f"{len(captures)} captures in the kernel_evd run")
+    launches, traced_kernels = _measured_launches("kernel_evd", run_dir, KEVD_TRACED)
+    return launches, {
+        "iters": KEVD_ITERS, "landmarks": KEVD_B, "run_s": run_s, "losses": losses,
+        "eigvals": eigvals.tolist(), "eval_s": timings["eval"],
+        "block_s": timings["block_graph"], "peak_mem_bytes": peak,
+        "graph_block_steps_per_s": _block_rate(timings, "block_graph"),
+        "launches": launches, "traced_block_kernels_per_step": traced_kernels}
+
+
+def phase_kernel_evd():
+    """The kernel-operator EVD path: every method's loss_and_grad_kernel on
+    the card, and the driver on a fixed-landmark kernel operator."""
+    models = _kevd_models(DEVICE)
+    x = torch.randn(KEVD_B, 2, generator=torch.Generator(device=DEVICE).manual_seed(SEED + 8),
+                    device=DEVICE)
+    nestedlora = _kevd_nestedlora(models, x)
+    card_vs_cpu = _kevd_card_vs_cpu(models, x)
+    with tempfile.TemporaryDirectory() as tmp:
+        launches, train = _kevd_train(tmp)
+    emit("kernel_evd", B=KEVD_B, L=KEVD_L, nestedlora=nestedlora, card_vs_cpu=card_vs_cpu,
+         train=train)
+    return launches
+
+
 def main():
     # full f32 products: TF32 keeps ~3 digits and would break the tolerances
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2138,9 +2503,11 @@ def main():
     recipe_launches = phase_pde_recipes()
     method_launches = phase_pde_methods()
     phase_pde_spin()
+    phase_pde_spin_exact()
     tier_launches = phase_pde_tiers()
+    kernel_evd_launches = phase_kernel_evd()
     measured = {"pde_cli": pde_launches, **recipe_launches, **method_launches,
-                "pde_tiers": tier_launches}
+                "pde_tiers": tier_launches, "kernel_evd": kernel_evd_launches}
     counts = {"e4": e4_counts,
               **{path: {k: v["launches"] for k, v in m.items()} for path, m in measured.items()}}
     phase_hutchinson(model, importance, x)
@@ -2157,7 +2524,8 @@ def main():
                                                       "bound_by", "library_ms")}}
                  for path, shape in (("e4", "E4"), ("pde_cli", "E4"), ("cdk", "cdk"),
                                      ("hydrogen", "hydrogen"), ("oscillator", "oscillator"),
-                                     ("fp", "fp"), ("pde_tiers", "E4"), ("cdk_bf16", "cdk"))}
+                                     ("fp", "fp"), ("pde_tiers", "E4"), ("cdk_bf16", "cdk"),
+                                     ("kernel_evd", "kernel_evd"))}
         for path, m in measured.items():
             paths[path].update(m[kname])
         cdk = paths["cdk"]

@@ -10,15 +10,14 @@ after every eval, ``--resume`` from the latest checkpoint, and
 
 The flags are the JAX CLI's (utils/config.py) plus ``--device`` (default:
 the GPU); every ``--loss`` (neuralsvd, nestedlora, neuralef, spin and
-spinx, whose NTK weights are refreshed after each eval), every potential
-of ``--problem sch``, the Fokker–Planck problem ``--problem fp``, the
-exponential mask, ``--rescue true`` (the mode rescue at evals) and
-``--matmul_precision default|high|highest`` or a split spec
-``'<head>@<k>,<tail>'`` (the towers' products only, models/mlp.py) run.
-Refused before any training, each naming its ROADMAP item: ``--mesh``
-(queue 1, item 9) and ``--loss spin|spinx`` on the forward-Laplacian
-engine or with Hutchinson probes (item 8c: SpIN and SpINx differentiate
-through Tφ, and those have no backward yet).  As in the JAX CLI,
+spinx, whose NTK weights are refreshed after each eval, on every
+Laplacian: finite differences, the forward engine, nested JVPs and
+Hutchinson probes), every potential of ``--problem sch``, the
+Fokker–Planck problem ``--problem fp``, the exponential mask, ``--rescue
+true`` (the mode rescue at evals) and ``--matmul_precision
+default|high|highest`` or a split spec ``'<head>@<k>,<tail>'`` (the towers'
+products only, models/mlp.py) run.  Refused before any training, naming
+its ROADMAP item: ``--mesh`` (queue 1, item 9).  As in the JAX CLI,
 ``--weight_normalization`` reaches no model.
 """
 from __future__ import annotations
@@ -67,14 +66,6 @@ log = logging.getLogger("neuralsvd_tpu_torch.pde")
 
 def check_ported(cfg: PDEConfig) -> None:
     """Raise NotImplementedError for a configuration the port cannot run."""
-    if cfg.loss.name in ("spin", "spinx") and (
-            cfg.laplacian_probes > 0
-            or (cfg.laplacian_eps <= 0 and cfg.laplacian_mode == "forward")):
-        raise NotImplementedError(
-            f"--loss {cfg.loss.name} differentiates through Tφ, and the "
-            "forward-Laplacian engine and the Hutchinson estimator have no backward "
-            "yet (ROADMAP queue 1, item 8c): use --laplacian_eps > 0 or "
-            "--laplacian_mode jvp, without --laplacian_probes")
     if cfg.mesh:
         raise NotImplementedError(
             "--mesh (data parallelism) is not ported yet (ROADMAP queue 1, item 9)")

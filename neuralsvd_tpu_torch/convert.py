@@ -4,7 +4,8 @@
 state dict of ``models.wavefunctions.Wavefunction``: the ParallelMLP's
 ``{"base": {"ws": [(L, h, d), ...], "bs": [(L, h, 1), ...],
 "feature_map": {}}}`` or the shared trunk's ``{"base": {"layers": [{"w":
-(in, out), "b": (out,)}, ...], "feature_map": {}}}``, with the exponential
+(in, out), "b": (out,), "g": (out,)}, ...], "feature_map": {}}}`` (``b``
+absent without biases, ``g`` present under weight normalization), with the exponential
 mask's ``{"mask": {"scales": (L,)}}`` where there is one;
 ``hetero_params_from_jax`` maps the
 two-tower tree ``{"x": {"layers": [{"w": (in, out), "b": (out,)}, ...]},
@@ -37,10 +38,9 @@ def params_from_jax(tree) -> Dict[str, torch.Tensor]:
             out[f"base.{group}.{i}"] = torch.tensor(
                 np.asarray(leaf, dtype=np.float32))
     for i, layer in enumerate(base.get("layers", [])):
-        if set(layer) - {"w", "b"}:
-            raise NotImplementedError(
-                "weight-normalized layers are not ported yet "
-                "(ROADMAP queue 1, item 6)")
+        if set(layer) - {"w", "b", "g"}:
+            raise ValueError(f"unknown leaves {sorted(set(layer) - {'w', 'b', 'g'})} "
+                             "in a shared-trunk layer")
         for name, leaf in layer.items():
             out[f"base.layers.{i}.{name}"] = torch.tensor(
                 np.asarray(leaf, dtype=np.float32))
@@ -61,9 +61,9 @@ def hetero_params_from_jax(tree) -> Dict[str, torch.Tensor]:
     for side in ("x", "y"):
         for i, layer in enumerate(tree[side]["layers"]):
             if set(layer) - {"w", "b"}:
-                raise NotImplementedError(
-                    "weight-normalized layers are not ported yet "
-                    "(ROADMAP queue 1, item 6)")
+                raise ValueError(
+                    "a two-tower layer holds only w and b: the JAX package's "
+                    "make_hetero_network has no weight normalization")
             for name, leaf in layer.items():
                 out[f"{side}.layers.{i}.{name}"] = torch.tensor(
                     np.asarray(leaf, dtype=np.float32))

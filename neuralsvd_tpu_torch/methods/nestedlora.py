@@ -1,7 +1,8 @@
 """NestedLoRA (NeuralSVD): the EVD operator path and the CDK two-tower path.
 
-Port of ``neuralsvd_tpu/methods/nestedlora.py:59-127`` (``NestedLoRA``, the
-operator path) and ``:148-196`` (``NestedLoRAForCDK``).  The model is an
+Port of ``neuralsvd_tpu/methods/nestedlora.py:59-146`` (``NestedLoRA``, the
+operator path and the kernel-operator path) and ``:148-196``
+(``NestedLoRAForCDK``).  The model is an
 ``nn.Module``; parameters travel as a name -> tensor dict and the model is
 applied with ``torch.func.functional_call``, the counterpart of JAX's
 ``apply_fn(params, x)``, so EMA parameters evaluate the same module.
@@ -19,8 +20,12 @@ against 103.4-103.6 through the plain path, in turns in one process
 (profile_torch_e4.py --path cdk), and the E4 step is host bound either
 way.
 
-Not ported yet: the kernel-operator path (``loss_and_grad_kernel``,
-ROADMAP queue 1, item [6]) and the data-parallel ``axis_name`` (item [9]).
+The kernel-operator path (``loss_and_grad_kernel``) goes through the same
+``_evd_loss``, so K1-K3 run on it too: without ``split_batch`` at (B, L)
+as on the operator path; with it the loss is ``_evd_loss(f1, Kf1, f1, f2)``
+(x1's values against x2 as landmarks), so K2 sees the (B/2, L) pair (f1,
+Kf1).  Not ported yet: the data-parallel ``axis_name`` (ROADMAP queue 1,
+item [9]).
 """
 from __future__ import annotations
 
@@ -127,13 +132,35 @@ class NestedLoRA:
         ``fs`` is made contiguous before it is split into the half-batches
         f1/f2 (contiguous row views), as the kernels require.
         """
+        Tf, fs = operator(self._model(params), x, importance)
+        return self._loss_and_grad(params, state, fs, Tf)
+
+    def loss_and_grad_kernel(self, params, state, x, get_approx_kernel_op,
+                             importance=None, split_batch: bool = False):
+        """The kernel-operator path: ``get_approx_kernel_op(landmarks)`` is
+        an operator (``operators.base.KernelOperator``).  Without
+        ``split_batch`` the batch is its own landmarks; with it the first
+        half's values and their smoothing over the second half (Kf1) make
+        the operator term, and the halves (f1, f2) the metric term.
+        Returns as ``loss_and_grad``, aux {f: f1, Tf: Kf1} when split."""
         f = self._model(params)
-        Tf, fs = operator(f, x, importance)
-        if fs.shape[0] % 2:
+        if not split_batch:
+            Tf, fs = get_approx_kernel_op(x)(f, x, importance)
+            return self._loss_and_grad(params, state, fs, Tf)
+        if x.shape[0] % 2:
+            raise ValueError("the batch must split into two equal halves")
+        x1, x2 = torch.chunk(x, 2)
+        Kf1, f1 = get_approx_kernel_op(x2)(f, x1, importance)
+        return self._loss_and_grad(params, state, f1, Kf1, f2=f(x2))
+
+    def _loss_and_grad(self, params, state, fs, Tf, f2=None):
+        """The EVD loss on (fs, Tf) with the halves of fs, or with (fs, f2)
+        as the halves where ``f2`` is given, and its gradients."""
+        if f2 is None and fs.shape[0] % 2:
             raise ValueError("the batch must split into two equal halves")
         fs = fs.contiguous()
         Tf = Tf.contiguous()
-        f1, f2 = torch.chunk(fs, 2)
+        f1, f2 = torch.chunk(fs, 2) if f2 is None else (fs, f2.contiguous())
         loss = self._evd_loss(fs, Tf, f1, f2)
         names = list(params)
         grads = torch.autograd.grad(loss, [params[k] for k in names],

@@ -20,9 +20,10 @@ The EMA state (``norm_biased``, ``norm_unbiased`` (1, L) and
 ``initialized``, a bool tensor) is returned by ``loss_and_grad`` and
 written in place by the train step (``train_state.assign_state``), also
 on a skipped step, as JAX keeps it; so a captured step updates it on
-every replay.  Not ported yet: the kernel-operator path
-(``loss_and_grad_kernel``, ROADMAP queue 1, item [6]) and the
-data-parallel ``axis_name`` (item [9]).
+every replay.  The kernel-operator path (``loss_and_grad_kernel``,
+JAX's :218-241) takes the same loss; split, each half is smoothed over
+the other as landmarks.  Not ported yet: the data-parallel ``axis_name``
+(ROADMAP queue 1, item [9]).
 """
 from __future__ import annotations
 
@@ -194,6 +195,34 @@ class NeuralEigenfunctions:
         Tphi1, Tphi2 = torch.chunk(Tphi, 2)
         loss = neuralef_loss(self.unbiased, self.diagonal, phi, Tphi, phi1, Tphi1,
                              phi2, Tphi2)
+        return self._finish(params, x, collect, loss, phi, Tphi)
+
+    def loss_and_grad_kernel(self, params, state, x, get_approx_kernel_op,
+                             importance=None, split_batch: bool = False):
+        """The kernel-operator path: ``get_approx_kernel_op(landmarks)`` is
+        an operator (``operators.base.KernelOperator``).  Without
+        ``split_batch`` the batch is its own landmarks and every term of
+        the loss sees the whole batch; with it Kφ1 takes the landmarks x2
+        and Kφ2 the landmarks x1.  Returns as ``loss_and_grad``."""
+        model, collect = self._train_model(params, state)
+        if split_batch:
+            if x.shape[0] % 2:
+                raise ValueError("the batch must split into two equal halves")
+            x1, x2 = torch.chunk(x, 2)
+            Kphi1, phi1 = get_approx_kernel_op(x2)(model, x1, importance)
+            Kphi2, phi2 = get_approx_kernel_op(x1)(model, x2, importance)
+            phi, Kphi = torch.cat([phi1, phi2]), torch.cat([Kphi1, Kphi2])
+            loss = neuralef_loss(self.unbiased, self.diagonal, phi, Kphi, phi1, Kphi1,
+                                 phi2, Kphi2)
+        else:
+            Kphi, phi = get_approx_kernel_op(x)(model, x, importance)
+            loss = neuralef_loss(self.unbiased, self.diagonal, phi, Kphi, phi, Kphi,
+                                 phi, Kphi)
+        return self._finish(params, x, collect, loss, phi, Kphi)
+
+    def _finish(self, params, x, collect, loss, phi, Tphi):
+        """The new norm state from the unnormalised outputs on ``x``, and
+        the gradients of ``loss``."""
         with torch.no_grad():
             new_state = collect(self._raw(params, x))  # unnormalised outputs
         names = list(params)
@@ -201,7 +230,3 @@ class NeuralEigenfunctions:
                                     allow_unused=True, materialize_grads=True)
         return (loss.detach(), dict(zip(names, grads)),
                 dict(f=phi.detach(), Tf=Tphi, eigvals=None), new_state)
-
-    def loss_and_grad_kernel(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the kernel-operator path is not ported yet (ROADMAP queue 1, item 6)")

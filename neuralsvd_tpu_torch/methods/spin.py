@@ -25,9 +25,12 @@ The state (``sigma_avg``, ``chol``, ``j_avg``) is updated in place, also
 on a step the driver then skips, as JAX keeps it, and returned as the same
 tensors: a captured step writes it on every replay without a copy.  The
 Cholesky factor is NaN where its matrix is not positive definite, as
-``jnp.linalg.cholesky`` returns, without a host read.  Not ported yet: the
-kernel-operator path (``loss_and_grad_kernel``, ROADMAP queue 1, item 6)
-and the data-parallel ``axis_name`` (item 9).
+``jnp.linalg.cholesky`` returns, without a host read.  The kernel-operator
+path (``loss_and_grad_kernel``, :126-171) is the operator path with the
+batch as its own landmarks; split, σ comes from [φ1; φ2] while π and the
+Jacobian come from the first half (x2 its landmarks), JAX's ``jacrev`` of
+2/B φ1_sgᵀ φ1(θ) being the compact ``_jacobian`` on x1 with φ1 detached.
+Not ported yet: the data-parallel ``axis_name`` (ROADMAP queue 1, item 9).
 """
 from __future__ import annotations
 
@@ -170,15 +173,51 @@ class SpIN:
         """(loss, grads {name: tensor}, aux {f, Tf, eigvals}, state); the
         state's tensors are updated in place and returned.  Its three parts
         run in the profiler ranges ``PROFILE_RANGES``."""
+        def pi_inputs():
+            Tphi, phi = operator(lambda xx: self._apply(params, xx), x, importance,
+                                 with_graph=True)
+            return Tphi, phi, phi.detach(), x
+
+        return self._step(params, state, pi_inputs)
+
+    def loss_and_grad_kernel(self, params, state, x, get_approx_kernel_op,
+                             importance=None, split_batch: bool = False):
+        """The kernel-operator path: ``get_approx_kernel_op(landmarks)`` is
+        an operator (``operators.base.KernelOperator``).  Without
+        ``split_batch`` it is ``loss_and_grad`` with the batch as its own
+        landmarks; with it σ comes from [φ1; φ2] and π, the π channel's VJP
+        and the Jacobian from x1 (landmarks x2).  Returns as
+        ``loss_and_grad``, aux {f: φ1, Tf: Kφ1} when split."""
+        if not split_batch:
+            def op(model, xx, imp=None, **kw):
+                return get_approx_kernel_op(xx)(model, xx, imp, **kw)
+
+            return self.loss_and_grad(params, state, x, op, importance)
+        if x.shape[0] % 2:
+            raise ValueError("the batch must split into two equal halves")
+        x1, x2 = torch.chunk(x, 2)
+
+        def pi_inputs():
+            model = lambda xx: self._apply(params, xx)  # noqa: E731
+            Kphi1, phi1 = get_approx_kernel_op(x2)(model, x1, importance, with_graph=True)
+            with torch.no_grad():  # φ2 enters σ only, which takes no gradient
+                phi2 = model(x2)
+            return Kphi1, phi1, torch.cat([phi1.detach(), phi2]), x1
+
+        return self._step(params, state, pi_inputs)
+
+    def _step(self, params, state, pi_inputs):
+        """The step of ``loss_and_grad`` on ``pi_inputs() -> (Tφ, φ with
+        their graphs, the rows of σ's batch, the input of φ's rows)``."""
         names = list(params)
         pi_range, sigma_range, j_range = PROFILE_RANGES
         with record_function(pi_range):
-            Tphi, phi = operator(lambda xx: self._apply(params, xx), x, importance,
-                                 with_graph=True)
+            Tphi, phi, phi_sigma, x = pi_inputs()
             B = phi.shape[0]
             phi_d, Tphi_d = phi.detach(), Tphi.detach()
             with torch.no_grad():
-                sigma_avg = state["sigma_avg"].lerp_(phi_d.T @ phi_d / B, self.decay)
+                sigma = phi_sigma.T @ phi_sigma / phi_sigma.shape[0]
+                sigma_avg = state["sigma_avg"].lerp_(sigma, self.decay)
                 pi = phi_d.T @ Tphi_d / B
                 loss, eigvals, chol, gsigma, gpi = spin_grad_matrices(sigma_avg, pi)
                 state["chol"].copy_(chol)
@@ -196,7 +235,3 @@ class SpIN:
                 j = state["j_avg"][k].lerp_(j_new.pop(k), self.decay)
                 grads[k] = g_pi + self._contract(k, gsigma, j)
         return loss, grads, dict(f=phi_d, Tf=Tphi_d, eigvals=eigvals), state
-
-    def loss_and_grad_kernel(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the kernel-operator path is not ported yet (ROADMAP queue 1, item 6)")

@@ -9,8 +9,11 @@ eval's whitening; the (L+1) loss weights are refreshed between blocks
 from the squared gradient norms of the (L+1) losses, each its own
 backward, so the (L+1) x P Jacobian is never held.  The state is written
 in place (``sigma_avg`` and ``chol`` by the step, ``weights`` by the
-refresh), which keeps a captured step's tensors.  Not ported yet: the
-kernel-operator path (ROADMAP queue 1, item 6) and ``axis_name`` (item 9).
+refresh), which keeps a captured step's tensors.  The kernel-operator path
+(``loss_and_grad_kernel``, and ``refresh_weights`` with ``kernel_op``,
+:65-121) takes the batch as its own landmarks, or split, φ1 against the
+landmarks x2 with σ from [φ1; φ2] (φ2 with its graph: σ enters the
+loss).  Not ported yet: ``axis_name`` (ROADMAP queue 1, item 9).
 """
 from __future__ import annotations
 
@@ -53,16 +56,41 @@ class SpINx:
     def _apply(self, params, x):
         return functional_call(self.model, params, (x,))
 
-    def _loss_vector(self, params, x, operator, importance):
-        Tphi, phi = operator(lambda xx: self._apply(params, xx), x, importance,
-                             with_graph=True)
-        losses, sigma = spinx_losses(phi, Tphi, phi)
+    def _loss_vector(self, params, x, operator, importance, split_batch=False,
+                     kernel_op=None):
+        """((L+1,) losses, σ, φ, Tφ) on the operator, or with ``kernel_op``
+        (``landmarks -> operator``) on the kernel path, split or not."""
+        model = lambda xx: self._apply(params, xx)  # noqa: E731
+        if kernel_op is None:
+            Tphi, phi = operator(model, x, importance, with_graph=True)
+            phi_sigma = phi
+        elif split_batch:
+            if x.shape[0] % 2:
+                raise ValueError("the batch must split into two equal halves")
+            x1, x2 = torch.chunk(x, 2)
+            Tphi, phi = kernel_op(x2)(model, x1, importance, with_graph=True)
+            phi_sigma = torch.cat([phi, model(x2)])
+        else:
+            Tphi, phi = kernel_op(x)(model, x, importance, with_graph=True)
+            phi_sigma = phi
+        losses, sigma = spinx_losses(phi, Tphi, phi_sigma)
         return losses, sigma, phi, Tphi
 
     def loss_and_grad(self, params, state, x, operator, importance=None):
         """(loss, grads {name: tensor}, aux {f, Tf, eigvals=None}, state);
         ``sigma_avg`` and ``chol`` are updated in place."""
-        losses, sigma, phi, Tphi = self._loss_vector(params, x, operator, importance)
+        return self._step(params, state, self._loss_vector(params, x, operator, importance))
+
+    def loss_and_grad_kernel(self, params, state, x, get_approx_kernel_op,
+                             importance=None, split_batch: bool = False):
+        """The kernel-operator path (``get_approx_kernel_op(landmarks)`` an
+        operator); returns as ``loss_and_grad``, aux {f: φ1, Tf: Kφ1}
+        when split."""
+        return self._step(params, state, self._loss_vector(
+            params, x, None, importance, split_batch, get_approx_kernel_op))
+
+    def _step(self, params, state, loss_vector):
+        losses, sigma, phi, Tphi = loss_vector
         loss = torch.sum(losses * state["weights"] / self.neigs)
         names = list(params)
         grads = torch.autograd.grad(loss, [params[k] for k in names],
@@ -74,11 +102,14 @@ class SpINx:
         return (loss.detach(), dict(zip(names, grads)),
                 dict(f=phi.detach(), Tf=Tphi.detach(), eigvals=None), state)
 
-    def refresh_weights(self, params, state, x, operator, importance=None):
+    def refresh_weights(self, params, state, x, operator, importance=None,
+                        split_batch: bool = False, kernel_op=None):
         """weights = sqrt(Σ ntk / ntk), ntk[i] the squared norm of loss i's
         gradient over every parameter; written into ``state["weights"]``,
-        which is returned."""
-        losses, *_ = self._loss_vector(params, x, operator, importance)
+        which is returned.  ``kernel_op`` (with ``split_batch``) takes the
+        kernel path's losses, as in ``loss_and_grad_kernel``."""
+        losses, *_ = self._loss_vector(params, x, operator, importance, split_batch,
+                                       kernel_op)
         leaves = list(params.values())
         ntk = []
         for i in range(losses.shape[0]):
@@ -93,7 +124,3 @@ class SpINx:
     def eval_apply(self, params, state, x):
         out = self._apply(params, x)
         return torch.linalg.solve_triangular(state["chol"], out.T, upper=False).T
-
-    def loss_and_grad_kernel(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the kernel-operator path is not ported yet (ROADMAP queue 1, item 6)")

@@ -8,8 +8,11 @@ Port of ``neuralsvd_tpu/models/mlp.py``: ``get_activation`` (:37),
 ``parse_dims`` (:330).  L independent MLPs run as one batched product
 chain with weights laid out (L, h_out, h_in), as in the JAX package; the
 products go to ``torch.einsum`` (cuBLAS), as the JAX package leaves them
-to XLA.  Not ported yet: the shared trunk without biases or with weight
-normalization (ROADMAP queue 1, item 6).
+to XLA.  The shared trunk takes ``bias=False`` and
+``weight_normalization`` as JAX's ``make_mlp`` does (:73-127): a gain
+``g`` per output column, ‖w‖ over the input axis at init, and at apply
+``w·g/(‖w‖ + 1e-12)``, the gradient flowing through the norm (not
+``torch.nn.utils.weight_norm``, whose parametrization differs).
 
 Precision of the tower products (``matmul_precision``).  A tier applies
 to the tower products only, in the forward pass and in both products of
@@ -272,21 +275,32 @@ def _split_product(eq, a, b, k, head, tail):
 
 class Dense(nn.Module):
     """``x @ w + b`` with ``w`` laid out (in, out), the JAX package's layout,
-    so parameters carry across unchanged."""
+    so parameters carry across unchanged; without ``bias`` no ``b``; with
+    ``weight_normalization`` a gain ``g`` (out,), ‖w‖ over axis 0 at init,
+    and the product takes ``w·g/(‖w‖ + 1e-12)``."""
 
     def __init__(self, fan_in: int, fan_out: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, bias: bool = True,
+                 weight_normalization: bool = False):
         super().__init__()
         bound = math.sqrt(1.0 / fan_in)
         self.w = nn.Parameter(_uniform((fan_in, fan_out), bound, generator))
-        self.b = nn.Parameter(_uniform((fan_out,), bound, generator))
+        b = _uniform((fan_out,), bound, generator)  # drawn either way, as in JAX
+        self.b = nn.Parameter(b) if bias else None
+        self.weight_normalization = weight_normalization
+        if weight_normalization:
+            self.g = nn.Parameter(torch.linalg.vector_norm(self.w.detach(), dim=0))
 
     def forward(self, x, precision=None, compute_dtype=None):
         """``x`` is already in ``compute_dtype``; ``w`` and ``b`` are cast."""
         w, b = self.w, self.b
+        if self.weight_normalization:
+            w = w * (self.g / (torch.linalg.vector_norm(w, dim=0) + 1e-12))
         if compute_dtype is not None:
-            w, b = w.to(compute_dtype), b.to(compute_dtype)
-        return tower_product("bi,io->bo", x, w, precision) + b
+            w = w.to(compute_dtype)
+            b = None if b is None else b.to(compute_dtype)
+        h = tower_product("bi,io->bo", x, w, precision)
+        return h if b is None else h + b
 
 
 def _uniform(shape, bound, generator):
@@ -294,11 +308,12 @@ def _uniform(shape, bound, generator):
 
 
 class MLP(nn.Module):
-    """Plain MLP ``sizes[0] -> ... -> sizes[-1]`` with biases, no final
-    activation, after an optional parameter-free ``feature_map`` (whose
-    ``feature_dim`` is then ``sizes[0]``); products at ``matmul_precision``
-    (one tier: a split spec raises ValueError), the chain in
-    ``compute_dtype`` (module docstring).
+    """Plain MLP ``sizes[0] -> ... -> sizes[-1]``, with biases unless
+    ``bias=False`` and weight-normalized layers with ``weight_normalization``
+    (``Dense``), no final activation, after an optional parameter-free
+    ``feature_map`` (whose ``feature_dim`` is then ``sizes[0]``); products
+    at ``matmul_precision`` (one tier: a split spec raises ValueError), the
+    chain in ``compute_dtype`` (module docstring).
 
     Init: U(-1/√fan_in, 1/√fan_in) weights and biases (torch.nn.Linear's
     default, the JAX package's ``_kaiming_uniform``) drawn from
@@ -308,7 +323,8 @@ class MLP(nn.Module):
     def __init__(self, sizes: Sequence[int], nonlinearity: str = "relu",
                  generator: Optional[torch.Generator] = None,
                  feature_map: Optional[nn.Module] = None,
-                 matmul_precision=None, compute_dtype=None):
+                 matmul_precision=None, compute_dtype=None, bias: bool = True,
+                 weight_normalization: bool = False):
         super().__init__()
         sizes = list(sizes)
         self.feature_map = feature_map
@@ -319,7 +335,7 @@ class MLP(nn.Module):
         self.compute_dtype = resolve_compute_dtype(compute_dtype)
         self.act = get_activation(nonlinearity, self.compute_dtype)
         self.layers = nn.ModuleList(
-            Dense(sizes[i], sizes[i + 1], generator)
+            Dense(sizes[i], sizes[i + 1], generator, bias, weight_normalization)
             for i in range(len(sizes) - 1))
 
     def forward(self, x):
@@ -432,14 +448,11 @@ def make_mlp_eigfuncs(input_dim: int, neigs: int,
                       matmul_precision=None,
                       generator: Optional[torch.Generator] = None) -> nn.Module:
     if not parallel:
-        if not bias or weight_normalization:
-            raise NotImplementedError(
-                "the shared-trunk MLP without biases or with weight "
-                "normalization is not ported yet (ROADMAP queue 1, item 6)")
         in_dim = input_dim if feature_map is None else feature_map.feature_dim
         return MLP([in_dim] + list(mlp_hidden_dims) + [neigs], nonlinearity,
                    generator=generator, feature_map=feature_map,
-                   matmul_precision=matmul_precision, compute_dtype=compute_dtype)
+                   matmul_precision=matmul_precision, compute_dtype=compute_dtype,
+                   bias=bias, weight_normalization=weight_normalization)
     return ParallelMLP(input_dim, mlp_hidden_dims, num_copies=neigs,
                        output_dim=1, nonlinearity=nonlinearity, bias=bias,
                        weight_normalization=weight_normalization,

@@ -1,10 +1,11 @@
 """Operator protocol helpers.
 
-Port of ``neuralsvd_tpu/operators/base.py:7-37`` (``OperatorWrapper``);
-``generator=`` takes the place of JAX's ``key=``.  ``DeviceConstant``
-keeps a potential's constant arrays on the input's device.
-``MatrixOperator`` and ``KernelOperator`` are not ported yet (ROADMAP
-queue 1, item 6).
+Port of ``neuralsvd_tpu/operators/base.py``: ``OperatorWrapper`` (:7-37),
+``MatrixOperator`` (:39-51) and ``KernelOperator`` (:54-71);
+``generator=`` takes the place of JAX's ``key=``, and every operator takes
+the port's call keywords (``generator``, ``with_graph``).
+``DeviceConstant`` keeps a potential's constant arrays (and an operator's
+matrix or fixed landmarks) on the input's device.
 """
 from __future__ import annotations
 
@@ -84,4 +85,58 @@ class OperatorWrapper:
         Tf, fs = self.operator(f, x, importance, **kw)
         with graph_mode(with_graph):
             Tf = self.scale * Tf + self.shift * fs
+        return Tf, fs
+
+
+def _on_device(a):
+    """A tensor stays as it is (moved to the input's device and dtype at
+    use, a no-op where they match: the split-batch landmarks of the kernel
+    paths); any other array becomes a ``DeviceConstant``."""
+    return a if isinstance(a, torch.Tensor) else DeviceConstant(a)
+
+
+def _like(a, x: torch.Tensor) -> torch.Tensor:
+    if isinstance(a, DeviceConstant):
+        return a.like(x)
+    return a.to(device=x.device, dtype=x.dtype)
+
+
+class MatrixOperator:
+    """Finite symmetric operator ``(Tf)(x_b) = (A f)_b`` on a fixed grid:
+    A (B, B) applied to the batch's function values, the trivial oracle
+    operator for tests.  Tf carries no autograd graph unless the call asks
+    for it ``with_graph``; fs always does."""
+
+    def __init__(self, A):
+        self.A = _on_device(A)
+
+    def __call__(self, f, x, importance=None, generator=None,
+                 with_graph: bool = False):
+        fs = f(x)
+        with graph_mode(with_graph):
+            Tf = _like(self.A, fs) @ fs
+        return Tf, fs
+
+
+class KernelOperator:
+    """Empirical kernel smoothing operator ``(Tf)(x) = E_{x'}[k(x, x') f(x')]``
+    over the landmark batch ``landmarks`` (B', D): ``kernel(x, xp) -> (B,
+    B')``, built on the device of ``x``.  Fixed landmarks given as an array
+    are kept on each device once (a captured step copies nothing from the
+    host); a tensor (the other half of a split batch) is used where it is.
+    The model's values at the landmarks, the kernel matrix and Tf carry
+    no autograd graph unless the call asks for it ``with_graph`` (SpIN and
+    SpINx); fs always does.  ``importance`` is ignored, as in JAX."""
+
+    def __init__(self, kernel, landmarks):
+        self.kernel = kernel
+        self.landmarks = _on_device(landmarks)
+
+    def __call__(self, f, x, importance=None, generator=None,
+                 with_graph: bool = False):
+        fs = f(x)
+        land = _like(self.landmarks, x)
+        with graph_mode(with_graph):
+            f_land = f(land)
+            Tf = self.kernel(x, land) @ f_land / land.shape[0]
         return Tf, fs

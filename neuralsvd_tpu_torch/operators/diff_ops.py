@@ -28,10 +28,12 @@ rows in JAX too.
 
 SpIN and SpINx differentiate through Tf (``neuralsvd_tpu/methods/spin.py:90,105``,
 ``spinx.py:85-101``): a call with ``with_graph=True`` returns lap, grad and
-fs with their graphs, under finite differences all from the stacked
-(2D+1)·B-row call, and on nested JVPs from JVPs taken in grad mode (reverse
-over forward).  The forward-Laplacian engine and the Hutchinson estimator
-have no backward (ROADMAP queue 1, item 8c): asked for a graph, they raise.
+fs with their graphs: under finite differences all from the stacked
+(2D+1)·B-row call; on nested JVPs from JVPs taken in grad mode (reverse
+over forward); on the forward-Laplacian engine and the Hutchinson
+estimator (given a generator) from the engine run in grad mode, fs its
+value channel, as ``jax.grad`` differentiates the JAX interpreter
+(``tests/test_forward_laplacian.py:69-91``).
 """
 from __future__ import annotations
 
@@ -176,12 +178,16 @@ class VectorizedLaplacian:
         """(lap, grad or 0., fs), each with its autograd graph."""
         if self.eps > 0:
             return batched_fd_laplacian(f, xs, self.eps, return_grad)
-        if (self.needs_key and generator is not None) or self.exact_mode == "forward":
-            raise NotImplementedError(
-                "a Laplacian with an autograd graph (SpIN, SpINx) needs finite "
-                "differences or laplacian_mode='jvp': the forward-Laplacian engine "
-                "and the Hutchinson estimator have no backward yet (ROADMAP queue 1, "
-                "item 8c)")
+        if self.needs_key and generator is not None:
+            if return_grad:
+                raise ValueError(
+                    "the Hutchinson Laplacian carries probe derivatives, "
+                    "not the gradient; use an exact mode for return_grad")
+            lap, fs = hutchinson_laplacian(f, xs, generator, self.num_probes,
+                                           with_graph=True)
+            return lap, 0.0, fs
+        if self.exact_mode == "forward":
+            return forward_laplacian(f, xs, return_grad, with_graph=True)
         lap, grads = _nested_jvp_laplacian(f, xs)
         return lap, (torch.movedim(grads, 0, -1) if return_grad else 0.0), f(xs)
 

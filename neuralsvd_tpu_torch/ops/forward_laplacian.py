@@ -10,9 +10,17 @@ interprets the function's jaxpr once, carrying a dual triple per array::
 through one rule per primitive.  Here the triple is a ``torch.Tensor``
 subclass, ``Dual``, whose data is v and which holds j and l; its
 ``__torch_function__`` looks the called torch function up in a rule table
-by name, so the model's own ``forward`` runs unchanged on it.  Everything
-runs under ``torch.no_grad()``: the EVD loss sends no gradient through
-the Laplacian (ops/nestedlora.py), so no autograd graph is built.
+by name, so the model's own ``forward`` runs unchanged on it.  By default
+everything runs under ``torch.no_grad()``: the EVD losses send no gradient
+through the Laplacian (ops/nestedlora.py), so no autograd graph is built.
+With ``with_graph=True`` (SpIN and SpINx differentiate through Tf) the
+entry points run in the ambient grad mode, and v, j and l keep their
+graphs back to the parameters, as ``jax.grad`` differentiates the JAX
+interpreter.  A ``Dual`` is made by ``torch.Tensor._make_subclass``, which
+gives a new tensor without autograd history: the graph lives only in the
+``.v``, ``.j`` and ``.l`` attributes.  So every rule, ``_passthrough`` and
+the fallback read the attributes, and the Dual object itself never reaches
+an op that autograd records.
 
 A product with one dual operand stacks v, the K rows of j and l along the
 operand's batch axis and makes ONE product call (``torch.einsum`` or
@@ -41,9 +49,14 @@ Rules, with the JAX rule each ports:
 - ``torch.logsumexp``, with the max held constant as ``jax.nn.logsumexp``
   holds it: with p = softmax(x), j' = Σ p·j and
   l' = Σ p·l + Σ_d (Σ p·j_d² − (Σ p·j_d)²);
+- ``torch.linalg.solve_triangular`` with a constant matrix (SpIN's and
+  SpINx's whitened eval outputs), linear in the right-hand side, so each
+  channel is solved with the same matrix (the JAX engine takes its
+  fallback for ``triangular_solve``: the same numbers, nested JVPs);
 - any other function with a floating output: ``fallback_rule``, an exact
-  local rule by nested ``torch.func.jvp`` (slow but right).  It counts its
-  calls in ``fallback_rule.calls``; the E4 path makes none.
+  local rule by nested ``torch.func.jvp`` (slow but right; in grad mode
+  its outputs keep their graphs too).  It counts its calls in
+  ``fallback_rule.calls``; the E4 path makes none.
 
 In-place operations on a dual raise.
 
@@ -53,6 +66,7 @@ for sample-diagonal ``f`` (f(xs)[b] depends on xs[b] alone).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import string
 from typing import Callable, Optional
@@ -613,6 +627,20 @@ def _logsumexp_rule(func, args, kwargs):
     return make_dual(out, jo, lo)
 
 
+def _solve_triangular_rule(func, args, kwargs):
+    """``torch.linalg.solve_triangular(A, B, *, upper, left, ...)`` with a
+    constant A: linear in B, each channel solved with A (j as one batched
+    call, A broadcast over the direction axis)."""
+    A = args[0]
+    rhs = _arg(args, kwargs, 1, "B")
+    if isinstance(A, Dual) or not isinstance(rhs, Dual):
+        return fallback_rule(func, args, kwargs)
+    kw = {k: w for k, w in kwargs.items() if k != "B"}
+    v, j, l = _parts(rhs)
+    return make_dual(func(A, v, **kw), None if j is None else func(A, j, **kw),
+                     None if l is None else func(A, l, **kw))
+
+
 # -- products ---------------------------------------------------------------
 
 def _stack_channels(v, j, l, dim):
@@ -838,7 +866,7 @@ _RULES.update({
     "where": _where_rule, "clamp": _clamp_rule, "clip": _clamp_rule,
     "maximum": _maxmin_rule(lambda a, b: a >= b),
     "minimum": _maxmin_rule(lambda a, b: a <= b),
-    "logsumexp": _logsumexp_rule,
+    "logsumexp": _logsumexp_rule, "linalg_solve_triangular": _solve_triangular_rule,
     "matmul": _matmul_rule, "__matmul__": _matmul_rule,
     "__rmatmul__": _matmul_rule, "einsum": _einsum_rule, "linear": _linear_fn_rule,
     "tower_product": _tower_product_rule,
@@ -849,12 +877,15 @@ _RULES.update({
 # entry points
 # ---------------------------------------------------------------------------
 
-def propagate(f: Callable, xs: torch.Tensor, directions: torch.Tensor):
+def propagate(f: Callable, xs: torch.Tensor, directions: torch.Tensor,
+              with_graph: bool = False):
     """(v, j, l) of ``f`` at ``xs`` (B, D) with the j channel seeded by
     ``directions`` (K, B, D): j = ∂f along each direction, l = Σ_k
     direction_kᵀ H direction_k (per sample, for sample-diagonal f).
-    Channels that come out identically zero are returned as zeros."""
-    with torch.no_grad():
+    Channels that come out identically zero are returned as zeros.  Under
+    ``torch.no_grad()`` unless ``with_graph``, which keeps the autograd
+    graphs of v, j and l (module docstring)."""
+    with contextlib.nullcontext() if with_graph else torch.no_grad():
         out = f(make_dual(xs, directions, None))
     v, j, l = _parts(out)
     K = directions.shape[0]
@@ -862,14 +893,16 @@ def propagate(f: Callable, xs: torch.Tensor, directions: torch.Tensor):
             l if l is not None else torch.zeros_like(v))
 
 
-def forward_laplacian(f: Callable, xs: torch.Tensor, return_grad: bool = False):
+def forward_laplacian(f: Callable, xs: torch.Tensor, return_grad: bool = False,
+                      with_graph: bool = False):
     """Exact (∇²f, ∇f, f) at ``xs`` (B, D) in one pass: the drop-in for
     ``operators.diff_ops.exact_laplacian``.  Returns (lap (B, L), grad
-    (B, L, D) or 0., fs (B, L)); ``f`` must be sample-diagonal."""
+    (B, L, D) or 0., fs (B, L)), with their autograd graphs under
+    ``with_graph``; ``f`` must be sample-diagonal."""
     B, D = xs.shape[0], xs.shape[-1]
     xs_flat = xs.reshape(B, D)
     eye = torch.eye(D, dtype=xs_flat.dtype, device=xs_flat.device)
-    v, j, l = propagate(f, xs_flat, eye[:, None, :].expand(D, B, D))
+    v, j, l = propagate(f, xs_flat, eye[:, None, :].expand(D, B, D), with_graph)
     if return_grad:
         return l, torch.movedim(j, 0, -1), v
     return l, 0.0, v
@@ -882,8 +915,10 @@ def rademacher(shape, generator: torch.Generator, dtype, device) -> torch.Tensor
 
 
 def hutchinson_laplacian(f: Callable, xs: torch.Tensor,
-                         generator: torch.Generator, num_probes: int):
-    """Unbiased stochastic Laplacian: (lap_est (B, L), fs (B, L)).
+                         generator: torch.Generator, num_probes: int,
+                         with_graph: bool = False):
+    """Unbiased stochastic Laplacian: (lap_est (B, L), fs (B, L)), with
+    their autograd graphs under ``with_graph``.
 
     ``num_probes`` Rademacher probes r_k (from ``generator``, on xs's
     device) seed the j channel, so the l channel is Σ_k r_kᵀ H r_k and
@@ -892,5 +927,5 @@ def hutchinson_laplacian(f: Callable, xs: torch.Tensor,
     B, D = xs.shape[0], xs.shape[-1]
     xs_flat = xs.reshape(B, D)
     r = rademacher((num_probes, B, D), generator, xs_flat.dtype, xs_flat.device)
-    v, _, l = propagate(f, xs_flat, r)
+    v, _, l = propagate(f, xs_flat, r, with_graph)
     return l / num_probes, v

@@ -26,6 +26,11 @@ block and advance within it; both are registered with the graph, whose
 replays advance them as eager steps do.  So a block gives the same batches
 as a graph, as eager steps, or after a resume.
 
+The operator is any of the port's: a PDE operator, or a fixed-landmark
+``operators.base.KernelOperator`` (the JAX package's kernel EVD,
+``tests/test_training.py:130-168``), whose landmarks are kept on the
+device once, so its step captures too.
+
 The mode rescue (``rescue_init_fn``, training/rescue.py) and the SpINx
 weight refresh (``spinx_refresh``) run at an eval, between blocks, on the
 host, and change the state in place: the driver goes on replaying the

@@ -272,3 +272,18 @@ def test_in_place_ops_on_a_dual_raise():
 
     with pytest.raises(RuntimeError, match="in-place"):
         forward_laplacian(f, x)
+
+
+def test_whitened_eval_outputs_take_no_fallback(hydrogen, no_fallback):
+    """SpIN's and SpINx's eval outputs, the model whitened by a Cholesky
+    factor (``solve_triangular``), through the port's rule against the JAX
+    engine (whose ``triangular_solve`` takes its fallback): value,
+    gradient and Laplacian at the engine tests' tolerances."""
+    jf, model = hydrogen
+    rng = np.random.default_rng(11)
+    a = rng.normal(size=(6, 6))
+    chol = np.linalg.cholesky(a @ a.T / 6 + 0.5 * np.eye(6)).astype(np.float32)
+    jchol, tchol = jnp.asarray(chol), torch.as_tensor(chol)
+    _assert_engines_agree(
+        lambda xx: jax.scipy.linalg.solve_triangular(jchol, jf(xx).T, lower=True).T,
+        lambda xx: torch.linalg.solve_triangular(tchol, model(xx).T, upper=False).T, _x())

@@ -11,11 +11,12 @@ import torch
 
 from neuralsvd_tpu.models.fourier import make_fourier_features
 from neuralsvd_tpu.models.mlp import get_activation as jax_get_activation
+from neuralsvd_tpu.models.mlp import make_mlp_eigfuncs as jax_make_mlp_eigfuncs
 from neuralsvd_tpu.models.mlp import make_parallel_mlp as jax_make_parallel_mlp
 from neuralsvd_tpu.models.wavefunctions import make_wavefunctions as jax_make_wavefunctions
-from neuralsvd_tpu_torch.convert import params_from_jax
+from neuralsvd_tpu_torch.convert import _named_leaves, params_from_jax
 from neuralsvd_tpu_torch.models.fourier import FourierFeatures
-from neuralsvd_tpu_torch.models.mlp import ParallelMLP, get_activation
+from neuralsvd_tpu_torch.models.mlp import ParallelMLP, get_activation, make_mlp_eigfuncs
 from neuralsvd_tpu_torch.models.wavefunctions import make_wavefunctions
 
 SMALL = dict(ndim=2, neigs=4, mlp_hidden_dims=[16, 16, 16],
@@ -177,3 +178,43 @@ def test_unported_options_raise(override, bf16):
         np.testing.assert_allclose(got, want, rtol=0, atol=2.0 ** -12 * np.abs(want).max())
         return
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("bias,weight_normalization", [(True, True), (False, True), (False, False)])
+def test_shared_trunk_weight_norm_matches_jax(bias, weight_normalization):
+    """The shared trunk of make_mlp_eigfuncs (16-16 softplus, L 4) with
+    weight normalization and/or without biases, JAX's init carried through
+    params_from_jax: outputs rtol 1e-5 / atol 1e-6 of the largest, and the
+    gradients of a fixed contraction of the outputs rtol 1e-4 / atol 1e-6
+    of the largest (they flow through the norm in both packages); g is ‖w‖
+    over axis 0 at JAX's init."""
+    kw = dict(bias=bias, weight_normalization=weight_normalization)
+    jinit, japply = jax_make_mlp_eigfuncs(2, 4, [16, 16], "softplus", **kw)
+    params = jinit(jax.random.key(5))
+    model = make_mlp_eigfuncs(2, 4, [16, 16], "softplus", **kw)
+    carried = params_from_jax({"base": jax.tree.map(np.asarray, params)})
+    model.load_state_dict({k.removeprefix("base."): v for k, v in carried.items()})
+    if weight_normalization:
+        for layer in params["layers"]:
+            np.testing.assert_allclose(np.asarray(layer["g"]),
+                                       np.linalg.norm(np.asarray(layer["w"]), axis=0), rtol=1e-6)
+    x = _x(32, seed=6) / 4
+    c = np.random.default_rng(7).normal(size=(32, 4)).astype(np.float32)
+
+    def jloss(p):
+        return jnp.sum(japply(p, jnp.asarray(x)) * c)
+
+    want, jgrads = jax.value_and_grad(jloss)(params)
+    jout = np.asarray(japply(params, jnp.asarray(x)))
+    out = model(torch.as_tensor(x))
+    np.testing.assert_allclose(out.detach().numpy(), jout, rtol=1e-5,
+                               atol=1e-6 * np.abs(jout).max())
+    loss = torch.sum(out * torch.as_tensor(c))
+    np.testing.assert_allclose(loss.item(), float(want), rtol=1e-5)
+    grads = dict(zip([k for k, _ in model.named_parameters()],
+                     torch.autograd.grad(loss, list(model.parameters()))))
+    jg = {k: np.asarray(v) for k, v in _named_leaves(jgrads)}
+    assert set(grads) == set(jg)
+    for k, w in jg.items():
+        np.testing.assert_allclose(grads[k].numpy(), w, rtol=1e-4, atol=1e-6 * np.abs(w).max(),
+                                   err_msg=k)

@@ -29,6 +29,7 @@ from neuralsvd_tpu.methods.nystrom import Nystrom as JaxNystrom
 from neuralsvd_tpu.methods.nystrom import run_nystrom as jax_run_nystrom
 from neuralsvd_tpu.models.wavefunctions import make_wavefunctions as jax_make_wavefunctions
 from neuralsvd_tpu.ops.gram import compute_gram as jax_compute_gram
+from neuralsvd_tpu.operators.base import KernelOperator as JaxKernelOperator
 from neuralsvd_tpu.operators.problems import get_problem as jax_get_problem
 from neuralsvd_tpu.training.optimizers import build_optimizer as jax_build_optimizer
 from neuralsvd_tpu.training.train_operator import (
@@ -36,12 +37,13 @@ from neuralsvd_tpu.training.train_operator import (
 )
 from neuralsvd_tpu.training.train_state import init_train_state as jax_init_train_state
 from neuralsvd_tpu_torch.cli import pde
-from neuralsvd_tpu_torch.convert import method_state_from_jax, params_from_jax
+from neuralsvd_tpu_torch.convert import _named_leaves, method_state_from_jax, params_from_jax
 from neuralsvd_tpu_torch.data.samplers import get_sampler
 from neuralsvd_tpu_torch.methods.factories import get_evd_method
 from neuralsvd_tpu_torch.methods.neuralef import NeuralEigenfunctions, neuralef_loss
 from neuralsvd_tpu_torch.methods.nystrom import Nystrom, run_nystrom
 from neuralsvd_tpu_torch.models.wavefunctions import make_wavefunctions
+from neuralsvd_tpu_torch.operators.base import KernelOperator
 from neuralsvd_tpu_torch.ops import forward_laplacian
 from neuralsvd_tpu_torch.ops.gram import compute_gram
 from neuralsvd_tpu_torch.operators.problems import get_problem
@@ -285,7 +287,8 @@ def test_registered_eigvals_reorder_the_training_outputs(carried):
 
 def test_factory_defaults_and_refusals(carried):
     """get_evd_method("neuralef") takes the JAX defaults, and so do SpIN and
-    SpINx (decay 0.01); the kernel-operator path raises."""
+    SpINx (decay 0.01); the kernel-operator path runs and gives JAX's loss
+    (rtol 1e-5) and gradients; an unknown batchnorm_mode raises."""
     params, japply, model = carried
     jm = jax_get_evd_method("neuralef", japply, L)
     tm = get_evd_method("neuralef", model, L)
@@ -295,8 +298,18 @@ def test_factory_defaults_and_refusals(carried):
         jspin, tspin = jax_get_evd_method(name, japply, L), get_evd_method(name, model, L)
         assert (tspin.name, tspin.neigs, tspin.decay) == (jspin.name, jspin.neigs,
                                                           jspin.decay) == (name, L, 0.01)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tm.loss_and_grad_kernel(params, {}, None, None)
+    x = _x(seed=9) / 4
+    jl, jg, _, _ = jm.loss_and_grad_kernel(
+        params, jm.init_state(params), jnp.asarray(x, jnp.float32),
+        lambda lm: JaxKernelOperator(lambda a, b: jnp.exp(-jnp.sum((a[:, None] - b[None]) ** 2, -1)),
+                                     lm))
+    tparams = dict(model.named_parameters())
+    tl, tg, _, _ = tm.loss_and_grad_kernel(
+        tparams, tm.init_state(tparams), torch.as_tensor(x, dtype=torch.float32),
+        lambda lm: KernelOperator(lambda a, b: torch.exp(-torch.cdist(a, b) ** 2), lm))
+    np.testing.assert_allclose(tl.item(), float(jl), rtol=1e-5)
+    _assert_grads_close({k: g.numpy() for k, g in tg.items()},
+                        {k: np.asarray(v) for k, v in _named_leaves(jg)})
     with pytest.raises(ValueError, match="batchnorm_mode"):
         NeuralEigenfunctions(model, L, batchnorm_mode="layer")
 

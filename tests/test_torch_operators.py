@@ -206,3 +206,39 @@ def test_ground_truth_copies_match_jax():
     for n, l in ((0, 0), (1, -1), (2, 2)):
         np.testing.assert_array_equal(ground_truths.Hydrogen2D().eigfunc(n, l, r, th),
                                       jax_gt.Hydrogen2D().eigfunc(n, l, r, th))
+
+
+@pytest.mark.parametrize("qnums", [(1, 0, 0), (2, 1, -1), (3, 2, 1), (4, 3, -2)])
+def test_hydrogen_3d_eigenfunctions_match_jax(qnums):
+    """The 3D hydrogen eigenfunction (n, l, m) and its real spherical
+    harmonic on a float64 grid of spherical coordinates (from Cartesian
+    points through cartesian_to_spherical), rtol 1e-6 of the largest."""
+    n, l, m = qnums
+    rng = np.random.default_rng(n)
+    xyz = rng.normal(size=(3, 200)) * 2.0
+    r, th, phi = ground_truths.cartesian_to_spherical(*xyz)
+    for got, want in zip((r, th, phi), jax_gt.cartesian_to_spherical(*xyz)):
+        np.testing.assert_array_equal(got, want)
+    want = jax_gt.Hydrogen3D(charge=1.5).eigfunc(n, l, m, r, th, phi)
+    got = ground_truths.Hydrogen3D(charge=1.5).eigfunc(n, l, m, r, th, phi)
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6 * np.abs(want).max())
+    np.testing.assert_allclose(ground_truths.real_sph_harm_3d(m, l, th, phi),
+                               jax_gt.real_sph_harm_3d(m, l, th, phi), rtol=1e-6,
+                               atol=1e-12)
+
+
+@pytest.mark.parametrize("ells", [(0, 0), (1, 2), (-2, 3), (1, 1, 2), (-1, 2, 4)])
+def test_hyperspherical_harmonics_match_jax(ells):
+    """sph_harm (complex) and real_sph_harm on S^{D-1}, D = len(ells) + 1,
+    and legendre_p at a non-integer degree and order, on float64 angle
+    grids: rtol 1e-6 of the largest."""
+    rng = np.random.default_rng(len(ells))
+    ths = np.concatenate([rng.uniform(-np.pi, np.pi, (1, 50)),
+                          rng.uniform(0.05, np.pi - 0.05, (len(ells) - 1, 50))])
+    for fn in ("sph_harm", "real_sph_harm"):
+        want = getattr(jax_gt, fn)(list(ells), ths)
+        got = getattr(ground_truths, fn)(list(ells), ths)
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6 * np.abs(want).max())
+    z = np.cos(ths[-1])
+    np.testing.assert_allclose(ground_truths.legendre_p(-1.5, 2.5, z),
+                               jax_gt.legendre_p(-1.5, 2.5, z), rtol=1e-6)

@@ -145,17 +145,25 @@ def test_shared_trunk_wavefunction_matches_jax(kw):
 
 
 def test_shared_trunk_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        make_mlp_eigfuncs(2, 4, [8], "softplus", weight_normalization=True)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        make_mlp_eigfuncs(2, 4, [8], "softplus", bias=False)
-    # the tiers are ported: the shared trunk takes one, not a split spec
+    """The shared trunk takes weight normalization and bias=False: each
+    builds, carries JAX's parameters (the gains g too, through
+    params_from_jax) and gives JAX's outputs (rtol 1e-5, atol 1e-6 of the
+    largest); it takes a tier, and a split spec raises naming ParallelMLP."""
+    x = _points(n=32, seed=5)
+    for kw in (dict(weight_normalization=True), dict(bias=False),
+               dict(bias=False, weight_normalization=True)):
+        jinit, japply = jax_mlp.make_mlp_eigfuncs(2, 4, [8], "softplus", **kw)
+        params = jinit(jax.random.key(0))
+        model = make_mlp_eigfuncs(2, 4, [8], "softplus", **kw)
+        carried = params_from_jax({"base": jax.tree.map(np.asarray, params)})
+        model.load_state_dict({k.removeprefix("base."): v for k, v in carried.items()})
+        assert ("layers.0.g" in model.state_dict()) == kw.get("weight_normalization", False)
+        want = np.asarray(japply(params, jnp.asarray(x)))
+        got = model(torch.as_tensor(x)).detach().numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6 * np.abs(want).max())
     assert make_mlp_eigfuncs(2, 4, [8], "softplus", matmul_precision="high").precision == "high"
     with pytest.raises(ValueError, match="ParallelMLP"):
         make_mlp_eigfuncs(2, 4, [8], "softplus", matmul_precision="highest@1,high")
-    params = jax_mlp.make_mlp([2, 3], weight_normalization=True)[0](jax.random.key(0))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        params_from_jax({"base": jax.tree.map(np.asarray, params)})
 
 
 @pytest.mark.parametrize("mode,scale", [("gaussian", 3.0), ("laplacian", 2.0),

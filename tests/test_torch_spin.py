@@ -10,6 +10,7 @@ average as its diagonal blocks (methods/spin.py); JAX's blocks off the
 diagonal are checked to be exactly zero.
 """
 import copy
+import importlib
 import os
 import shutil
 
@@ -40,7 +41,9 @@ from neuralsvd_tpu_torch.methods.spin import (
 )
 from neuralsvd_tpu_torch.methods.spinx import SpINx
 from neuralsvd_tpu_torch.models.wavefunctions import make_wavefunctions
+from neuralsvd_tpu_torch.operators.base import KernelOperator
 from neuralsvd_tpu_torch.operators.problems import get_problem
+from neuralsvd_tpu_torch.ops import forward_laplacian as engine
 from neuralsvd_tpu_torch.training.optimizers import build_optimizer
 from neuralsvd_tpu_torch.training.train_operator import (
     REFRESH_STREAM,
@@ -58,9 +61,18 @@ TINY_MODEL = dict(ndim=2, neigs=L, mlp_hidden_dims=[8, 8], nonlinearity="softplu
                   fourier_scale=0.1, fourier_append_radial=True,
                   fourier_append_envelopes=(2.0, 2 / 3), apply_boundary=False)
 RTOL, ATOL = 1e-6, 1e-9  # atol in units of the largest entry
-# the routes of the three-step parity test: (per-mode towers, eps, mode)
-ROUTES = {"fd-towers": (True, 0.01, "forward"), "fd-shared": (False, 0.01, "forward"),
-          "jvp-towers": (True, -1.0, "jvp")}
+# the routes of the three-step parity test: (per-mode towers, eps, mode,
+# Hutchinson probes)
+ROUTES = {"fd-towers": (True, 0.01, "forward", 0), "fd-shared": (False, 0.01, "forward", 0),
+          "jvp-towers": (True, -1.0, "jvp", 0), "forward-towers": (True, -1.0, "forward", 0),
+          "hutchinson-towers": (True, -1.0, "forward", 2)}
+# the Laplacians of the SpINx and operator parity tests: (eps, mode, probes)
+LAPLACIANS = {"fd": (0.01, "forward", 0), "jvp": (-1.0, "jvp", 0),
+              "forward": (-1.0, "forward", 0), "hutchinson": (-1.0, "forward", 2)}
+PROBE_SEED = 11  # the shared Hutchinson probes: the port's draw from this seed
+# the JAX engine's module (the package's ops/__init__ exports a function
+# of the same name)
+jax_engine = importlib.import_module("neuralsvd_tpu.ops.forward_laplacian")
 
 
 def _x(seed, n=B):
@@ -86,7 +98,7 @@ class _Pair:
     operator, importance and method, with the JAX init carried across."""
 
     def __init__(self, parallel=True, eps=0.01, mode="forward", method="spin",
-                 decay=0.3, seed=0):
+                 decay=0.3, seed=0, probes=0, monkeypatch=None):
         kw = dict(TINY_MODEL, parallel=parallel)
         jinit, self.japply = jax_make_wavefunctions(**kw)
         params = jinit(jax.random.key(seed))
@@ -96,14 +108,33 @@ class _Pair:
         self.params = dict(self.model.named_parameters())
         self.jparams = jax.tree.map(lambda a: np.asarray(a, np.float64), params)
         problem = dict(laplacian_eps=eps, laplacian_mode=mode, operator_scale=10.0,
-                       operator_shift=1.0)
+                       operator_shift=1.0, laplacian_probes=probes)
         self.jop, _, _ = jax_get_problem("sch", "hydrogen", 2, L, **problem)
         self.op, _, _ = get_problem("sch", "hydrogen", 2, L, **problem)
+        if probes:
+            self._share_probes(probes, monkeypatch)
         _, self.jimp = jax_get_sampler("gaussian_mixture", B, 1, 2, MIX)
         _, self.imp = get_sampler("gaussian_mixture", B, 1, 2, MIX, device="cpu")
         jcls, tcls = (JaxSpIN, SpIN) if method == "spin" else (JaxSpINx, SpINx)
         self.jm = jcls(self.japply, L, decay=decay)
         self.tm = tcls(self.model, L, decay=decay)
+
+    def _share_probes(self, n, monkeypatch):
+        """Both operators take the Hutchinson estimator on the same probes:
+        the port's draw from a generator seeded PROBE_SEED at every call,
+        handed to the JAX engine in place of its own key's draw."""
+        probes = engine.rademacher((n, B, 2), torch.Generator().manual_seed(PROBE_SEED),
+                                   torch.float64, "cpu").numpy()
+
+        def shared(f, xs, key, num_probes):
+            out = jax_engine._run(f, xs.reshape(xs.shape[0], -1), jnp.asarray(probes))
+            return jax_engine._l_mat(out) / num_probes, out.v
+
+        monkeypatch.setattr(jax_engine, "hutchinson_laplacian", shared)
+        op, jop = self.op, self.jop
+        self.op = lambda f, x, imp=None, **kw: op(  # noqa: E731
+            f, x, imp, generator=torch.Generator().manual_seed(PROBE_SEED), **kw)
+        self.jop = lambda f, x, imp=None: jop(f, x, imp, key=jax.random.key(0))  # noqa: E731
 
     def jax_step(self, jstate, x):
         with jax.enable_x64(True):
@@ -173,13 +204,16 @@ def test_not_positive_definite_gives_nan_without_raising():
 # -- SpIN.loss_and_grad ---------------------------------------------------------
 
 @pytest.mark.parametrize("route", sorted(ROUTES))
-def test_spin_three_steps_match_jax(route):
+def test_spin_three_steps_match_jax(route, monkeypatch):
     """Three consecutive loss_and_grad calls on fresh batches, the state
-    carried (hydrogen, √w conjugation, scale 10, shift 1): loss, grads,
-    sigma_avg, chol and j_avg (compact against JAX's diagonal blocks,
-    whose other blocks are exactly zero; dense on the shared trunk)."""
-    parallel, eps, mode = ROUTES[route]
-    pair = _Pair(parallel=parallel, eps=eps, mode=mode)
+    carried (hydrogen, √w conjugation, scale 10, shift 1; finite
+    differences, nested JVPs, the forward engine and Hutchinson on shared
+    probes): loss, grads, sigma_avg, chol and j_avg (compact against JAX's
+    diagonal blocks, whose other blocks are exactly zero; dense on the
+    shared trunk)."""
+    parallel, eps, mode, probes = ROUTES[route]
+    pair = _Pair(parallel=parallel, eps=eps, mode=mode, probes=probes,
+                 monkeypatch=monkeypatch)
     assert bool(pair.tm.per_mode) == parallel
     jstate = state = None
     for step in range(3):
@@ -339,13 +373,15 @@ def test_not_positive_definite_sigma_skips_the_step_and_moves_the_state():
 
 # -- SpINx ----------------------------------------------------------------------
 
-@pytest.mark.parametrize("eps,mode", [(0.01, "forward"), (-1.0, "jvp")], ids=["fd", "jvp"])
-def test_spinx_steps_and_refresh_match_jax(eps, mode):
+@pytest.mark.parametrize("lap", sorted(LAPLACIANS))
+def test_spinx_steps_and_refresh_match_jax(lap, monkeypatch):
     """Two SpINx steps (the state carried), then refresh_weights on a
     third batch and one more step with the refreshed weights: loss, grads,
     sigma_avg, chol and the weights at rtol 1e-6, atol 1e-9 of the largest
-    entry; the refresh writes the state's own tensor."""
-    pair = _Pair(eps=eps, mode=mode, method="spinx")
+    entry; the refresh writes the state's own tensor.  Finite differences,
+    nested JVPs, the forward engine and Hutchinson on shared probes."""
+    eps, mode, probes = LAPLACIANS[lap]
+    pair = _Pair(eps=eps, mode=mode, method="spinx", probes=probes, monkeypatch=monkeypatch)
     jstate = state = None
     for step in range(3):
         x = _x(step)
@@ -371,12 +407,14 @@ def test_spinx_steps_and_refresh_match_jax(eps, mode):
 
 # -- Tφ with a graph --------------------------------------------------------------
 
-@pytest.mark.parametrize("eps,mode", [(0.01, "forward"), (-1.0, "jvp")], ids=["fd", "jvp"])
-def test_operator_vjp_with_graph_matches_jax(eps, mode):
+@pytest.mark.parametrize("lap", sorted(LAPLACIANS))
+def test_operator_vjp_with_graph_matches_jax(lap, monkeypatch):
     """with_graph=True: the VJP of (Tf, fs) through the operator (√w
-    conjugation, scale and shift) equals jax.vjp's; by default Tf carries
-    no graph and fs does."""
-    pair = _Pair(eps=eps, mode=mode)
+    conjugation, scale and shift) equals jax.vjp's, on finite differences,
+    nested JVPs, the forward engine and Hutchinson on shared probes; by
+    default Tf carries no graph and fs does."""
+    eps, mode, probes = LAPLACIANS[lap]
+    pair = _Pair(eps=eps, mode=mode, probes=probes, monkeypatch=monkeypatch)
     x = _x(3)
     rng = np.random.default_rng(9)
     cot_T, cot_f = rng.normal(size=(B, L)), rng.normal(size=(B, L))
@@ -430,26 +468,32 @@ def test_fokker_planck_vjp_with_graph_matches_jax():
 # -- refusals ---------------------------------------------------------------------
 
 def test_refusals_name_their_items():
-    """A graph through Tf on the forward engine or the Hutchinson estimator
-    raises naming item 8c, at the operator call and in check_ported before
-    any training; loss_and_grad_kernel raises naming item 6."""
+    """Only --mesh is refused now (item 9).  A graph through Tf on the
+    forward engine or the Hutchinson estimator runs and gives the default
+    route's values with a graph; check_ported passes SpIN and SpINx on
+    every Laplacian; loss_and_grad_kernel runs on a kernel operator."""
     model = make_wavefunctions(**TINY_MODEL, device="cpu")
     x = torch.as_tensor(_x(0), dtype=torch.float32)
     for kw in (dict(laplacian_eps=-1.0), dict(laplacian_eps=-1.0, laplacian_probes=2)):
         op, _, _ = get_problem("sch", "hydrogen", 2, L, **kw)
-        gen = torch.Generator().manual_seed(0)
-        with pytest.raises(NotImplementedError, match="8c"):
-            op(model, x, generator=gen, with_graph=True)
-        op(model, x, generator=gen)  # the default route runs
+        Tf, fs = op(model, x, generator=torch.Generator().manual_seed(0), with_graph=True)
+        assert Tf.requires_grad and fs.requires_grad
+        Tf0, fs0 = op(model, x, generator=torch.Generator().manual_seed(0))
+        assert not Tf0.requires_grad
+        assert torch.equal(Tf0, Tf.detach()) and torch.equal(fs0, fs.detach())
     for name in ("spin", "spinx"):
         for kw in (dict(laplacian_eps=-1.0), dict(laplacian_probes=2),
                    dict(laplacian_eps=-1.0, laplacian_mode="jvp", laplacian_probes=2)):
-            with pytest.raises(NotImplementedError, match="8c"):
-                pde.check_ported(config.PDEConfig(loss=config.LossConfig(name=name), **kw))
-        pde.check_ported(config.PDEConfig(loss=config.LossConfig(name=name),
-                                          laplacian_eps=-1.0, laplacian_mode="jvp"))
-        with pytest.raises(NotImplementedError, match="item 6"):
-            get_evd_method(name, model, L).loss_and_grad_kernel()
+            pde.check_ported(config.PDEConfig(loss=config.LossConfig(name=name), **kw))
+        with pytest.raises(NotImplementedError, match="item 9"):
+            pde.check_ported(config.PDEConfig(loss=config.LossConfig(name=name), mesh="2"))
+        method = get_evd_method(name, model, L)
+        params = dict(model.named_parameters())
+        loss, grads, _, _ = method.loss_and_grad_kernel(
+            params, method.init_state(params), x,
+            lambda lm: KernelOperator(lambda a, b: torch.exp(-torch.cdist(a, b) ** 2), lm),
+            split_batch=True)
+        assert torch.isfinite(loss) and all(torch.isfinite(g).all() for g in grads.values())
 
 
 def test_factories_take_the_jax_defaults():
