@@ -172,10 +172,35 @@ seconds:
               only) and bf16 in turns on the same batches; and a few
               profiled steps of each (device ms, busy share, device ms by
               group: GEMMs, gram kernels, the rest; costliest kernels).
+16. sketchy_cli the Sketchy CLI's own entry point (cli/sketchy.py::main)
+              on feature files at Sketchy Extended scale: (a) VGG16 (random
+              weights, both towers on the card) through
+              extract_features_main on made-up 224² images of 125
+              classes, split 1_0: the card against a CPU copy (TF32 off),
+              images/s, the npz files read back by the loader; (b)
+              scripts/exps/sketchy.sh's list as written (SKETCHY_ARGV: two
+              epochs, --neuralsvd.sequential dropped) on ~75.5k sketches and
+              ~73k photos of 512-d features made up from SEED and written
+              with write_feature_files (90/10/25 classes, ~54k train
+              sketches, 14 steps an epoch), pairs from the native sampler:
+              every loss finite, no skipped step, one launch of each kernel
+              a step, the CSV, best, ckpt and retrieval files, test P@100
+              beside chance; the run's seconds by part; the loader's host
+              ms a batch, native against use_native=False in turns (the
+              native pair draw at least 5x faster); the test retrieval in
+              parts (top_k_retrievals, its device work and index copy, the
+              numpy metrics) at K 100 and the whole gallery; (c) on the
+              trained towers: the online heads card vs CPU with a zero
+              tower gradient, kNN (k 200, T 0.1) against a train-photo
+              and a test-photo bank, the multi-head probe (20 SGD steps,
+              towers unchanged); (d) ResNet-18 (224², batch 64), CIFAR
+              ResNet-20 and WRN-28-2 (32², batch 128) and SiamNetwork
+              (512-8192-512, plain, separation, batch_l2norm; batch 4096)
+              card vs CPU, then 5 SGD steps each: images or rows a second.
 
 Then the {"kernels": [...]} line (numbers at the CDK shape, launches of
-the nine main paths (e4 trainer, pde_cli, hydrogen, oscillator, fp, cdk,
-pde_tiers, cdk_bf16, kernel_evd; the
+the ten main paths (e4 trainer, pde_cli, hydrogen, oscillator, fp, cdk,
+pde_tiers, cdk_bf16, kernel_evd, sketchy_cli; the
 CLI paths' are the eager launches counted by the wrappers plus the
 replayed launches counted in the traced block, each also under "paths"),
 per-path numbers under "paths", every shape's under "shapes"), the
@@ -201,15 +226,30 @@ import numpy as np
 import torch
 
 from neuralsvd_tpu_torch.cli import pde
+from neuralsvd_tpu_torch.cli import sketchy
 from neuralsvd_tpu_torch.cli.sketchy import get_args, make_trainer, run_training
 from neuralsvd_tpu_torch.data.samplers import get_sampler, make_val_grid
-from neuralsvd_tpu_torch.data.sketchy import ArrayPairLoader
+from neuralsvd_tpu_torch.data.sketchy import (
+    ArrayPairLoader,
+    SketchyVGGDataLoader,
+    extract_features_main,
+    invert_image,
+    load_sketchy_features,
+    make_vgg_feature_extractor,
+    split_classes,
+    write_feature_files,
+)
+from neuralsvd_tpu_torch.eval.knn import knn_monitor, knn_predict
+from neuralsvd_tpu_torch.eval.retrieval import average_precisions, precision_at_k, top_k_retrievals
 from neuralsvd_tpu_torch.methods.nestedlora import NestedLoRA
 from neuralsvd_tpu_torch.methods.nystrom import Nystrom, run_nystrom
 from neuralsvd_tpu_torch.methods.spin import PROFILE_RANGES as SPIN_PARTS
 from neuralsvd_tpu_torch.methods.spin import SpIN
 from neuralsvd_tpu_torch.methods.spectrum import compute_spectrum_evd
 from neuralsvd_tpu_torch.models.mlp import make_mlp_eigfuncs, parse_dims, tower_product
+from neuralsvd_tpu_torch.models.probe import make_multihead_probe, register_spectrum
+from neuralsvd_tpu_torch.models.resnet import make_cifar_resnet, make_resnet, make_wide_resnet
+from neuralsvd_tpu_torch.models.two_tower import HeteroNetwork, SiamNetwork
 from neuralsvd_tpu_torch.models.wavefunctions import make_wavefunctions
 from neuralsvd_tpu_torch.operators.base import KernelOperator
 from neuralsvd_tpu_torch.operators.diff_ops import VectorizedLaplacian
@@ -251,6 +291,7 @@ from neuralsvd_tpu_torch.training.train_state import (
     state_tree,
 )
 from neuralsvd_tpu_torch.utils.config import parse_pde_config, run_name
+from neuralsvd_tpu_torch.utils.meters import accuracy
 
 # E4 (bench.py:29-92, BASELINE.md E4)
 NEIGS, BATCH, NDIM = 16, 512, 2
@@ -411,6 +452,57 @@ CDK_BF16_ARGV = CDK_ARGV + ["--compute_dtype", "bf16"]
 BF16_ROWS, BF16_RTOL, BF16_ATOL = 256, 2.0 ** -7, 2.0 ** -12
 CDK_TURNS = ("f32", "tf32", "bf16", "bf16", "tf32", "f32")  # bare-step timing order
 CDK_PROFILED = 5  # eager f32, TF32 and bf16 steps under the profiler
+
+# the Sketchy CLI's own entry point (phase sketchy_cli): scripts/exps/sketchy.sh's
+# args=( ... ) list as written (bf16 towers 512-8192-512, L 512, B 4096, SGD
+# 0.9, grad clip 1.0, the lr schedule, its 28 truncation dims, 20 saved
+# retrievals, AP v1) with two cuts: --neuralsvd.sequential false dropped (the
+# flag takes no value, ROADMAP §3) and --num_epochs SKETCHY_EPOCHS; run by
+# cli.sketchy.main on feature files at Sketchy Extended scale: SKETCHY_CLASSES
+# classes of SKETCHY_SKETCHES sketches and SKETCHY_PHOTOS photos, 512-d
+# (the width of make_vgg_feature_extractor's head), made up from SEED with
+# _cdk_data's class-centre recipe, split by split_classes(.., SKETCHY_SPLIT)
+# into 90 train, 10 valid and 25 test classes
+SKETCHY_EPOCHS = 2
+SKETCHY_TRUNC = (-512, -448, -384, -320, -256, -192, -128, -64, -32, -16, -8, -4, -2, -1,
+                 1, 2, 4, 8, 16, 32, 64, 128, 192, 256, 320, 384, 448, 512)
+SKETCHY_ARGV = ["--overwrite", "--network_dims", "8192,512", "--mu", "16",
+                "--compute_dtype", "bf16", "--num_epochs", str(SKETCHY_EPOCHS),
+                "--warmup_epochs", "0", "--batch_size", "4096", "--optimizer", "sgd",
+                "--momentum", "0.9", "--base_lr", "5e-3", "--use_lr_scheduler",
+                "--grad_clip", "1.0", "--neigs", "512", "--loss", "neuralsvd",
+                "--neuralsvd.step", "1", "--n_retrievals_to_save", "20",
+                "--trunc_dims", *map(str, SKETCHY_TRUNC), "--ap_ver", "1"]
+SKETCHY_SPLIT, SKETCHY_CLASSES, SKETCHY_DIM = "1_0", 125, 512
+SKETCHY_SKETCHES, SKETCHY_PHOTOS = 604, 584  # a class: ~75.5k sketches, ~73k photos
+# VGG16 extraction through extract_features_main on made-up 3x224x224 images,
+# VGG_PER_CLASS of each kind a class, batch VGG_BATCH; the card against a CPU
+# copy on VGG_CPU_ROWS images (TF32 off), of the largest entry
+VGG_PER_CLASS, VGG_BATCH, VGG_CPU_ROWS, VGG_RTOL, VGG_TIMED = 2, 64, 8, 1e-4, 10
+# the loader's host ms a batch at B 4096 on the train files, native against
+# use_native=False in turns; the native pair draw at least LOADER_MIN_RATIO
+# times faster (tests/test_native_sampler.py's assertion)
+LOADER_TURNS, LOADER_BATCHES, LOADER_MIN_RATIO = ("native", "python", "python", "native"), 10, 5.0
+RETRIEVAL_QUERY_BATCH = 2048  # top_k_retrievals' query batch
+# the online heads (90 train classes), kNN (k 200, T 0.1) and the multi-head
+# probe (PROBE_STEPS SGD steps of batch CDK_B) on the trained towers
+KNN_K, KNN_T = 200, 0.1
+PROBE_TRUNC, PROBE_STEPS, PROBE_LR = (16, -16, 512), 20, 0.1
+# the ResNets and the Siamese network: the card against a CPU copy (float32,
+# TF32 off, of the largest entry) on ZOO_CPU_ROWS images or SIAM_CPU_ROWS
+# rows, then ZOO_STEPS SGD steps after one warm-up step
+ZOO_RTOL, ZOO_CPU_ROWS, SIAM_CPU_ROWS, ZOO_STEPS = 1e-4, 4, 256, 5
+RESNETS = {  # name: (factory(device, generator), image side, batch, classes)
+    "resnet18": (lambda d, g: make_resnet((2, 2, 2, 2), 64, num_outputs=1000, device=d,
+                                          generator=g), 224, 64, 1000),
+    "cifar_resnet20": (lambda d, g: make_cifar_resnet(20, num_outputs=10, device=d,
+                                                      generator=g), 32, 128, 10),
+    "wrn_28_2": (lambda d, g: make_wide_resnet(28, 2, num_outputs=10, device=d, generator=g),
+                 32, 128, 10),
+}
+SIAM_MODES = {"plain": {}, "separation": {"separation": True},
+              "batch_l2norm": {"batch_l2norm": True}}
+SIAM_DIMS, SIAM_B = [8192, 512], 4096
 
 # the PDE CLI's --matmul_precision tiers on the E4 flags: one run a tier of
 # PDE_TIER_ITERS steps in graph blocks of RECIPE_BLOCK (the first block
@@ -2491,6 +2583,433 @@ def phase_kernel_evd():
     return launches
 
 
+class _Images:
+    """ImageFolder protocol (.classes, .samples, [i] -> (image, class
+    index)) over made-up 3x224x224 images in [0, 1), VGG_PER_CLASS a class,
+    drawn from a seeded CPU generator; sketches go through invert_image."""
+
+    def __init__(self, kind, classes, seed):
+        self.classes = list(classes)
+        self.samples = [(f"/{kind}/{c}/{j}.png", ci)
+                        for ci, c in enumerate(self.classes) for j in range(VGG_PER_CLASS)]
+        self.data = torch.rand(len(self.samples), 3, 224, 224,
+                               generator=torch.Generator().manual_seed(seed))
+        if kind == "sketch":
+            self.data = invert_image(self.data)
+
+    def __getitem__(self, i):
+        return self.data[i], self.samples[i][1]
+
+
+def _rel(got, want):
+    """max |got - want| over max |want|, on the CPU in float32."""
+    want = want.detach().float().cpu()
+    return ((got.detach().float().cpu() - want).abs().max() / want.abs().max()).item()
+
+
+def _vgg_extraction(root, names):
+    """Both VGG16 towers (random weights) on the card through
+    extract_features_main: the card against a CPU copy, images/s, and the
+    npz files read back by the loader."""
+    check(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 must be off for the VGG16 card vs CPU check")
+    kinds = ("sketch", "photo")
+    towers = {k: make_vgg_feature_extractor(device=DEVICE,
+                                            generator=torch.Generator().manual_seed(SEED + i))
+              for i, k in enumerate(kinds)}
+    data = {k: _Images(k, names, SEED + 10 + i) for i, k in enumerate(kinds)}
+    x = data["sketch"].data[:VGG_CPU_ROWS]
+    with torch.no_grad():
+        card = towers["sketch"](x.to(DEVICE))
+        cpu = copy.deepcopy(towers["sketch"]).cpu()(x)
+    card_vs_cpu = _rel(card, cpu)
+    check(card.shape == (VGG_CPU_ROWS, SKETCHY_DIM) and card_vs_cpu <= VGG_RTOL,
+          f"VGG16 card vs CPU: {card_vs_cpu:.3g} of the largest entry > {VGG_RTOL}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_dir = extract_features_main(root, split=SKETCHY_SPLIT, batch_size=VGG_BATCH,
+                                    device=DEVICE, dataset_factory=lambda: (data, towers))
+    extract_s = time.perf_counter() - t0
+    images = sum(len(d.samples) for d in data.values())
+    batch = data["photo"].data[:VGG_BATCH].to(DEVICE)
+    with torch.no_grad():
+        forward_ms = time_ms(lambda: towers["photo"](batch), iters=VGG_TIMED, reps=3)
+    subsets = split_classes(names, SKETCHY_SPLIT)
+    rows = {}
+    for phase in ("train", "test", "valid"):
+        for kind in kinds:
+            feats, classes, _, _ = load_sketchy_features(root, SKETCHY_SPLIT, phase, kind)
+            rows[f"{phase}_{kind}"] = len(feats)
+            check(feats.shape == (len(subsets[phase]) * VGG_PER_CLASS, SKETCHY_DIM)
+                  and np.isfinite(feats).all()
+                  and set(classes.tolist()) == set(subsets[phase].tolist()),
+                  f"extracted {phase}_{kind}: {feats.shape}")
+    xb, yb, cls = next(iter(SketchyVGGDataLoader(VGG_BATCH, root_path=root, split=SKETCHY_SPLIT)))
+    check(xb.shape == yb.shape == (VGG_BATCH, SKETCHY_DIM), "a loader batch of extracted features")
+    return {"out_dir": os.path.relpath(out_dir, root), "images": images, "rows": rows,
+            "card_vs_cpu_rel": card_vs_cpu, "rtol": VGG_RTOL, "extract_s": extract_s,
+            "extract_images_per_s": images / extract_s, "forward_batch": VGG_BATCH,
+            "forward_ms": forward_ms, "forward_images_per_s": VGG_BATCH / forward_ms * 1e3}
+
+
+def _sketchy_features(root, names):
+    """Feature files of the loader's layout at Sketchy Extended scale, made
+    up from SEED: class centres (3·N(0, 1)) plus unit noise, 512-d."""
+    rng = np.random.default_rng(SEED)
+    centres = {k: 3 * rng.standard_normal((len(names), SKETCHY_DIM), dtype=np.float32)
+               for k in ("sketch", "photo")}
+    per_class = {"sketch": SKETCHY_SKETCHES, "photo": SKETCHY_PHOTOS}
+    subsets = split_classes(names, SKETCHY_SPLIT)
+    for phase in ("train", "test", "valid"):
+        for kind, n in per_class.items():
+            cls = np.repeat(subsets[phase], n)
+            feats = centres[kind][np.searchsorted(names, cls)]
+            feats += rng.standard_normal(feats.shape, dtype=np.float32)
+            write_feature_files(root, SKETCHY_SPLIT, phase, kind, feats, cls)
+    return subsets
+
+
+def _loader_ms(root):
+    """Host ms a batch of the train loader at B CDK_B, native draws against
+    use_native=False in turns: the whole batch (pairs and both gathers) and
+    the pair draw alone."""
+    loaders = {kind: SketchyVGGDataLoader(CDK_B, root_path=root, split=SKETCHY_SPLIT, seed=SEED,
+                                          use_native=(kind == "native"))
+               for kind in ("native", "python")}
+    batch_ms = {k: [] for k in loaders}
+    pairs_ms = {k: [] for k in loaders}
+    for kind in LOADER_TURNS:
+        it = iter(loaders[kind])
+        t0 = time.perf_counter()
+        for _ in range(LOADER_BATCHES):
+            next(it)
+        batch_ms[kind].append((time.perf_counter() - t0) / LOADER_BATCHES * 1e3)
+        t0 = time.perf_counter()
+        for _ in range(LOADER_BATCHES):
+            loaders[kind]._pick_random_pairs()
+        pairs_ms[kind].append((time.perf_counter() - t0) / LOADER_BATCHES * 1e3)
+    ratio = {"pairs": min(pairs_ms["python"]) / max(pairs_ms["native"]),
+             "batch": min(batch_ms["python"]) / max(batch_ms["native"])}
+    check(ratio["pairs"] >= LOADER_MIN_RATIO,
+          f"native pair draw only {ratio['pairs']:.2f}x the Python loop's speed")
+    return {"order": list(LOADER_TURNS), "batches_a_turn": LOADER_BATCHES, "batch_ms": batch_ms,
+            "pairs_ms": pairs_ms, "python_over_native_worst": ratio}
+
+
+def _embed(model, side, feats, batch=CDK_B):
+    with torch.no_grad():
+        return torch.cat([model.apply_single(torch.as_tensor(feats[i:i + batch], device=DEVICE),
+                                             side)
+                          for i in range(0, len(feats), batch)]).cpu().numpy()
+
+
+def _retrieval_split(model, test):
+    """The test retrieval on the run's embeddings, timed in parts: the
+    public top_k_retrievals (device scores and top-k, index copy), the
+    same loop with a sync between its device work and its copy, and the
+    numpy metrics (relevances, precision_at_k, average_precisions v1), at
+    K 100 (the script's) and the whole gallery (--return_map_all)."""
+    zx = _embed(model, "x", test.sketch_features)
+    zy = _embed(model, "y", test.photo_features)
+    xcls, ycls = np.asarray(test.sketch_classes), np.asarray(test.photo_classes)
+    counts = {c: n for c, n in zip(*np.unique(xcls, return_counts=True))}
+    n_items = np.asarray([counts[c] for c in xcls])
+    out = {"queries": len(zx), "gallery": len(zy)}
+    for label, K in (("K100", 100), ("all", len(zy))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx = top_k_retrievals(zx, zy, K, device=DEVICE)
+        public_s = time.perf_counter() - t0
+        gallery = torch.as_tensor(zy, device=DEVICE)
+        device_s = copy_s = 0.0
+        for i in range(0, len(zx), RETRIEVAL_QUERY_BATCH):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            q = torch.as_tensor(zx[i:i + RETRIEVAL_QUERY_BATCH], device=DEVICE)
+            top = torch.topk(q @ gallery.T, K, dim=1).indices
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            top.cpu().numpy()
+            copy_s += time.perf_counter() - t1
+            device_s += t1 - t0
+        t0 = time.perf_counter()
+        rel = ycls[idx] == xcls[:, None]
+        p_at_k = precision_at_k(rel)
+        aps = average_precisions(rel, n_items, ver=1)
+        numpy_s = time.perf_counter() - t0
+        out[label] = {"top_k_retrievals_s": public_s, "device_scores_topk_s": device_s,
+                      "index_copy_s": copy_s, "numpy_metrics_s": numpy_s,
+                      "P@K": float(p_at_k.mean()), "mAP": float(aps.mean())}
+    return out
+
+
+def _trained_towers(args, params, num_classes):
+    """A float32 copy of the run's towers (``args``' widths) with online
+    heads for ``num_classes`` (seeded), on the card."""
+    model = HeteroNetwork(SKETCHY_DIM, parse_dims(args.network_dims), args.activation,
+                          mu=args.mu, num_classes=num_classes,
+                          generator=torch.Generator().manual_seed(SEED)).to(DEVICE)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if not name.startswith("head_"):
+                p.copy_(params[name])
+    return model
+
+
+def _heads(model, train):
+    """One classify=True call on the card against a CPU copy; a classifier
+    loss gives the towers a zero gradient and the heads a nonzero one."""
+    names = sorted(set(train.sketch_classes.tolist()))
+    labels = np.searchsorted(names, train.sketch_classes)
+    x = torch.as_tensor(train.sketch_features[:64], device=DEVICE)
+    y = torch.as_tensor(labels[:64], device=DEVICE)
+    cpu = copy.deepcopy(model).cpu()
+    out = {}
+    for side in ("x", "y"):
+        emb, logits = model.apply_single(x, side, classify=True)
+        with torch.no_grad():
+            cemb, clogits = cpu.apply_single(x.cpu(), side, classify=True)
+        out[side] = {"emb_rel": _rel(emb, cemb), "logits_rel": _rel(logits, clogits)}
+        check(max(out[side].values()) <= CDK_TOWER_RTOL, f"heads card vs CPU: {out[side]}")
+        loss = torch.nn.functional.cross_entropy(logits, y)
+        params = dict(model.named_parameters())
+        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()),
+                                                     allow_unused=True)))
+        tower = [k for k in params if not k.startswith("head_")]
+        check(all(grads[k] is None or not grads[k].any() for k in tower),
+              "a classifier loss reached the towers")
+        check(all(grads[k] is not None and grads[k].abs().max() > 0
+                  for k in params if k.startswith(f"head_{side}.")), f"head_{side} gradient")
+        out[side]["loss"] = loss.item()
+    return out
+
+
+def _knn(model, train, test):
+    """kNN (KNN_K, KNN_T) of test-sketch embeddings (x tower) against a
+    photo bank (y tower): the train photos (the classes are disjoint, so
+    every prediction is a train class and the accuracy is 0) and the test
+    photos (chance 1/25)."""
+    names = sorted(set(train.sketch_classes.tolist()) | set(test.sketch_classes.tolist()))
+    q = _embed(model, "x", test.sketch_features)
+    q_labels = np.searchsorted(names, test.sketch_classes)
+    out = {}
+    for bank_name, loader in (("train_photos", train), ("test_photos", test)):
+        bank = _embed(model, "y", loader.photo_features)
+        bank_labels = np.searchsorted(names, loader.photo_classes)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        acc = knn_monitor(lambda v: v, bank, bank_labels, q, q_labels, len(names),
+                          k=KNN_K, temperature=KNN_T, device=DEVICE)
+        out[bank_name] = {"bank": len(bank), "accuracy": acc, "s": time.perf_counter() - t0}
+    preds = knn_predict(q[:512], _embed(model, "y", train.photo_features),
+                        np.searchsorted(names, train.photo_classes), len(names),
+                        k=KNN_K, temperature=KNN_T, device=DEVICE)
+    train_ids = set(np.searchsorted(names, train.photo_classes).tolist())
+    check(set(preds.tolist()) <= train_ids and out["train_photos"]["accuracy"] == 0.0,
+          "kNN on the train-photo bank predicted a class outside the bank")
+    check(out["test_photos"]["accuracy"] > 0, "kNN on the test-photo bank")
+    out["queries"], out["k"], out["temperature"] = len(q), KNN_K, KNN_T
+    out["test_chance"] = 1 / len(set(test.sketch_classes.tolist()))
+    return out
+
+
+def _probe(model, train, spectrum):
+    """The multi-head probe over the frozen x tower (rep: its 8192-wide
+    hidden layer; emb: its embedding), PROBE_TRUNC, spectrum-sorted;
+    PROBE_STEPS SGD steps: losses finite, towers unchanged."""
+    tower = model.x
+
+    def embed(v):
+        return tower.act(tower.layers[0](v)), model.apply_single(v, "x")
+
+    names = sorted(set(train.sketch_classes.tolist()))
+    labels = torch.as_tensor(np.searchsorted(names, train.sketch_classes), device=DEVICE)
+    feats = torch.as_tensor(train.sketch_features, device=DEVICE)
+    probe = make_multihead_probe(embed, tower.layers[0].w.shape[1], tower.layers[-1].w.shape[1],
+                                 len(names), trunc_dims=PROBE_TRUNC,
+                                 sort=True, generator=torch.Generator().manual_seed(SEED)).to(DEVICE)
+    record = register_spectrum(spectrum)
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    opt = torch.optim.SGD(probe.parameters(), lr=PROBE_LR, momentum=0.9)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 20)
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PROBE_STEPS):
+        idx = torch.randint(0, len(feats), (CDK_B,), generator=gen, device=DEVICE)
+        logits = probe(feats[idx], spectrum_record=record)
+        loss = sum(torch.nn.functional.cross_entropy(v, labels[idx]) for v in logits.values())
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        losses.append(loss.detach())
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    losses = torch.stack(losses).cpu()
+    check(torch.isfinite(losses).all().item(), "non-finite probe loss")
+    check(all(torch.equal(p, before[k]) for k, p in model.named_parameters()),
+          "the probe moved the frozen towers")
+    with torch.no_grad():
+        idx = torch.arange(CDK_B, device=DEVICE)
+        top1 = {k: accuracy(v, labels[idx])[0]
+                for k, v in probe(feats[idx], spectrum_record=record).items()}
+    return {"heads": list(probe.heads), "steps": PROBE_STEPS, "loss_first": losses[0].item(),
+            "loss_last": losses[-1].item(), "steps_per_s": PROBE_STEPS / seconds,
+            "train_top1_percent": top1}
+
+
+def _zoo_resnet(name):
+    """A ResNet on the card against a CPU copy (train mode: output and
+    running statistics after the step; eval mode), then ZOO_STEPS SGD
+    steps on random images and labels: images/s."""
+    make, side, batch, classes = RESNETS[name]
+    cpu = make("cpu", torch.Generator().manual_seed(SEED))
+    card = copy.deepcopy(cpu).to(DEVICE)
+    x = torch.rand(ZOO_CPU_ROWS, 3, side, side, generator=torch.Generator().manual_seed(SEED + 1))
+    rel = {}
+    for mode in ("train", "eval"):
+        cpu.train(mode == "train")
+        card.train(mode == "train")
+        with torch.no_grad():
+            rel[mode] = _rel(card(x.to(DEVICE)), cpu(x))
+    card_buffers = dict(card.named_buffers())
+    rel["running_stats"] = max(_rel(card_buffers[k], b) for k, b in cpu.named_buffers())
+    check(max(rel.values()) <= ZOO_RTOL, f"{name} card vs CPU: {rel}")
+    card.train()
+    opt = torch.optim.SGD(card.parameters(), lr=0.01, momentum=0.9)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    xb = torch.rand(batch, 3, side, side, generator=gen, device=DEVICE)
+    yb = torch.randint(0, classes, (batch,), generator=gen, device=DEVICE)
+    losses = []
+
+    def step():
+        loss = torch.nn.functional.cross_entropy(card(xb), yb)
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        losses.append(loss.detach())
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ZOO_STEPS):
+        step()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check(torch.isfinite(torch.stack(losses)).all().item(), f"{name}: non-finite loss")
+    return {"side": side, "batch": batch, "card_vs_cpu_rel": rel,
+            "params": sum(p.numel() for p in card.parameters()),
+            "images_per_s": ZOO_STEPS * batch / seconds}
+
+
+def _zoo_siam(mode):
+    """SiamNetwork (backbone 512-8192-512) on the card against a CPU copy:
+    two train-mode two-view calls (outputs, then the l2norm buffer), one
+    eval call; then ZOO_STEPS SGD steps at SIAM_B rows: rows/s."""
+    kw = SIAM_MODES[mode]
+    cpu = SiamNetwork(SKETCHY_DIM, SIAM_DIMS, mu=16.0, generator=torch.Generator().manual_seed(SEED),
+                      **kw)
+    card = copy.deepcopy(cpu).to(DEVICE)
+    g = torch.Generator().manual_seed(SEED + 3)
+    z1, z2 = (torch.randn(SIAM_CPU_ROWS, SKETCHY_DIM, generator=g) for _ in range(2))
+    rel = {}
+    for call, (a, b) in enumerate(((z1, z2), (z2, z1))):
+        with torch.no_grad():
+            got, want = card(a.to(DEVICE), b.to(DEVICE)), cpu(a, b)
+        rel[f"train_call{call}"] = max(_rel(g_, w) for g_, w in zip(got, want))
+    rel["l2norm"] = _rel(card.l2norm, cpu.l2norm)
+    check(bool(card.initialized) == bool(cpu.initialized) == bool(kw), f"siam {mode} initialized")
+    cpu.eval()
+    card.eval()
+    with torch.no_grad():
+        rel["eval"] = max(_rel(g_, w) for g_, w in zip(card(z1.to(DEVICE)), cpu(z1)))
+    check(max(rel.values()) <= ZOO_RTOL, f"siam {mode} card vs CPU: {rel}")
+    card.train()
+    opt = torch.optim.SGD(card.parameters(), lr=0.01, momentum=0.9)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+    xb = torch.randn(SIAM_B, SKETCHY_DIM, generator=gen, device=DEVICE)
+    losses = []
+
+    def step():
+        _, e1, _, e2 = card(xb, xb + 0.1 * torch.randn(xb.shape, generator=gen, device=DEVICE))
+        loss = -torch.nn.functional.cosine_similarity(e1, e2, dim=1).mean()
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        losses.append(loss.detach())
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ZOO_STEPS):
+        step()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check(torch.isfinite(torch.stack(losses)).all().item(), f"siam {mode}: non-finite loss")
+    return {"card_vs_cpu_rel": rel, "batch": SIAM_B, "rows_per_s": ZOO_STEPS * SIAM_B / seconds}
+
+
+def phase_sketchy_cli():
+    """The Sketchy CLI's own entry point on feature files at Sketchy
+    Extended scale, the VGG16 extraction that writes such files, the
+    loader's native draws against the Python loop, the retrieval split,
+    the online heads, kNN, the probe, the ResNets and the Siamese network."""
+    names = [f"c{i:03d}" for i in range(SKETCHY_CLASSES)]
+    with tempfile.TemporaryDirectory() as tmp:
+        vgg = _vgg_extraction(os.path.join(tmp, "vgg"), names)
+        root, log_dir = os.path.join(tmp, "root"), os.path.join(tmp, "log")
+        t0 = time.perf_counter()
+        subsets = _sketchy_features(root, names)
+        files_s = time.perf_counter() - t0
+        args = get_args(SKETCHY_ARGV + ["--root_dir", root, "--sketchy_split", SKETCHY_SPLIT,
+                                        "--log_dir", log_dir, "--seed", str(SEED),
+                                        "--device", DEVICE])
+        cuda_gram.reset_launch_counts()
+        timings = {}
+        t0 = time.perf_counter()
+        params, trunc = sketchy.main(args, timings=timings)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = cuda_gram.launch_counts()
+        rows = _csv_rows(log_dir)
+        files = sorted(os.listdir(log_dir))
+        spectrum = np.load(os.path.join(log_dir, "best_stats.npz"))["spectrum"]
+        loader = {phase: SketchyVGGDataLoader(CDK_B, root_path=root, split=SKETCHY_SPLIT,
+                                              train_or_test=phase, use_native=False)
+                  for phase in ("train", "test")}
+        train, test = loader["train"], loader["test"]
+        steps = SKETCHY_EPOCHS * train.max_steps
+        check(len(train) == len(subsets["train"]) * SKETCHY_SKETCHES, "train sketches")
+        check(len(rows) == SKETCHY_EPOCHS, f"{len(rows)} log rows")
+        check(all(np.isfinite(float(r["loss"])) for r in rows), "non-finite Sketchy loss")
+        check(int(rows[-1]["skips"]) == 0, f"{rows[-1]['skips']} skipped Sketchy steps")
+        check(all(n == steps for n in counts.values()),
+              f"Sketchy CLI launch counts {counts} != {steps} each")
+        check({"best", "ckpt", "best_stats.npz", "retrievals_best.npz"} <= set(files),
+              f"Sketchy CLI files {files}")
+        check(set(trunc) == set(SKETCHY_TRUNC), f"truncation sweep {sorted(trunc)}")
+        loader_ms = _loader_ms(root)
+        model = _trained_towers(args, params, len(subsets["train"]))
+        retrieval = _retrieval_split(model, test)
+        heads = _heads(model, train)
+        knn = _knn(model, train, test)
+        probe = _probe(model, train, spectrum)
+    zoo = {name: _zoo_resnet(name) for name in RESNETS}
+    zoo.update({f"siam_{mode}": _zoo_siam(mode) for mode in SIAM_MODES})
+    emit("sketchy_cli", argv=SKETCHY_ARGV, split=SKETCHY_SPLIT,
+         classes={k: len(v) for k, v in subsets.items()},
+         rows={"train_sketches": len(train), "test_sketches": len(test)},
+         feature_files_s=files_s, vgg=vgg, epochs=SKETCHY_EPOCHS, steps=steps,
+         launches=counts, run_s=run_s, run_parts_s=timings,
+         run_other_s=run_s - sum(map(sum, timings.values())),
+         driver_steps_per_s=train.max_steps / timings["steps"][-1],
+         per_epoch=[{k: float(v) for k, v in r.items()} for r in rows],
+         test_p_at_100=float(rows[-1]["test_P@K"]),
+         test_chance=1 / len(subsets["test"]), trunc=trunc, loader_ms=loader_ms,
+         retrieval=retrieval, heads=heads, knn=knn, probe=probe, zoo=zoo)
+    return counts
+
+
 def main():
     # full f32 products: TF32 keeps ~3 digits and would break the tolerances
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2515,6 +3034,7 @@ def main():
     phase_cdk_loss(train)
     counts["cdk"], f32_quality = phase_cdk_train(train, test, valid)
     counts["cdk_bf16"] = phase_cdk_bf16(train, test, valid, f32_quality)
+    counts["sketchy_cli"] = phase_sketchy_cli()
     kernels = []
     for kname, results in rows.items():
         at = {r["shape"]: r for r in results}
@@ -2525,7 +3045,7 @@ def main():
                  for path, shape in (("e4", "E4"), ("pde_cli", "E4"), ("cdk", "cdk"),
                                      ("hydrogen", "hydrogen"), ("oscillator", "oscillator"),
                                      ("fp", "fp"), ("pde_tiers", "E4"), ("cdk_bf16", "cdk"),
-                                     ("kernel_evd", "kernel_evd"))}
+                                     ("kernel_evd", "kernel_evd"), ("sketchy_cli", "cdk"))}
         for path, m in measured.items():
             paths[path].update(m[kname])
         cdk = paths["cdk"]

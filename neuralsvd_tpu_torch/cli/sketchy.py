@@ -1,7 +1,8 @@
 """Sketchy CDK training: python -m neuralsvd_tpu_torch.cli.sketchy [flags].
 
 Port of ``neuralsvd_tpu/cli/sketchy.py``.  Two-tower training on
-precomputed VGG features with the NestedLoRA CDK loss; per epoch the
+precomputed VGG features (the files of ``data/sketchy.py``, pairs drawn by
+the native sampler) with the NestedLoRA CDK loss; per epoch the
 retrieval eval (P@K / mAP) on test and valid, a CSV row, the best
 parameters by valid P@K, a resumable checkpoint and the density ratios of
 the last batch; at the end the spectrum/orthogonality check and the
@@ -16,7 +17,9 @@ bf16`` (the towers' chain in bfloat16, float32 master weights and CDK
 loss) and every ``--optimizer`` included; ``main`` pins float32 matmuls
 to IEEE (``torch.set_float32_matmul_precision("highest")``), as the JAX
 CLI pins float32.  Not ported yet: ``--mesh`` (data/tensor parallelism,
-queue 1, item 9) raises NotImplementedError.
+queue 1, item 9) raises NotImplementedError.  A departure: ``main`` raises
+on an empty valid split before training, where the JAX CLI fails at the
+first epoch's valid eval.
 """
 from __future__ import annotations
 
@@ -228,7 +231,11 @@ def _span(timings, name, dev):
     timings.setdefault(name, []).append(_synced_clock(dev) - t0)
 
 
-def main(args):
+def main(args, timings=None):
+    """Train on the feature files under ``--root_dir`` (pairs drawn by the
+    native sampler); returns what ``run_training`` returns (``timings``:
+    see there).  Raises ``ValueError`` before training where the valid
+    split is empty (files of split "1" or "2", made without "_<seed>")."""
     logging.basicConfig(level=logging.INFO)
     torch.set_float32_matmul_precision("highest")
     os.makedirs(args.log_dir, exist_ok=True)
@@ -237,8 +244,17 @@ def main(args):
                                     train_or_test=phase,
                                     seed=args.seed if phase == "train" else 0)
                for phase in ("train", "test", "valid")]
+    if loaders[2].sketch_features.shape[0] == 0:
+        # the JAX CLI fails later, at the first epoch's valid eval
+        # (np.concatenate of no embedding batch)
+        raise ValueError(
+            f"the valid split of --sketchy_split {args.sketchy_split} under "
+            f"{args.root_dir} is empty: the best parameters are chosen by valid "
+            "P@K, so extract the features with a split of the form 1_<seed> "
+            "(or 2_<seed>), which carves a valid split out of the training "
+            "classes")
     return run_training(args, *loaders,
-                        input_dim=loaders[0].sketch_features.shape[1])
+                        input_dim=loaders[0].sketch_features.shape[1], timings=timings)
 
 
 def run_training(args, train_loader, test_loader, valid_loader, input_dim,

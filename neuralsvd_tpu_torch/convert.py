@@ -9,8 +9,16 @@ absent without biases, ``g`` present under weight normalization), with the expon
 mask's ``{"mask": {"scales": (L,)}}`` where there is one;
 ``hetero_params_from_jax`` maps the
 two-tower tree ``{"x": {"layers": [{"w": (in, out), "b": (out,)}, ...]},
-"y": ...}`` onto that of ``models.two_tower.HeteroNetwork`` (the same
-(in, out) layout, so no transpose); ``method_state_from_jax`` carries a
+"y": ..., "head_x": ..., "head_y": ...}`` (heads where the network has
+``num_classes``) onto that of ``models.two_tower.HeteroNetwork`` (the same
+(in, out) layout, so no transpose); ``siam_params_from_jax`` maps
+``make_siam_network``'s params and state (``backbone``, ``projector``,
+``scales_param``; ``l2norm``, ``initialized``) onto ``SiamNetwork``'s
+parameters and buffers; ``resnet_state_from_jax`` maps a ResNet's params
+and BatchNorm state onto the state dict of ``models.resnet``'s modules
+(conv weights HWIO -> OIHW, the running statistics as buffers);
+``probe_params_from_jax`` maps a multi-head probe's head tree onto
+``models.probe.MultiHeadProbe``'s ``heads``; ``method_state_from_jax`` carries a
 method's state (NeuralEF's ``norm_biased``, ``norm_unbiased`` (1, L) and
 the bool ``initialized``; SpIN's ``sigma_avg``, ``chol`` and the nested
 ``j_avg``, flattened to the port's parameter names, per-mode leaves in
@@ -50,15 +58,18 @@ def params_from_jax(tree) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _f32(leaf) -> torch.Tensor:
+    return torch.tensor(np.asarray(leaf, dtype=np.float32))
+
+
 def hetero_params_from_jax(tree) -> Dict[str, torch.Tensor]:
-    """-> {"x.layers.0.w": tensor, "x.layers.0.b": tensor, ...} (float32)."""
-    extra = set(tree) - {"x", "y"}
+    """-> {"x.layers.0.w": tensor, "x.layers.0.b": tensor, ...,
+    "head_x.layers.0.w": ...} (float32)."""
+    extra = set(tree) - {"x", "y", "head_x", "head_y"}
     if extra:
-        raise NotImplementedError(
-            f"parameters {sorted(extra)} (online heads) are not ported yet "
-            "(ROADMAP queue 1, item 7)")
+        raise ValueError(f"unknown two-tower parameters {sorted(extra)}")
     out = {}
-    for side in ("x", "y"):
+    for side in [k for k in ("x", "y", "head_x", "head_y") if k in tree]:
         for i, layer in enumerate(tree[side]["layers"]):
             if set(layer) - {"w", "b"}:
                 raise ValueError(
@@ -68,6 +79,37 @@ def hetero_params_from_jax(tree) -> Dict[str, torch.Tensor]:
                 out[f"{side}.layers.{i}.{name}"] = torch.tensor(
                     np.asarray(leaf, dtype=np.float32))
     return out
+
+
+def siam_params_from_jax(params, state=None) -> Dict[str, torch.Tensor]:
+    """-> {"backbone.layers.0.w": ..., "projector.layers.0.w": ...,
+    "scales_param": ..., "l2norm": ..., "initialized": ...}: a state dict
+    of ``SiamNetwork`` (the buffers where ``state`` is given)."""
+    out = {name: _f32(leaf) for name, leaf in _named_leaves(params)}
+    if state is not None:
+        out["l2norm"] = _f32(state["l2norm"])
+        out["initialized"] = torch.tensor(bool(np.asarray(state["initialized"])))
+    return out
+
+
+def resnet_state_from_jax(params, state, dtype=torch.float32) -> Dict[str, torch.Tensor]:
+    """A ResNet's (params, BatchNorm state) -> the state dict of
+    ``models.resnet.ResNet`` (or ``LinearProbe`` with ``state={}``) in
+    ``dtype``: conv weights (kh, kw, in, out) -> (out, in, kh, kw), the
+    head's (in, out) kept, the running ``mean``/``var`` as buffers."""
+    out = {}
+    for name, leaf in _named_leaves(params):
+        t = torch.tensor(np.asarray(leaf), dtype=dtype)
+        out[name] = t.permute(3, 2, 0, 1).contiguous() if t.ndim == 4 else t
+    for name, leaf in _named_leaves(state):
+        out[name] = torch.tensor(np.asarray(leaf), dtype=dtype)
+    return out
+
+
+def probe_params_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """A multi-head probe's {head name: {"layers": [...]}} -> the state dict
+    of ``MultiHeadProbe`` ({"heads.<name>.layers.0.w": ...})."""
+    return {f"heads.{name}": _f32(leaf) for name, leaf in _named_leaves(tree)}
 
 
 def _named_leaves(tree, prefix=""):

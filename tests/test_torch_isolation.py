@@ -101,6 +101,33 @@ def test_cdk_entry_points_raise_without_cuda():
         compute_spectrum_svd(lambda x, y: (x, y), [])
 
 
+def test_zoo_entry_points_raise_without_cuda():
+    """The VGG extractor, the feature extraction, kNN and the ResNet
+    factories default to the GPU too."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    import numpy as np
+
+    from neuralsvd_tpu_torch.data.sketchy import (
+        extract_split_features,
+        make_vgg_feature_extractor,
+    )
+    from neuralsvd_tpu_torch.eval.knn import knn_monitor, knn_predict
+    from neuralsvd_tpu_torch.models import resnet
+
+    z = np.zeros((4, 2), np.float32)
+    for call in (lambda: make_vgg_feature_extractor(),
+                 lambda: extract_split_features(torch.nn.Identity(), None, []),
+                 lambda: knn_predict(z, z, np.arange(4), 4, k=2),
+                 lambda: knn_monitor(lambda v: v, z, np.arange(4), z, np.arange(4), 4, k=2),
+                 lambda: resnet.make_resnet(width=2),
+                 lambda: resnet.make_cifar_resnet(8),
+                 lambda: resnet.make_wide_resnet(10, 1),
+                 lambda: resnet.make_linear_probe(3, 2)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     from neuralsvd_tpu_torch.ops import cuda_build
 

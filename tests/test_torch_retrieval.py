@@ -102,10 +102,12 @@ def _write_split_files(root, n_cls=5, per_cls=8, D=12, seed=0):
 
 
 def test_sketchy_loader_matches_jax_python_path(tmp_path):
-    """Same files, same seed: the port's loader and the JAX loader's Python
-    pairing path draw the same batches."""
+    """Same files, same seed: the port's loader and the JAX loader on their
+    Python pairing path (use_native=False; both draw natively by default)
+    draw the same batches."""
     _write_split_files(str(tmp_path))
-    port = SketchyVGGDataLoader(7, root_path=str(tmp_path), split="1", seed=3)
+    port = SketchyVGGDataLoader(7, root_path=str(tmp_path), split="1", seed=3,
+                                use_native=False)
     ref = JaxSketchyLoader(7, root_path=str(tmp_path), split="1", seed=3,
                            use_native=False)
     assert port.max_steps == ref.max_steps == 6
