@@ -197,10 +197,35 @@ seconds:
               ResNet-20 and WRN-28-2 (32², batch 128) and SiamNetwork
               (512-8192-512, plain, separation, batch_l2norm; batch 4096)
               card vs CPU, then 5 SGD steps each: images or rows a second.
+17. dp        data parallelism (--mesh dp, parallel/sharding.py): (a) the
+              E4 flags on the plain loss through cli.pde.main on a
+              one-rank NCCL group, DP_ITERS steps in graph blocks of
+              DP_BLOCK with one eval (on one rank NCCL reduces in place
+              and the graph holds no collective), no gram
+              kernel launched, against the same flags without --mesh
+              (bit for bit expected) and against itself as eager steps;
+              the NCCL events and kernels a step of a traced block;
+              graph-block steps/s in turns: dp on the plain loss, no mesh
+              on the plain loss, no mesh on K1-K3; (b) the Sketchy script
+              (one epoch, on sketchy_cli's feature files) with --mesh dp
+              against the run without it on --use_pallas false; (c)
+              SpIN at hydrogen.sh's flags with --mesh dp against no mesh
+              in turns: steps/s and peak device memory (the flat mean of
+              the 1.54 GB j_avg a step), the states held to each other;
+              (d) two
+              gloo ranks on the one card (spawned processes, CUDA
+              tensors, the group through make_mesh's torchrun path with
+              backend gloo, which refuses a CUDA graph): one eager E4 step
+              at dp=2 against the single-process step on the
+              half-consistent union batch and one paper-width float32
+              CDK step against the single-process step on the same pairs,
+              both with SGD and no grad clip, so the gradient's scale
+              shows.
 
 Then the {"kernels": [...]} line (numbers at the CDK shape, launches of
-the ten main paths (e4 trainer, pde_cli, hydrogen, oscillator, fp, cdk,
-pde_tiers, cdk_bf16, kernel_evd, sketchy_cli; the
+the ten main paths that run K1-K3 (e4 trainer, pde_cli, hydrogen,
+oscillator, fp, cdk, pde_tiers, cdk_bf16, kernel_evd, sketchy_cli; the dp
+path takes the plain losses and launches none; the
 CLI paths' are the eager launches counted by the wrappers plus the
 replayed launches counted in the traced block, each also under "paths"),
 per-path numbers under "paths", every shape's under "shapes"), the
@@ -484,6 +509,41 @@ VGG_PER_CLASS, VGG_BATCH, VGG_CPU_ROWS, VGG_RTOL, VGG_TIMED = 2, 64, 8, 1e-4, 10
 # times faster (tests/test_native_sampler.py's assertion)
 LOADER_TURNS, LOADER_BATCHES, LOADER_MIN_RATIO = ("native", "python", "python", "native"), 10, 5.0
 RETRIEVAL_QUERY_BATCH = 2048  # top_k_retrievals' query batch
+# phase dp (--mesh dp, parallel/sharding.py): the E4 flags on the plain
+# loss (--neuralsvd.use_pallas false) through cli.pde.main on a one-rank
+# NCCL group, DP_ITERS steps in graph blocks of DP_BLOCK with one eval at
+# the end, its second block traced (DP_TRACED); held to the same flags
+# without --mesh (bit for bit expected; else DP_PLAIN_ATOL of the largest
+# entry) and to itself as eager steps (PDE_STATE_RTOL/ATOL); then steps/s
+# of each block after the first of DP_TURN_ITERS-step runs in the turns
+# DP_TURNS (dp on the plain loss, no mesh on the plain loss, no mesh on the
+# kernels).  The
+# Sketchy script (SKETCHY_ARGV, one epoch, one truncation dim, no saved
+# retrievals) through cli.sketchy.main with --mesh dp against the run
+# without it on --use_pallas false, at DP_SKETCHY_RTOL/ATOL
+# (tests/test_cli_mesh.py:69).  Two gloo ranks on the one card (spawned,
+# CUDA tensors, joined within DP_SPAWN_TIMEOUT_S): one eager E4 step at
+# dp=2 against the single-process step on the half-consistent union batch,
+# and one CDK step at the paper's width in float32 (CDK_ARGV) against the
+# single-process step on the same pairs, at DP_LOSS_TOL and DP_PARAM_TOL
+# (tests/test_parallel.py:158-209), both with SGD and no clip
+# (_dp_step_argv, _dp_cdk_args)
+DP_ITERS, DP_BLOCK = 500, 250
+DP_TRACED = (DP_BLOCK, DP_BLOCK)
+DP_TURNS = ("dp", "plain", "kernels", "kernels", "plain", "dp")
+DP_TURN_ITERS = 3 * DP_BLOCK  # a turn's rates: each block after the capturing one
+# SpIN at hydrogen.sh's flags (HYDROGEN_ARGV, --loss spin) with --mesh dp
+# against no mesh: the flat mean of the method state (the 1.54 GB j_avg)
+# every step.  DP_SPIN_ITERS steps in graph blocks of DP_SPIN_BLOCK, no
+# eval, in the turns DP_SPIN_TURNS: steps/s of each block after the
+# capturing one and the run's peak device memory above what it started
+# with; the first dp and no-mesh runs' states held to each other
+DP_SPIN_ITERS, DP_SPIN_BLOCK = 200, 100
+DP_SPIN_TURNS = ("dp", "plain", "dp")
+DP_PLAIN_ATOL = 1e-6
+DP_SKETCHY_RTOL, DP_SKETCHY_ATOL = 2e-4, 2e-5
+DP_LOSS_TOL, DP_PARAM_TOL = (1e-5, 1e-6), (1e-4, 1e-6)  # (rtol, atol)
+DP_SPAWN_TIMEOUT_S = 120
 # the online heads (90 train classes), kNN (k 200, T 0.1) and the multi-head
 # probe (PROBE_STEPS SGD steps of batch CDK_B) on the trained towers
 KNN_K, KNN_T = 200, 0.1
@@ -1059,6 +1119,11 @@ def _measured_launches(label, run_dir, traced):
                 "traced": traced_n[w], "traced_steps": list(traced),
                 "device_us_per_step": device_us[w]}
             for w in GRAM_KERNELS}, len(names) / traced[1]
+
+
+def _block_rates(timings, kind):
+    """Steps/s of each block of ``kind`` after the first (which captures)."""
+    return [n / seconds for n, seconds in timings[kind][1:]]
 
 
 def _block_rate(timings, kind):
@@ -2949,51 +3014,52 @@ def _zoo_siam(mode):
     return {"card_vs_cpu_rel": rel, "batch": SIAM_B, "rows_per_s": ZOO_STEPS * SIAM_B / seconds}
 
 
-def phase_sketchy_cli():
+def phase_sketchy_cli(tmp):
     """The Sketchy CLI's own entry point on feature files at Sketchy
     Extended scale, the VGG16 extraction that writes such files, the
     loader's native draws against the Python loop, the retrieval split,
-    the online heads, kNN, the probe, the ResNets and the Siamese network."""
+    the online heads, kNN, the probe, the ResNets and the Siamese network.
+    The feature files stay in the ``root`` folder of ``tmp`` (phase dp
+    reads them)."""
     names = [f"c{i:03d}" for i in range(SKETCHY_CLASSES)]
-    with tempfile.TemporaryDirectory() as tmp:
-        vgg = _vgg_extraction(os.path.join(tmp, "vgg"), names)
-        root, log_dir = os.path.join(tmp, "root"), os.path.join(tmp, "log")
-        t0 = time.perf_counter()
-        subsets = _sketchy_features(root, names)
-        files_s = time.perf_counter() - t0
-        args = get_args(SKETCHY_ARGV + ["--root_dir", root, "--sketchy_split", SKETCHY_SPLIT,
-                                        "--log_dir", log_dir, "--seed", str(SEED),
-                                        "--device", DEVICE])
-        cuda_gram.reset_launch_counts()
-        timings = {}
-        t0 = time.perf_counter()
-        params, trunc = sketchy.main(args, timings=timings)
-        torch.cuda.synchronize()
-        run_s = time.perf_counter() - t0
-        counts = cuda_gram.launch_counts()
-        rows = _csv_rows(log_dir)
-        files = sorted(os.listdir(log_dir))
-        spectrum = np.load(os.path.join(log_dir, "best_stats.npz"))["spectrum"]
-        loader = {phase: SketchyVGGDataLoader(CDK_B, root_path=root, split=SKETCHY_SPLIT,
-                                              train_or_test=phase, use_native=False)
-                  for phase in ("train", "test")}
-        train, test = loader["train"], loader["test"]
-        steps = SKETCHY_EPOCHS * train.max_steps
-        check(len(train) == len(subsets["train"]) * SKETCHY_SKETCHES, "train sketches")
-        check(len(rows) == SKETCHY_EPOCHS, f"{len(rows)} log rows")
-        check(all(np.isfinite(float(r["loss"])) for r in rows), "non-finite Sketchy loss")
-        check(int(rows[-1]["skips"]) == 0, f"{rows[-1]['skips']} skipped Sketchy steps")
-        check(all(n == steps for n in counts.values()),
-              f"Sketchy CLI launch counts {counts} != {steps} each")
-        check({"best", "ckpt", "best_stats.npz", "retrievals_best.npz"} <= set(files),
-              f"Sketchy CLI files {files}")
-        check(set(trunc) == set(SKETCHY_TRUNC), f"truncation sweep {sorted(trunc)}")
-        loader_ms = _loader_ms(root)
-        model = _trained_towers(args, params, len(subsets["train"]))
-        retrieval = _retrieval_split(model, test)
-        heads = _heads(model, train)
-        knn = _knn(model, train, test)
-        probe = _probe(model, train, spectrum)
+    vgg = _vgg_extraction(os.path.join(tmp, "vgg"), names)
+    root, log_dir = os.path.join(tmp, "root"), os.path.join(tmp, "log")
+    t0 = time.perf_counter()
+    subsets = _sketchy_features(root, names)
+    files_s = time.perf_counter() - t0
+    args = get_args(SKETCHY_ARGV + ["--root_dir", root, "--sketchy_split", SKETCHY_SPLIT,
+                                    "--log_dir", log_dir, "--seed", str(SEED),
+                                    "--device", DEVICE])
+    cuda_gram.reset_launch_counts()
+    timings = {}
+    t0 = time.perf_counter()
+    params, trunc = sketchy.main(args, timings=timings)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = cuda_gram.launch_counts()
+    rows = _csv_rows(log_dir)
+    files = sorted(os.listdir(log_dir))
+    spectrum = np.load(os.path.join(log_dir, "best_stats.npz"))["spectrum"]
+    loader = {phase: SketchyVGGDataLoader(CDK_B, root_path=root, split=SKETCHY_SPLIT,
+                                          train_or_test=phase, use_native=False)
+              for phase in ("train", "test")}
+    train, test = loader["train"], loader["test"]
+    steps = SKETCHY_EPOCHS * train.max_steps
+    check(len(train) == len(subsets["train"]) * SKETCHY_SKETCHES, "train sketches")
+    check(len(rows) == SKETCHY_EPOCHS, f"{len(rows)} log rows")
+    check(all(np.isfinite(float(r["loss"])) for r in rows), "non-finite Sketchy loss")
+    check(int(rows[-1]["skips"]) == 0, f"{rows[-1]['skips']} skipped Sketchy steps")
+    check(all(n == steps for n in counts.values()),
+          f"Sketchy CLI launch counts {counts} != {steps} each")
+    check({"best", "ckpt", "best_stats.npz", "retrievals_best.npz"} <= set(files),
+          f"Sketchy CLI files {files}")
+    check(set(trunc) == set(SKETCHY_TRUNC), f"truncation sweep {sorted(trunc)}")
+    loader_ms = _loader_ms(root)
+    model = _trained_towers(args, params, len(subsets["train"]))
+    retrieval = _retrieval_split(model, test)
+    heads = _heads(model, train)
+    knn = _knn(model, train, test)
+    probe = _probe(model, train, spectrum)
     zoo = {name: _zoo_resnet(name) for name in RESNETS}
     zoo.update({f"siam_{mode}": _zoo_siam(mode) for mode in SIAM_MODES})
     emit("sketchy_cli", argv=SKETCHY_ARGV, split=SKETCHY_SPLIT,
@@ -3008,6 +3074,314 @@ def phase_sketchy_cli():
          test_chance=1 / len(subsets["test"]), trunc=trunc, loader_ms=loader_ms,
          retrieval=retrieval, heads=heads, knn=knn, probe=probe, zoo=zoo)
     return counts
+
+
+def _abs_excess(got, ref, rtol, atol):
+    """Largest |got - ref| over (rtol·|ref| + atol), the JAX tests' form."""
+    return ((got - ref).abs() / (rtol * ref.abs() + atol)).max().item()
+
+
+def _nccl_per_step(run_dir, traced):
+    """In the trace of a run's --profile window ``traced`` (start, steps):
+    the NCCL kernels and device copies a step ({name: count/step}; NCCL
+    reduces a one-rank group in place with neither) and the kernels a
+    step."""
+    with open(os.path.join(run_dir, "profile", "trace.json")) as fh:
+        events = json.load(fh)["traceEvents"]
+    out, kernels = {}, 0
+    for e in events:
+        name, cat = str(e.get("name", "")), str(e.get("cat", "")).lower()
+        kernels += cat == "kernel"
+        if (cat == "kernel" and "nccl" in name.lower()) or cat == "gpu_memcpy":
+            out[name] = out.get(name, 0) + 1 / traced[1]
+    return out, kernels / traced[1]
+
+
+def _dp_argv(variant):
+    """The E4 flags of phase dp's runs: ``dp`` on the plain loss with
+    --mesh dp, ``plain`` the plain loss without it, ``kernels`` K1-K3."""
+    argv = PDE_E4_ARGV + ["--print_freq", str(DP_BLOCK), "--num_iters", str(DP_ITERS)]
+    if variant != "kernels":
+        argv += ["--neuralsvd.use_pallas", "false"]
+    return argv + (["--mesh", "dp"] if variant == "dp" else [])
+
+
+def _dp_e4(tmp):
+    """The E4 CLI on a one-rank NCCL group against no mesh, and as eager
+    steps; steps/s in turns."""
+    e4 = ["--eval_freq", str(DP_ITERS)]
+    cuda_gram.reset_launch_counts()
+    timings = {}
+    dts, deigvals, ddir, drecords = _pde_run(
+        _dp_argv("dp") + e4 + _profile_argv(DP_TRACED), os.path.join(tmp, "dp"), timings)
+    _check_run("dp", dts, deigvals, ddir, drecords, DP_ITERS, [DP_ITERS], neigs=NEIGS)
+    graph_launches = cuda_gram.launch_counts()
+    captures = _records_of(drecords, "captured a CUDA graph")
+    check(len(captures) == 1 and [n for n, _ in timings.get("block_graph", [])]
+          == [DP_BLOCK] * (DP_ITERS // DP_BLOCK), f"dp blocks {timings}, {len(captures)} captures")
+    nccl, traced_kernels = _nccl_per_step(ddir, DP_TRACED)
+    pts, peigvals, _, _ = _pde_run(_dp_argv("plain") + e4, os.path.join(tmp, "plain"))
+    plain_excess, plain_bitwise = _state_excess(state_tree(dts), state_tree(pts), rtol=0.0,
+                                                atol=DP_PLAIN_ATOL)
+    check(plain_excess <= 1.0, f"dp vs no mesh: {plain_excess:.3g}x tolerance")
+    cuda_gram.reset_launch_counts()
+    ets, _, _, _ = _pde_run(_dp_argv("dp") + e4, os.path.join(tmp, "eager"), use_graph=False)
+    eager_launches = cuda_gram.launch_counts()
+    check(all(n == 0 for n in {**graph_launches, **eager_launches}.values()),
+          f"gram kernels launched on the dp path: {graph_launches}, {eager_launches}")
+    eager_excess, eager_bitwise = _state_excess(state_tree(dts), state_tree(ets))
+    check(eager_excess <= 1.0, f"dp graph vs eager: {eager_excess:.3g}x tolerance")
+    rates = {v: [] for v in dict.fromkeys(DP_TURNS)}
+    for variant in DP_TURNS:
+        tt = {}
+        _pde_run(_with_flags(_dp_argv(variant), num_iters=DP_TURN_ITERS, eval_freq=10 ** 9),
+                 os.path.join(tmp, f"turn{len(rates[variant])}{variant}"), tt)
+        rates[variant].append(_block_rates(tt, "block_graph"))
+    return {"argv": _dp_argv("dp"), "iters": DP_ITERS, "block": DP_BLOCK,
+            "launches": {"graph_run": graph_launches, "eager_run": eager_launches},
+            "eigvals": np.asarray(deigvals[-1]).tolist(),
+            "eigvals_no_mesh": np.asarray(peigvals[-1]).tolist(),
+            "vs_no_mesh": {"bit_for_bit": plain_bitwise, "tol_used": plain_excess,
+                           "atol_of_max": DP_PLAIN_ATOL},
+            "graph_vs_eager": {"bit_for_bit": eager_bitwise, "tol_used": eager_excess,
+                               "rtol": PDE_STATE_RTOL, "atol_of_max": PDE_STATE_ATOL},
+            "traced_nccl_and_copies_per_step": nccl,
+            "traced_block_kernels_per_step": traced_kernels,
+            "graph_block_steps_per_s_in_turns": {"order": list(DP_TURNS),
+                                                 "iters": DP_TURN_ITERS, **rates}}
+
+
+def _dp_spin(tmp):
+    """SpIN at hydrogen.sh's flags on the one-rank NCCL group against no
+    mesh: steps/s and peak device memory in turns, the states held to each
+    other."""
+    argv = _with_flags(HYDROGEN_ARGV, loss="spin", num_iters=DP_SPIN_ITERS,
+                       print_freq=DP_SPIN_BLOCK, eval_freq=10 ** 9)
+    out = {v: {"steps_per_s": [], "peak_mem_above_start_bytes": []}
+           for v in dict.fromkeys(DP_SPIN_TURNS)}
+    states = {}
+    for i, variant in enumerate(DP_SPIN_TURNS):
+        timings = {}
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ts, _, _, _ = _pde_run(argv + (["--mesh", "dp"] if variant == "dp" else []),
+                               os.path.join(tmp, f"spin{i}{variant}"), timings)
+        torch.cuda.synchronize()
+        out[variant]["peak_mem_above_start_bytes"].append(
+            torch.cuda.max_memory_allocated() - start)
+        out[variant]["steps_per_s"].append(_block_rates(timings, "block_graph"))
+        if variant not in states:
+            states[variant] = state_tree(ts)
+        del ts
+    excess, bitwise = _state_excess(states["dp"], states["plain"], rtol=0.0,
+                                    atol=DP_PLAIN_ATOL)
+    check(excess <= 1.0, f"SpIN dp vs no mesh: {excess:.3g}x tolerance")
+    return {"argv": argv, "iters": DP_SPIN_ITERS, "block": DP_SPIN_BLOCK,
+            "order": list(DP_SPIN_TURNS), **out,
+            "vs_no_mesh": {"bit_for_bit": bitwise, "tol_used": excess}}
+
+
+def _dp_sketchy(tmp, root):
+    """The Sketchy script, one epoch, with --mesh dp against the run
+    without it on the plain loss."""
+    i, j = SKETCHY_ARGV.index("--trunc_dims"), SKETCHY_ARGV.index("--ap_ver")
+    argv = _with_flags(SKETCHY_ARGV[:i] + ["--trunc_dims", "512"] + SKETCHY_ARGV[j:],
+                       num_epochs=1, n_retrievals_to_save=0)
+    argv += ["--root_dir", root, "--sketchy_split", SKETCHY_SPLIT, "--seed", str(SEED),
+             "--device", DEVICE]
+    out, params = {}, {}
+    for variant, extra in (("dp", ["--mesh", "dp"]), ("plain", ["--use_pallas", "false"])):
+        log_dir = os.path.join(tmp, f"sketchy_{variant}")
+        cuda_gram.reset_launch_counts()
+        t0 = time.perf_counter()
+        params[variant], _ = sketchy.main(get_args(argv + extra + ["--log_dir", log_dir]))
+        torch.cuda.synchronize()
+        rows = _csv_rows(log_dir)
+        check(len(rows) == 1 and np.isfinite(float(rows[0]["loss"]))
+              and int(rows[0]["skips"]) == 0, f"Sketchy {variant}: {rows}")
+        out[variant] = {"run_s": time.perf_counter() - t0, "loss": float(rows[0]["loss"]),
+                        "test_p_at_100": float(rows[0]["test_P@K"]),
+                        "launches": cuda_gram.launch_counts()}
+    check(all(n == 0 for n in out["dp"]["launches"].values()),
+          f"gram kernels launched on the dp path: {out['dp']['launches']}")
+    worst = max(_abs_excess(params["dp"][k].detach(), p.detach(), DP_SKETCHY_RTOL,
+                            DP_SKETCHY_ATOL) for k, p in params["plain"].items())
+    check(worst <= 1.0, f"Sketchy dp vs no mesh: {worst:.3g}x tolerance")
+    bitwise = all(torch.equal(params["dp"][k], p) for k, p in params["plain"].items())
+    return {"argv": argv, **out, "tol_used": worst, "bit_for_bit": bitwise,
+            "rtol": DP_SKETCHY_RTOL, "atol": DP_SKETCHY_ATOL}
+
+
+def _dp_step_inputs(tmp):
+    """The E4 batch of phase dp's gloo step (two local batches of B/2 rows
+    from the sampler) and the CDK pairs (B 4096 of CDK_DIM, class-correlated,
+    from SEED), written to ``tmp``; with the single-process steps' results."""
+    cfg = parse_pde_config(_dp_step_argv() + ["--device", DEVICE, "--log_dir", tmp])
+    run = pde.build(cfg)
+    x = run.sample(torch.Generator(DEVICE).manual_seed(SEED))
+    half = BATCH // 2
+    locals_ = [x[:half], x[half:]]
+    q = half // 2
+    union = torch.cat([locals_[0][:q], locals_[1][:q], locals_[0][q:], locals_[1][q:]])
+    step = make_train_step(run.method, run.operator, run.optimizer, lambda g: union,
+                           importance=run.importance_train, ema_decay=cfg.ema_decay)
+    ts = init_train_state(run.model, run.optimizer, run.method)
+    _, metrics = step(ts, None)
+    e4 = {"loss": metrics["loss"].item(), "params": clone_tree(ts.params, "cpu")}
+    rng = np.random.default_rng(SEED)
+    cls = np.arange(CDK_B) % CDK_CLASSES
+    cx, cy = (3 * rng.standard_normal((CDK_CLASSES, CDK_DIM), dtype=np.float32)
+              for _ in range(2))
+    cdk_x = cx[cls] + rng.standard_normal((CDK_B, CDK_DIM), dtype=np.float32)
+    cdk_y = cy[cls] + rng.standard_normal((CDK_B, CDK_DIM), dtype=np.float32)
+    np.savez(os.path.join(tmp, "inputs.npz"), x0=locals_[0].cpu().numpy(),
+             x1=locals_[1].cpu().numpy(), cdk_x=cdk_x, cdk_y=cdk_y)
+    tr = make_trainer(_dp_cdk_args(tmp), CDK_DIM, CDK_STEPS)
+    skips = torch.zeros((), dtype=torch.int32, device=DEVICE)
+    params, _, _, loss, _, _ = tr.step(tr.params, tr.opt_state, {},
+                                       torch.as_tensor(cdk_x, device=DEVICE),
+                                       torch.as_tensor(cdk_y, device=DEVICE), skips)
+    cdk = {"loss": loss.item(), "params": clone_tree(params, "cpu")}
+    return e4, cdk
+
+
+def _dp_step_argv():
+    """The E4 flags of the gloo step, on the plain loss, with SGD in place
+    of RMSprop: RMSprop's first update is lr·g/(√((1-ρ)g²) + ε), ±lr/√(1-ρ)
+    for every entry above ε, so an entry whose gradient sits inside the
+    two summation orders' rounding (~1e-7 of the largest entry) would take
+    a full-size step of either sign; SGD's update is linear in g."""
+    return _with_flags(_dp_argv("plain"), optimizer="sgd")
+
+
+def _dp_cdk_args(tmp, mesh=None):
+    """The CDK flags of the gloo step, on the plain loss, with no grad clip:
+    SGD's first update is linear in the gradient, so a gradient averaged
+    over the ranks where it must be summed shows, where a clip that bites
+    would scale either to the same norm."""
+    return get_args(CDK_ARGV + ["--num_epochs", str(CDK_EPOCHS), "--use_pallas", "false",
+                                "--grad_clip", "0", "--log_dir", tmp, "--device", DEVICE]
+                    + (["--mesh", mesh] if mesh else []))
+
+
+def _dp_gloo_rank(rank, port, tmp):
+    """One of phase dp's two gloo ranks on the card (a spawned process):
+    the group through make_mesh's torchrun path with backend gloo, its
+    refusal of a CUDA graph, one E4 step and one CDK step on this rank's
+    rows; results to ``tmp``/rank<r>.pt, a traceback to rank<r>.err."""
+    from neuralsvd_tpu_torch.parallel import mesh as dp_mesh, sharding
+
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK=str(rank),
+                      WORLD_SIZE="2")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    try:
+        mesh = dp_mesh.make_mesh("dp=2", device=DEVICE, backend="gloo")
+        group = dp_mesh.dp_group(mesh)
+        try:
+            dp_mesh.require_capturable(group, "cuda")
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        z = np.load(os.path.join(tmp, "inputs.npz"))
+        cfg = parse_pde_config(_dp_step_argv() + ["--mesh", "dp=2", "--device", DEVICE,
+                                                  "--log_dir", tmp])
+        run = pde.build(cfg, axis_name=group)
+        x = torch.as_tensor(z[f"x{rank}"], device=DEVICE)
+        step = sharding.make_dp_train_step(run.method, run.operator, run.optimizer,
+                                           lambda g: x, mesh, importance=run.importance_train,
+                                           ema_decay=cfg.ema_decay)
+        ts = init_train_state(run.model, run.optimizer, run.method)
+        _, metrics = step(ts, None)
+        tr = make_trainer(_dp_cdk_args(tmp, "dp=2"), CDK_DIM, CDK_STEPS)
+        rows = slice(rank * CDK_B // 2, (rank + 1) * CDK_B // 2)
+        skips = torch.zeros((), dtype=torch.int32, device=DEVICE)
+        params, _, _, loss, aux, skips = tr.step(
+            tr.params, tr.opt_state, {}, torch.as_tensor(z["cdk_x"][rows], device=DEVICE),
+            torch.as_tensor(z["cdk_y"][rows], device=DEVICE), skips)
+        torch.save({"refused": refused, "backend": torch.distributed.get_backend(group),
+                    "e4": {"loss": metrics["loss"].item(), "params": clone_tree(ts.params, "cpu")},
+                    "cdk": {"loss": loss.item(), "params": clone_tree(params, "cpu"),
+                            "f_rows": aux["f"].shape[0], "skips": int(skips)}},
+                   os.path.join(tmp, f"rank{rank}.pt"))
+    except BaseException:
+        import traceback
+
+        with open(os.path.join(tmp, f"rank{rank}.err"), "w") as fh:
+            fh.write(traceback.format_exc())
+        raise
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _dp_gloo(tmp):
+    """Two gloo ranks on the one card, spawned, against the single-process
+    E4 and CDK steps."""
+    import multiprocessing
+    import socket
+
+    e4, cdk = _dp_step_inputs(tmp)
+    torch.cuda.empty_cache()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_dp_gloo_rank, args=(r, port, tmp)) for r in range(2)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DP_SPAWN_TIMEOUT_S
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    spawn_s = time.perf_counter() - t0
+    errors = [open(os.path.join(tmp, f"rank{r}.err")).read() for r in range(2)
+              if os.path.exists(os.path.join(tmp, f"rank{r}.err"))]
+    check(not hung and not errors and all(p.exitcode == 0 for p in procs),
+          f"gloo ranks: hung {hung}, exit codes {[p.exitcode for p in procs]}: {errors}")
+    out = {"spawn_s": spawn_s}
+    for r in range(2):
+        got = torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+        check(got["backend"] == "gloo" and got["refused"] and "gloo" in got["refused"],
+              f"rank {r}: backend {got['backend']}, graph refusal {got['refused']!r}")
+        check(got["cdk"]["f_rows"] == CDK_B and got["cdk"]["skips"] == 0,
+              f"rank {r}: CDK aux rows {got['cdk']['f_rows']}, skips {got['cdk']['skips']}")
+        for name, ref in (("e4", e4), ("cdk", cdk)):
+            loss_excess = abs(got[name]["loss"] - ref["loss"]) / (
+                DP_LOSS_TOL[0] * abs(ref["loss"]) + DP_LOSS_TOL[1])
+            param_excess = {k: _abs_excess(got[name]["params"][k], p, *DP_PARAM_TOL)
+                            for k, p in ref["params"].items()}
+            worst = max(param_excess, key=param_excess.get)
+            check(loss_excess <= 1.0 and param_excess[worst] <= 1.0,
+                  f"gloo rank {r} {name} vs one process: loss {loss_excess:.3g}x, "
+                  f"params {param_excess[worst]:.3g}x tolerance ({worst})")
+            out.setdefault(name, {})[f"rank{r}"] = {
+                "loss": got[name]["loss"], "loss_tol_used": loss_excess,
+                "params_tol_used": param_excess[worst]}
+    out["e4"]["single_loss"], out["cdk"]["single_loss"] = e4["loss"], cdk["loss"]
+    out["graph_refusal"] = got["refused"]
+    return out
+
+
+def phase_dp(root):
+    """Data parallelism (--mesh dp) on the card: the E4 CLI, the Sketchy
+    script and SpIN on a one-rank NCCL group, two gloo ranks on the one
+    card."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        e4 = _dp_e4(tmp)
+        sk = _dp_sketchy(tmp, root)
+        spin = _dp_spin(tmp)
+        torch.distributed.destroy_process_group()  # the one-rank NCCL group
+        gloo = _dp_gloo(tmp)
+    emit("dp", e4=e4, sketchy=sk, spin=spin, gloo=gloo, phase_s=time.perf_counter() - t0)
 
 
 def main():
@@ -3034,7 +3408,9 @@ def main():
     phase_cdk_loss(train)
     counts["cdk"], f32_quality = phase_cdk_train(train, test, valid)
     counts["cdk_bf16"] = phase_cdk_bf16(train, test, valid, f32_quality)
-    counts["sketchy_cli"] = phase_sketchy_cli()
+    with tempfile.TemporaryDirectory() as tmp:
+        counts["sketchy_cli"] = phase_sketchy_cli(tmp)
+        phase_dp(os.path.join(tmp, "root"))
     kernels = []
     for kname, results in rows.items():
         at = {r["shape"]: r for r in results}

@@ -16,9 +16,17 @@ Hutchinson probes), every potential of ``--problem sch``, the
 Fokker–Planck problem ``--problem fp``, the exponential mask, ``--rescue
 true`` (the mode rescue at evals) and ``--matmul_precision
 default|high|highest`` or a split spec ``'<head>@<k>,<tail>'`` (the towers'
-products only, models/mlp.py) run.  Refused before any training, naming
-its ROADMAP item: ``--mesh`` (queue 1, item 9).  As in the JAX CLI,
+products only, models/mlp.py) run.  As in the JAX CLI,
 ``--weight_normalization`` reaches no model.
+
+``--mesh dp[=N]`` trains data-parallel over the default process group
+(parallel/mesh.py): ``torchrun --standalone --nproc-per-node N -m
+neuralsvd_tpu_torch.cli.pde --mesh dp ...`` on N cards, or ``--mesh dp``
+alone for a one-rank NCCL group on one card.  Each rank samples
+``batch_size // dp`` rows (``batch_size`` stays the global batch and must
+divide by 2·dp), the method's grams are averaged over the ranks, and only
+rank 0 writes the log directory's files.  A tp axis above 1 is refused
+before any training, naming ROADMAP item [9b].
 """
 from __future__ import annotations
 
@@ -35,6 +43,15 @@ from neuralsvd_tpu_torch.methods.factories import get_evd_method
 from neuralsvd_tpu_torch.models.mlp import parse_dims
 from neuralsvd_tpu_torch.models.wavefunctions import make_wavefunctions
 from neuralsvd_tpu_torch.operators.problems import get_problem
+from neuralsvd_tpu_torch.parallel.collectives import axis_size
+from neuralsvd_tpu_torch.parallel.mesh import (
+    barrier,
+    dp_group,
+    is_writer,
+    make_mesh,
+    mesh_sizes,
+    rank_device,
+)
 from neuralsvd_tpu_torch.training.checkpoint import (
     latest_iteration_checkpoint,
     load_checkpoint,
@@ -65,17 +82,23 @@ log = logging.getLogger("neuralsvd_tpu_torch.pde")
 
 
 def check_ported(cfg: PDEConfig) -> None:
-    """Raise NotImplementedError for a configuration the port cannot run."""
+    """Raise NotImplementedError for a configuration the port cannot run
+    (a ``--mesh`` with a tp axis above 1), ValueError for a ``--mesh`` whose
+    dp does not divide the batch into even half-batches."""
     if cfg.mesh:
-        raise NotImplementedError(
-            "--mesh (data parallelism) is not ported yet (ROADMAP queue 1, item 9)")
+        dp = mesh_sizes(cfg.mesh).get("dp", 1)
+        if cfg.batch_size % (2 * dp):
+            raise ValueError(
+                f"batch_size {cfg.batch_size} must divide by 2*dp={2 * dp} "
+                "(even per-rank metric half-batches)")
 
 
-def build(cfg: PDEConfig, dev=None) -> SimpleNamespace:
+def build(cfg: PDEConfig, dev=None, axis_name=None) -> SimpleNamespace:
     """The run's parts as the JAX CLI wires them: operator, ground_truth,
     n_particles, model, sample, importance_train, val_data, val_batches,
     importance_val, method, optimizer and rescue_init_fn (None without
-    ``--rescue``), on ``dev`` (default: ``cfg.device``)."""
+    ``--rescue``), on ``dev`` (default: ``cfg.device``).  ``axis_name``: the
+    data-parallel group, whose ranks sample ``batch_size // dp`` rows each."""
     dev = resolve_device(cfg.device if dev is None else dev)
     operator, ground_truth, n_particles = get_problem(
         problem=cfg.problem, potential_type=cfg.potential_type,
@@ -114,8 +137,8 @@ def build(cfg: PDEConfig, dev=None) -> SimpleNamespace:
         if cfg.sampling_weights:
             weights = tuple(float(v) for v in cfg.sampling_weights.split(",") if v)
     sample, importance_train = get_sampler(
-        cfg.sampling_mode, cfg.batch_size, n_particles, cfg.ndim, scale,
-        sampling_weights=weights, device=dev)
+        cfg.sampling_mode, cfg.batch_size // axis_size(axis_name), n_particles,
+        cfg.ndim, scale, sampling_weights=weights, device=dev)
 
     val_batches = importance_val = val_data = None
     if cfg.ndim in (1, 2) and n_particles == 1:
@@ -130,7 +153,7 @@ def build(cfg: PDEConfig, dev=None) -> SimpleNamespace:
     method_opts = {"neuralef": cfg.loss.neuralef, "spin": cfg.loss.spin,
                    "spinx": cfg.loss.spin}.get(cfg.loss.name, cfg.loss.neuralsvd)
     method = get_evd_method(cfg.loss.name, model, cfg.neigs, sort=cfg.sort,
-                            **vars(method_opts))
+                            axis_name=axis_name, **vars(method_opts))
 
     lr_schedule = (cosine_annealing(cfg.lr, cfg.num_iters)
                    if cfg.use_lr_scheduler else None)
@@ -176,20 +199,34 @@ def main(cfg: PDEConfig, timings=None, use_graph: bool = True):
     all_norms).  ``timings`` and ``use_graph``: see ``train_operator``."""
     logging.basicConfig(level=logging.INFO)
     check_ported(cfg)
-    dev = resolve_device(cfg.device)
+    mesh = group = None
+    if cfg.mesh:
+        mesh = make_mesh(cfg.mesh, device=cfg.device)
+        group = dp_group(mesh)
+        dev = rank_device(cfg.device)
+        log.info("mesh %s (dp %d; sampler batch %d)", mesh, axis_size(group),
+                 cfg.batch_size // axis_size(group))
+    else:
+        dev = resolve_device(cfg.device)
     torch.set_float32_matmul_precision("highest")
+    writer = is_writer()
 
     log_dir = os.path.join(cfg.log_dir, run_name(cfg))
-    if os.path.exists(log_dir) and not (cfg.overwrite or cfg.resume):
+    exists = os.path.exists(log_dir)
+    barrier(group)  # every rank has looked before rank 0 makes it
+    if exists and not (cfg.overwrite or cfg.resume):
         raise ValueError(f"{log_dir} exists and --overwrite not set")
-    os.makedirs(log_dir, exist_ok=True)
+    if writer:
+        os.makedirs(log_dir, exist_ok=True)
+    barrier(group)
     log.info("log dir: %s", log_dir)
 
-    run = build(cfg, dev)
+    run = build(cfg, dev, axis_name=group)
     model, method, optimizer = run.model, run.method, run.optimizer
     val_data = run.val_data
 
-    logger = CSVLogger(log_dir, ["iter", "train_loss", "time", "steps_per_sec"])
+    logger = (CSVLogger(log_dir, ["iter", "train_loss", "time", "steps_per_sec"])
+              if writer else None)
 
     def checkpoint_fn(ts, it, outputs):
         normalize = method.name in ("nestedlora", "neuralsvd")
@@ -238,15 +275,19 @@ def main(cfg: PDEConfig, timings=None, use_graph: bool = True):
             profile_dir=(os.path.join(log_dir, "profile") if cfg.profile
                          else None),
             profile_start=cfg.profile_start, profile_steps=cfg.profile_steps,
-            grad_clip=cfg.grad_clip, rescue_init_fn=run.rescue_init_fn,
+            grad_clip=cfg.grad_clip, mesh=mesh if group is not None else None,
+            rescue_init_fn=run.rescue_init_fn,
             rescue_until=cfg.rescue_until, initial_ts=initial_ts,
             start_iter=start_iter, use_graph=use_graph, timings=timings)
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
 
-    np.savez(os.path.join(log_dir, "stats.npz"),
-             all_eigvals=np.asarray(all_eigvals),
-             all_norms=np.asarray(all_norms))
+    if writer:
+        np.savez(os.path.join(log_dir, "stats.npz"),
+                 all_eigvals=np.asarray(all_eigvals),
+                 all_norms=np.asarray(all_norms))
+    barrier(group)
     log.info("done; stats saved to %s", log_dir)
     return ts, all_eigvals, all_norms
 

@@ -16,10 +16,18 @@ flag of the paper script (scripts/exps/sketchy.sh) runs, ``--compute_dtype
 bf16`` (the towers' chain in bfloat16, float32 master weights and CDK
 loss) and every ``--optimizer`` included; ``main`` pins float32 matmuls
 to IEEE (``torch.set_float32_matmul_precision("highest")``), as the JAX
-CLI pins float32.  Not ported yet: ``--mesh`` (data/tensor parallelism,
-queue 1, item 9) raises NotImplementedError.  A departure: ``main`` raises
-on an empty valid split before training, where the JAX CLI fails at the
-first epoch's valid eval.
+CLI pins float32.  A departure: ``main`` raises on an empty valid split
+before training, where the JAX CLI fails at the first epoch's valid eval.
+
+``--mesh dp[=N]`` trains data-parallel (parallel/sharding.py,
+``make_dp_cdk_step``): every rank runs the same loader with the same seed
+and keeps its contiguous 1/dp of each batch's pairs (a ragged tail past a
+multiple of dp dropped, as in JAX), so a dp run sees the batches of a
+single process; the grams are averaged over the ranks and the gradients
+summed, and ``--grad_clip`` clips the global gradient.  Every rank runs the
+retrieval evals on its replicated parameters, so all take the same best
+P@K decision; only rank 0 writes the log, the checkpoints and the arrays.
+A tp axis above 1 raises NotImplementedError (ROADMAP item [9b]).
 """
 from __future__ import annotations
 
@@ -43,13 +51,19 @@ from neuralsvd_tpu_torch.methods.spectrum import compute_spectrum_svd
 from neuralsvd_tpu_torch.models.mlp import parse_dims
 from neuralsvd_tpu_torch.models.two_tower import HeteroNetwork
 from neuralsvd_tpu_torch.ops.nestedlora import cdk_inputs, density_ratios
-from neuralsvd_tpu_torch.training.checkpoint import load_checkpoint, save_checkpoint
-from neuralsvd_tpu_torch.training.optimizers import (
-    build_optimizer,
-    select_state,
-    warmup_cosine_schedule,
+from neuralsvd_tpu_torch.parallel.collectives import axis_size
+from neuralsvd_tpu_torch.parallel.mesh import (
+    barrier,
+    dp_group,
+    is_writer,
+    local_rows,
+    make_mesh,
+    rank_device,
 )
-from neuralsvd_tpu_torch.training.train_operator import global_norm
+from neuralsvd_tpu_torch.parallel.sharding import make_dp_cdk_step
+from neuralsvd_tpu_torch.training.cdk_step import make_cdk_train_step
+from neuralsvd_tpu_torch.training.checkpoint import load_checkpoint, save_checkpoint
+from neuralsvd_tpu_torch.training.optimizers import build_optimizer, warmup_cosine_schedule
 from neuralsvd_tpu_torch.utils.logging import CSVLogger
 
 log = logging.getLogger("neuralsvd_tpu_torch.sketchy")
@@ -111,41 +125,6 @@ def get_args(argv=None):
     return p.parse_args(argv)
 
 
-def make_cdk_train_step(method, optimizer, grad_clip: float = 0.0):
-    """CDK step (params, opt_state, method_state, x, y, skip_count) ->
-    (params, opt_state, method_state, loss, aux, skip_count).
-
-    The gradient is clipped to ``grad_clip`` by global norm, scale
-    min(1, c/(‖g‖+1e-6)).  If any clipped gradient entry is not finite the
-    update is dropped: parameters and every optimizer-state tensor
-    (schedule counts included) keep their old values, selected on the
-    device, and the device counter ``skip_count`` goes up by one.  The
-    loss's finiteness is not tested, as in the JAX step.  Parameters are
-    updated in place; nothing waits for the host.  The (B, B)
-    density-ratio gram is not computed here: see
-    :func:`make_density_ratio_fn`.
-    """
-
-    def step(params, opt_state, method_state, x, y, skip_count):
-        loss, grads, aux, method_state = method.loss_and_grad(
-            params, method_state, x, y)
-        with torch.no_grad():
-            if grad_clip > 0:
-                scale = torch.clamp(
-                    grad_clip / (global_norm(grads.values()) + 1e-6), max=1.0)
-                grads = {k: g * scale for k, g in grads.items()}
-            finite = torch.stack([torch.isfinite(g).all()
-                                  for g in grads.values()]).all()
-            updates, new_opt_state = optimizer.update(grads, opt_state, params)
-            for k, p in params.items():
-                p.copy_(torch.where(finite, p + updates[k], p))
-            opt_state = select_state(finite, new_opt_state, opt_state)
-            skip_count = skip_count + torch.logical_not(finite).to(skip_count.dtype)
-        return params, opt_state, method_state, loss, aux, skip_count
-
-    return step
-
-
 def make_density_ratio_fn(model, set_first_mode_const: bool):
     """Once-an-epoch diagnostic: (params, x, y) -> (rs_joint, rs_indep),
     the diagonal and off-diagonal of the (B, B) f(x)ᵀg(y) gram."""
@@ -165,16 +144,24 @@ class Trainer(NamedTuple):
     opt_state: object
     step: object
     device: torch.device
+    group: object  # the data-parallel process group, None without --mesh
 
 
 def make_trainer(args, input_dim: int, steps_per_epoch: int) -> Trainer:
     """The two-tower model (initialised from ``args.seed``), the CDK method,
-    the optimizer with its schedule, and the train step."""
+    the optimizer with its schedule, and the train step; with ``--mesh``
+    the data-parallel step on its dp group."""
+    mesh = group = None
     if args.mesh:
-        raise NotImplementedError(
-            "--mesh (data/tensor parallelism) is not ported yet "
-            "(ROADMAP queue 1, item 9)")
-    dev = resolve_device(args.device)
+        mesh = make_mesh(args.mesh, device=args.device)
+        group = dp_group(mesh)
+        dev = rank_device(args.device)
+        if args.batch_size % axis_size(group):
+            raise ValueError(f"batch_size {args.batch_size} must divide by "
+                             f"dp={axis_size(group)} for dp sharding")
+        log.info("mesh %s", mesh)
+    else:
+        dev = resolve_device(args.device)
     model = HeteroNetwork(
         input_dim=input_dim, network_dims=parse_dims(args.network_dims),
         nonlinearity=args.activation, mu=args.mu,
@@ -186,7 +173,7 @@ def make_trainer(args, input_dim: int, steps_per_epoch: int) -> Trainer:
                             step=args.nsvd_step,
                             sequential=args.nsvd_sequential,
                             set_first_mode_const=args.nsvd_const,
-                            use_pallas=args.use_pallas)
+                            axis_name=group, use_pallas=args.use_pallas)
     lr_schedule = None
     if args.use_lr_scheduler:
         lr_schedule = warmup_cosine_schedule(
@@ -197,8 +184,9 @@ def make_trainer(args, input_dim: int, steps_per_epoch: int) -> Trainer:
                                 momentum=args.momentum,
                                 weight_decay=args.weight_decay,
                                 lr_schedule=lr_schedule)
-    step = make_cdk_train_step(method, optimizer, args.grad_clip)
-    return Trainer(model, params, method, optimizer.init(params), step, dev)
+    step = (make_cdk_train_step(method, optimizer, args.grad_clip) if group is None
+            else make_dp_cdk_step(method, optimizer, mesh, args.grad_clip))
+    return Trainer(model, params, method, optimizer.init(params), step, dev, group)
 
 
 def _to(tree, device):
@@ -271,8 +259,9 @@ def run_training(args, train_loader, test_loader, valid_loader, input_dim,
     """
     timings = {} if timings is None else timings
     tr = make_trainer(args, input_dim, train_loader.max_steps)
-    model, params, method, step_fn, dev = (tr.model, tr.params, tr.method,
-                                           tr.step, tr.device)
+    model, params, method, step_fn, dev, group = (
+        tr.model, tr.params, tr.method, tr.step, tr.device, tr.group)
+    writer = is_writer()
     opt_state = tr.opt_state
     method_state = method.init_state(params)
     rs_fn = make_density_ratio_fn(model, args.nsvd_const)
@@ -285,7 +274,7 @@ def run_training(args, train_loader, test_loader, valid_loader, input_dim,
                                 batch_size=args.batch_size, device=dev)
     logger = CSVLogger(args.log_dir,
                        ["epoch", "loss", "test_P@K", "test_mAP@all",
-                        "valid_P@K", "valid_mAP@all", "skips"])
+                        "valid_P@K", "valid_mAP@all", "skips"]) if writer else None
 
     skip_count = torch.zeros((), dtype=torch.int32, device=dev)
     best_valid_pk = -1.0
@@ -317,10 +306,12 @@ def run_training(args, train_loader, test_loader, valid_loader, input_dim,
         last_batch = None
         with _span(timings, "steps", dev):
             for x, y, _ in train_loader:
-                x = torch.as_tensor(x, device=dev)
-                y = torch.as_tensor(y, device=dev)
+                if x.shape[0] < axis_size(group):
+                    continue  # no row for every rank
                 params, opt_state, method_state, loss, _, skip_count = step_fn(
-                    params, opt_state, method_state, x, y, skip_count)
+                    params, opt_state, method_state,
+                    torch.as_tensor(local_rows(x, group), device=dev),
+                    torch.as_tensor(local_rows(y, group), device=dev), skip_count)
                 losses.append(loss)
                 last_batch = (x, y)
 
@@ -340,26 +331,32 @@ def run_training(args, train_loader, test_loader, valid_loader, input_dim,
                "valid_mAP@all": float(valid_ap.mean()),
                "skips": int(skip_count)}
         log.info("%s", row)
-        logger.writerow(row)
+        if writer:
+            logger.writerow(row)
 
         with _span(timings, "checkpoint", dev):
             if row["valid_P@K"] > best_valid_pk:
                 best_valid_pk = row["valid_P@K"]
                 best_params = _detached(params)
-                save_checkpoint(best_path, _to(best_params, "cpu"))
-            save_checkpoint(ckpt_path, {
-                "params": _to(_detached(params), "cpu"),
-                "opt_state": _to(opt_state, "cpu"),
-                "epoch": epoch + 1,
-                "best_valid_pk": best_valid_pk,
-            })
-        if last_batch is not None:
+                if writer:
+                    save_checkpoint(best_path, _to(best_params, "cpu"))
+            if writer:
+                save_checkpoint(ckpt_path, {
+                    "params": _to(_detached(params), "cpu"),
+                    "opt_state": _to(opt_state, "cpu"),
+                    "epoch": epoch + 1,
+                    "best_valid_pk": best_valid_pk,
+                })
+            barrier(group)
+        if last_batch is not None and writer:
             with _span(timings, "ratios", dev):
-                rs_joint, rs_indep = rs_fn(params, *last_batch)
+                rs_joint, rs_indep = rs_fn(params, *(torch.as_tensor(a, device=dev)
+                                                     for a in last_batch))
                 np.savez(os.path.join(args.log_dir, f"ratios_e{epoch}.npz"),
                          rs_joint=rs_joint.cpu().numpy(),
                          rs_indep=rs_indep.cpu().numpy())
-    logger.close()
+    if logger is not None:
+        logger.close()
 
     # final: spectrum/orthogonality + truncation sweep on the best params
     with torch.no_grad():
@@ -369,10 +366,11 @@ def run_training(args, train_loader, test_loader, valid_loader, input_dim,
         spectrum, orth_x, orth_y = compute_spectrum_svd(
             model, iter(test_loader), sort=False,
             set_first_mode_const=args.nsvd_const, device=dev)
-        np.savez(os.path.join(args.log_dir, "spectrum_final.npz"),
-                 singvals=spectrum, orth_x=orth_x, orth_y=orth_y)
+        if writer:
+            np.savez(os.path.join(args.log_dir, "spectrum_final.npz"),
+                     singvals=spectrum, orth_x=orth_x, orth_y=orth_y)
 
-    if args.n_retrievals_to_save > 0:
+    if args.n_retrievals_to_save > 0 and writer:
         retrieval_test.evaluate(model_x, model_y, ap_ver=args.ap_ver)
         retrieval_test.save_retrievals(args.log_dir,
                                        n_queries=args.n_retrievals_to_save,
@@ -392,9 +390,11 @@ def run_training(args, train_loader, test_loader, valid_loader, input_dim,
                                   "mAP@all": float(ap.mean())}
             log.info("trunc %d: %s", dim, trunc_results[dim])
 
-    np.savez(os.path.join(args.log_dir, "best_stats.npz"),
-             spectrum=spectrum, orth_x=orth_x, orth_y=orth_y,
-             trunc_results=json.dumps(trunc_results))
+    if writer:
+        np.savez(os.path.join(args.log_dir, "best_stats.npz"),
+                 spectrum=spectrum, orth_x=orth_x, orth_y=orth_y,
+                 trunc_results=json.dumps(trunc_results))
+    barrier(group)
     log.info("seconds by part: %s", timings)
     return params, trunc_results
 

@@ -2,7 +2,8 @@
 
 Port of ``neuralsvd_tpu/methods/factories.py``: ``get_evd_method``
 (:13-37: NestedLoRA, NeuralEF, SpIN and SpINx) and ``get_cdk_method``
-(:40).  The data-parallel ``axis_name`` waits for item [9].
+(:40-46), with the data-parallel ``axis_name`` (a process group or None,
+parallel/collectives.py) passed to every method.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ from neuralsvd_tpu_torch.methods.spinx import SpINx
 
 
 def get_evd_method(method_name: str, model: nn.Module, neigs: int,
-                   sort: bool = False, **opts):
+                   sort: bool = False, axis_name=None, **opts):
     """name -> method instance; options mirror the reference's namespaced
     flags (--neuralsvd.step, --neuralsvd.sequential, --use_pallas,
     --neuralef.batchnorm_mode, --neuralef.unbiased, --neuralef.include_diag,
@@ -23,24 +24,28 @@ def get_evd_method(method_name: str, model: nn.Module, neigs: int,
     if method_name in ("neuralsvd", "nestedlora"):
         return NestedLoRA(model, neigs, step=opts.get("step", 1),
                           sequential=opts.get("sequential", False), sort=sort,
+                          axis_name=axis_name,
                           use_pallas=opts.get("use_pallas", "auto"))
     if method_name == "neuralef":
         return NeuralEigenfunctions(
             model, neigs, batchnorm_mode=opts.get("batchnorm_mode", "unbiased"),
             unbiased=opts.get("unbiased", False),
-            include_diag=opts.get("include_diag", False), sort=sort)
+            include_diag=opts.get("include_diag", False), sort=sort,
+            axis_name=axis_name)
     if method_name == "spin":
-        return SpIN(model, neigs, decay=opts.get("decay", 0.01))
+        return SpIN(model, neigs, decay=opts.get("decay", 0.01), axis_name=axis_name)
     if method_name == "spinx":
-        return SpINx(model, neigs, decay=opts.get("decay", 0.01))
+        return SpINx(model, neigs, decay=opts.get("decay", 0.01), axis_name=axis_name)
     raise NotImplementedError(method_name)
 
 
-def get_cdk_method(method_name: str, model: nn.Module, neigs: int, **opts):
+def get_cdk_method(method_name: str, model: nn.Module, neigs: int,
+                   axis_name=None, **opts):
     if method_name in ("neuralsvd", "nestedlora"):
         return NestedLoRAForCDK(
             model, neigs, step=opts.get("step", 1),
             sequential=opts.get("sequential", False),
             set_first_mode_const=opts.get("set_first_mode_const", True),
+            axis_name=axis_name,
             use_pallas=opts.get("use_pallas", "auto"))
     raise NotImplementedError(method_name)

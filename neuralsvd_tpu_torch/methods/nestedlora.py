@@ -24,8 +24,14 @@ The kernel-operator path (``loss_and_grad_kernel``) goes through the same
 ``_evd_loss``, so K1-K3 run on it too: without ``split_batch`` at (B, L)
 as on the operator path; with it the loss is ``_evd_loss(f1, Kf1, f1, f2)``
 (x1's values against x2 as landmarks), so K2 sees the (B/2, L) pair (f1,
-Kf1).  Not ported yet: the data-parallel ``axis_name`` (ROADMAP queue 1,
-item [9]).
+Kf1).
+
+``axis_name`` (a data-parallel process group, parallel/collectives.py, or
+None) goes to the plain losses, whose grams and operator term are then
+averaged over the group's ranks (JAX's ``_resolve_use_pallas`` :35-56):
+"auto" with a group takes the plain loss, and True with a group raises
+``ValueError``, since a kernel packaging has no place for the all-reduce
+between its gram pass and its masked sum.
 """
 from __future__ import annotations
 
@@ -71,10 +77,15 @@ def _use_kernels(use_pallas, t: torch.Tensor) -> bool:
     return use_pallas is True or (use_pallas == "auto" and t.is_cuda)
 
 
-def _resolve_use_pallas(use_pallas):
+def _resolve_use_pallas(use_pallas, axis_name=None):
     if isinstance(use_pallas, str):
         use_pallas = {"auto": "auto", "true": True, "false": False,
                       "1": True, "0": False}[use_pallas.lower()]
+    if axis_name is not None:
+        if use_pallas is True:
+            raise ValueError("use_pallas=True is incompatible with axis_name "
+                             "(data parallelism); use the plain path")
+        return False
     return use_pallas if use_pallas == "auto" else bool(use_pallas)
 
 
@@ -89,11 +100,12 @@ class NestedLoRA:
 
     def __init__(self, model: nn.Module, neigs: int, step: int = 1,
                  sequential: bool = False, sort: bool = False,
-                 use_pallas="auto"):
+                 axis_name=None, use_pallas="auto"):
         self.model = model
         self.neigs = neigs
         self.sort = sort  # read by callers, as in the JAX package
-        self.use_pallas = _resolve_use_pallas(use_pallas)
+        self.axis_name = axis_name
+        self.use_pallas = _resolve_use_pallas(use_pallas, axis_name)
         self._np_masks = _build_masks(neigs, step, sequential)
         self._masks: Dict[torch.device, tuple] = {}
         self.sort_indices: Optional[np.ndarray] = None
@@ -108,7 +120,8 @@ class NestedLoRA:
         if _use_kernels(self.use_pallas, fs) and fs.ndim == 2:
             return nestedlora_evd_loss_kernels(fs, Tf, f1, f2, vector_mask,
                                                matrix_mask)
-        return nestedlora_evd_loss(fs, Tf, f1, f2, vector_mask, matrix_mask)
+        return nestedlora_evd_loss(fs, Tf, f1, f2, vector_mask, matrix_mask,
+                                   self.axis_name)
 
     def register_eigvals(self, eigvals):
         self.eigvals = np.asarray(eigvals)
@@ -181,11 +194,12 @@ class NestedLoRAForCDK:
 
     def __init__(self, model: nn.Module, neigs: int, step: int = 1,
                  sequential: bool = False, set_first_mode_const: bool = True,
-                 use_pallas="auto"):
+                 axis_name=None, use_pallas="auto"):
         self.model = model
         self.neigs = neigs
         self.set_first_mode_const = set_first_mode_const
-        self.use_pallas = _resolve_use_pallas(use_pallas)
+        self.axis_name = axis_name
+        self.use_pallas = _resolve_use_pallas(use_pallas, axis_name)
         self._np_masks = _build_masks(neigs, step, sequential,
                                       set_first_mode_const)
         self._masks: Dict[torch.device, tuple] = {}
@@ -199,10 +213,12 @@ class NestedLoRAForCDK:
 
     def _cdk_loss(self, fx, gy, batch_weights):
         vector_mask, matrix_mask = self.masks(fx.device)
-        loss = (nestedlora_cdk_loss_kernels if _use_kernels(self.use_pallas, fx)
-                else nestedlora_cdk_loss)
-        return loss(self.set_first_mode_const, fx, gy, vector_mask,
-                    matrix_mask, batch_weights)
+        if _use_kernels(self.use_pallas, fx):
+            return nestedlora_cdk_loss_kernels(self.set_first_mode_const, fx, gy,
+                                               vector_mask, matrix_mask, batch_weights)
+        return nestedlora_cdk_loss(self.set_first_mode_const, fx, gy, vector_mask,
+                                   matrix_mask, batch_weights,
+                                   axis_name=self.axis_name)
 
     def loss_and_grad(self, params, state, x, y, batch_weights=None):
         """(loss, grads {name: tensor}, aux {f, g, loss_operator,

@@ -22,8 +22,14 @@ written in place by the train step (``train_state.assign_state``), also
 on a skipped step, as JAX keeps it; so a captured step updates it on
 every replay.  The kernel-operator path (``loss_and_grad_kernel``,
 JAX's :218-241) takes the same loss; split, each half is smoothed over
-the other as landmarks.  Not ported yet: the data-parallel ``axis_name``
-(ROADMAP queue 1, item [9]).
+the other as landmarks.
+
+``axis_name`` (a data-parallel process group, parallel/collectives.py, or
+None): the loss's grams and the loss itself are averaged over the group's
+ranks, and so is the squared batch norm, inside the differentiable model
+(``pmean_grad``, whose backward sums the cotangents over the ranks as
+JAX's ``shard_map(check_vma=False)`` transposes pmean); the variance and
+align terms keep the local batch sizes, as in JAX.
 """
 from __future__ import annotations
 
@@ -35,10 +41,11 @@ from torch import nn
 from torch.func import functional_call
 
 from neuralsvd_tpu_torch.ops.gram import compute_gram
+from neuralsvd_tpu_torch.parallel.collectives import pmean, pmean_grad
 
 
 class NeuralEFLoss(torch.autograd.Function):
-    """(unbiased, diagonal, φ, Tφ, φ1, Tφ1, φ2, Tφ2) -> scalar loss.
+    """(unbiased, diagonal, axis_name, φ, Tφ, φ1, Tφ1, φ2, Tφ2) -> scalar loss.
 
     ``unbiased``: coefficients from the plain grams of φ1, φ2
     (mu-EigenGame), else from the quad forms normalised by their diagonal
@@ -46,14 +53,15 @@ class NeuralEFLoss(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, unbiased, diagonal, phi, Tphi, phi1, Tphi1, phi2, Tphi2):
+    def forward(ctx, unbiased, diagonal, axis_name, phi, Tphi, phi1, Tphi1,
+                phi2, Tphi2):
         variance = -Tphi / phi.shape[0]
         if unbiased:
-            coeff1 = torch.triu(compute_gram(phi1), diagonal)
-            coeff2 = torch.triu(compute_gram(phi2), diagonal)
+            coeff1 = torch.triu(compute_gram(phi1, axis_name=axis_name), diagonal)
+            coeff2 = torch.triu(compute_gram(phi2, axis_name=axis_name), diagonal)
         else:
-            quad1 = compute_gram(phi1, Tphi1)
-            quad2 = compute_gram(phi2, Tphi2)
+            quad1 = compute_gram(phi1, Tphi1, axis_name)
+            quad2 = compute_gram(phi2, Tphi2, axis_name)
             coeff1 = torch.triu(quad2, diagonal) / (torch.diagonal(quad2) + 1e-5)[:, None]
             coeff2 = torch.triu(quad1, diagonal) / (torch.diagonal(quad1) + 1e-5)[:, None]
         align1 = torch.einsum("bl...,lm->bm...", Tphi1, coeff1) / phi1.shape[0]
@@ -61,27 +69,29 @@ class NeuralEFLoss(torch.autograd.Function):
         loss = (torch.sum(phi * variance)
                 + 0.5 * (torch.sum(phi1 * align1) + torch.sum(phi2 * align2)))
         ctx.save_for_backward(variance, align1, align2)
-        return loss
+        return pmean(loss, axis_name)
 
     @staticmethod
     def backward(ctx, g):
         variance, align1, align2 = ctx.saved_tensors
         # the estimator's scaling (neuralsvd_tpu/methods/neuralef.py:65-70)
-        return (None, None, g * 4 * variance, None, g * 2 * align1, None,
+        return (None, None, None, g * 4 * variance, None, g * 2 * align1, None,
                 g * 2 * align2, None)
 
 
 def neuralef_loss(unbiased: bool, diagonal: int, phi, Tphi, phi1, Tphi1,
-                  phi2, Tphi2) -> torch.Tensor:
-    return NeuralEFLoss.apply(unbiased, diagonal, phi, Tphi, phi1, Tphi1,
-                              phi2, Tphi2)
+                  phi2, Tphi2, axis_name=None) -> torch.Tensor:
+    return NeuralEFLoss.apply(unbiased, diagonal, axis_name, phi, Tphi, phi1,
+                              Tphi1, phi2, Tphi2)
 
 
-def batch_norm(out: torch.Tensor) -> torch.Tensor:
+def batch_norm(out: torch.Tensor, axis_name=None) -> torch.Tensor:
     """(B, L) -> (1, L): sqrt(Σ_b out² / B), written with the ops the
     forward-Laplacian engine has rules for (``torch.linalg.norm`` would
-    take its fallback)."""
-    return torch.sqrt(torch.sum(out * out, dim=0, keepdim=True) / out.shape[0])
+    take its fallback); with a group, the square root of the mean of the
+    ranks' squares, differentiable (``pmean_grad``)."""
+    return torch.sqrt(pmean_grad(torch.sum(out * out, dim=0, keepdim=True) / out.shape[0],
+                                 axis_name))
 
 
 class NeuralEigenfunctions:
@@ -97,7 +107,8 @@ class NeuralEigenfunctions:
 
     def __init__(self, model: nn.Module, neigs: int,
                  batchnorm_mode: str = "unbiased", unbiased: bool = False,
-                 include_diag: bool = False, sort: bool = False):
+                 include_diag: bool = False, sort: bool = False,
+                 axis_name=None):
         if batchnorm_mode not in ("biased", "unbiased", "none"):
             raise ValueError(f"unknown batchnorm_mode {batchnorm_mode!r}")
         self.model = model
@@ -106,6 +117,7 @@ class NeuralEigenfunctions:
         self.unbiased = unbiased
         self.diagonal = 0 if include_diag else 1
         self.sort = sort  # read by callers, as in the JAX package
+        self.axis_name = axis_name
         self.eigvals: Optional[np.ndarray] = None
         self.sort_indices: Optional[np.ndarray] = None
 
@@ -142,13 +154,13 @@ class NeuralEigenfunctions:
 
         def model(x):
             out = self._raw(params, x)
-            return out / batch_norm(out)
+            return out / batch_norm(out, self.axis_name)
 
         model.batch_coupled = True
 
         def collect(raw):
             with torch.no_grad():
-                bn = batch_norm(raw)
+                bn = batch_norm(raw, self.axis_name)
                 init = state["initialized"]
                 m = self.momentum
                 biased = torch.where(init, m * state["norm_biased"] + (1 - m) * bn, bn)
@@ -194,7 +206,7 @@ class NeuralEigenfunctions:
         phi1, phi2 = torch.chunk(phi, 2)
         Tphi1, Tphi2 = torch.chunk(Tphi, 2)
         loss = neuralef_loss(self.unbiased, self.diagonal, phi, Tphi, phi1, Tphi1,
-                             phi2, Tphi2)
+                             phi2, Tphi2, self.axis_name)
         return self._finish(params, x, collect, loss, phi, Tphi)
 
     def loss_and_grad_kernel(self, params, state, x, get_approx_kernel_op,
@@ -213,11 +225,11 @@ class NeuralEigenfunctions:
             Kphi2, phi2 = get_approx_kernel_op(x1)(model, x2, importance)
             phi, Kphi = torch.cat([phi1, phi2]), torch.cat([Kphi1, Kphi2])
             loss = neuralef_loss(self.unbiased, self.diagonal, phi, Kphi, phi1, Kphi1,
-                                 phi2, Kphi2)
+                                 phi2, Kphi2, self.axis_name)
         else:
             Kphi, phi = get_approx_kernel_op(x)(model, x, importance)
             loss = neuralef_loss(self.unbiased, self.diagonal, phi, Kphi, phi, Kphi,
-                                 phi, Kphi)
+                                 phi, Kphi, self.axis_name)
         return self._finish(params, x, collect, loss, phi, Kphi)
 
     def _finish(self, params, x, collect, loss, phi, Tphi):

@@ -30,7 +30,15 @@ path (``loss_and_grad_kernel``, :126-171) is the operator path with the
 batch as its own landmarks; split, σ comes from [φ1; φ2] while π and the
 Jacobian come from the first half (x2 its landmarks), JAX's ``jacrev`` of
 2/B φ1_sgᵀ φ1(θ) being the compact ``_jacobian`` on x1 with φ1 detached.
-Not ported yet: the data-parallel ``axis_name`` (ROADMAP queue 1, item 9).
+
+``axis_name`` (a data-parallel process group, parallel/collectives.py, or
+None): σ and π are averaged over the group's ranks, and the π channel's
+cotangents divide by the global batch (B·n).  The Jacobian stays the local
+rows' one: JAX's ``jacrev`` of ``pmean(g)`` under ``shard_map(check_vma=
+False)`` sends each basis cotangent through psum(ct)/n, which gives it back
+unchanged.  So each rank's ``j_avg`` and σ-channel gradient are its own
+until the dp train step averages the state and sums the gradients over the
+ranks (parallel/sharding.py).
 """
 from __future__ import annotations
 
@@ -40,6 +48,9 @@ import torch
 from torch import nn
 from torch.func import functional_call
 from torch.profiler import record_function
+
+from neuralsvd_tpu_torch.ops.gram import global_batch_size
+from neuralsvd_tpu_torch.parallel.collectives import pmean
 
 JITTER = 1e-3
 # the profiler ranges of a step: the π channel (operator and its VJP), the
@@ -104,11 +115,13 @@ def _batched_grad(out, leaves, cotangents, retain_graph):
 class SpIN:
     name = "spin"
 
-    def __init__(self, model: nn.Module, neigs: int, decay: float = 0.01):
+    def __init__(self, model: nn.Module, neigs: int, decay: float = 0.01,
+                 axis_name=None):
         """decay: 0 = frozen moving average, 1 = no memory."""
         self.model = model
         self.neigs = neigs
         self.decay = decay
+        self.axis_name = axis_name
         declared = getattr(model, "per_mode_parameters", None)
         self.per_mode = frozenset(declared() if declared is not None else ())
 
@@ -215,17 +228,19 @@ class SpIN:
             Tphi, phi, phi_sigma, x = pi_inputs()
             B = phi.shape[0]
             phi_d, Tphi_d = phi.detach(), Tphi.detach()
+            group = self.axis_name
             with torch.no_grad():
-                sigma = phi_sigma.T @ phi_sigma / phi_sigma.shape[0]
+                sigma = pmean(phi_sigma.T @ phi_sigma / phi_sigma.shape[0], group)
                 sigma_avg = state["sigma_avg"].lerp_(sigma, self.decay)
-                pi = phi_d.T @ Tphi_d / B
+                pi = pmean(phi_d.T @ Tphi_d / B, group)
                 loss, eigvals, chol, gsigma, gpi = spin_grad_matrices(sigma_avg, pi)
                 state["chol"].copy_(chol)
-            # Tφ takes φ·gπ/B and φ takes Tφ·gπ/B: the reference's swapped
-            # pair ("crucial for the correct behavior")
+            # Tφ takes φ·gπ/B and φ takes Tφ·gπ/B (B global): the
+            # reference's swapped pair ("crucial for the correct behavior")
+            Bn = global_batch_size(B, group)
             grads_pi = torch.autograd.grad(
                 [Tphi, phi], [params[k] for k in names],
-                [phi_d @ gpi / B, Tphi_d @ gpi / B],
+                [phi_d @ gpi / Bn, Tphi_d @ gpi / Bn],
                 allow_unused=True, materialize_grads=True)
         with record_function(sigma_range):
             j_new = self._jacobian(params, x, phi_d)

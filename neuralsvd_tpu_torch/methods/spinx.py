@@ -13,7 +13,12 @@ refresh), which keeps a captured step's tensors.  The kernel-operator path
 (``loss_and_grad_kernel``, and ``refresh_weights`` with ``kernel_op``,
 :65-121) takes the batch as its own landmarks, or split, φ1 against the
 landmarks x2 with σ from [φ1; φ2] (φ2 with its graph: σ enters the
-loss).  Not ported yet: ``axis_name`` (ROADMAP queue 1, item 9).
+loss).
+
+``axis_name`` (a data-parallel process group, parallel/collectives.py, or
+None): σ, π and the residual losses are averaged over the group's ranks
+inside the differentiated function (``pmean_grad``, backward psum(ct)/n,
+as JAX's ``shard_map(check_vma=False)`` transposes pmean).
 """
 from __future__ import annotations
 
@@ -22,29 +27,33 @@ from torch import nn
 from torch.func import functional_call
 
 from neuralsvd_tpu_torch.methods.spin import JITTER, cholesky_or_nan, spin_step
+from neuralsvd_tpu_torch.parallel.collectives import pmean_grad
 
 
-def spinx_losses(phi, Tphi, phi1):
+def spinx_losses(phi, Tphi, phi1, axis_name=None):
     """((L+1,) losses [trace, per-mode residuals], the batch σ of ``phi1``).
 
     JAX weighs the trace by ``trace_weights``, constant ones
     (``spinx.py:52``); the sum is taken unweighted here.
     """
-    sigma = phi1.T @ phi1 / phi1.shape[0]
-    pi = phi.T @ Tphi / phi.shape[0]
+    sigma = pmean_grad(phi1.T @ phi1 / phi1.shape[0], axis_name)
+    pi = pmean_grad(phi.T @ Tphi / phi.shape[0], axis_name)
     _, chol_inv, _, eigvals = spin_step(sigma, pi)
     residuals = Tphi @ chol_inv.T - (phi @ chol_inv.T) @ torch.diag(eigvals)
-    losses = torch.cat([torch.sum(eigvals)[None], torch.mean(residuals ** 2, dim=0)])
+    losses = torch.cat([torch.sum(eigvals)[None],
+                        pmean_grad(torch.mean(residuals ** 2, dim=0), axis_name)])
     return losses, sigma
 
 
 class SpINx:
     name = "spinx"
 
-    def __init__(self, model: nn.Module, neigs: int, decay: float = 0.01):
+    def __init__(self, model: nn.Module, neigs: int, decay: float = 0.01,
+                 axis_name=None):
         self.model = model
         self.neigs = neigs
         self.decay = decay
+        self.axis_name = axis_name
 
     def init_state(self, params):
         p0 = next(iter(params.values()))
@@ -73,7 +82,7 @@ class SpINx:
         else:
             Tphi, phi = kernel_op(x)(model, x, importance, with_graph=True)
             phi_sigma = phi
-        losses, sigma = spinx_losses(phi, Tphi, phi_sigma)
+        losses, sigma = spinx_losses(phi, Tphi, phi_sigma, self.axis_name)
         return losses, sigma, phi, Tphi
 
     def loss_and_grad(self, params, state, x, operator, importance=None):

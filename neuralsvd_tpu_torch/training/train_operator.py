@@ -36,8 +36,20 @@ weight refresh (``spinx_refresh``) run at an eval, between blocks, on the
 host, and change the state in place: the driver goes on replaying the
 same captured graph.
 
-Not ported yet: data parallelism (``mesh``, ROADMAP queue 1, item 9); it
-raises.
+Data parallelism (``mesh``, JAX's shard_map path): every rank runs the
+same driver on replicated state.  The step (``make_train_step(dp_axis=
+group)``) draws the rank's own local batch from generators seeded from
+(seed, block start, stream, rank) (rank 0 keeps the words of a run without
+a mesh, so a one-rank mesh draws what such a run draws), sums the
+gradients and averages the method state over the group, each in one flat
+all-reduce, before the finite/clip/skip decision.  On NCCL the blocks'
+CUDA graphs record these all-reduces (the eager warm-up runs them first,
+which makes the communicator; a one-rank group reduces in place and
+records none); a gloo group cannot be captured and a graph request on one
+raises.  Every rank runs the evals, the rescue and the
+SpINx refresh on identical state, so the ranks stay identical; only rank 0
+writes the CSV log, the checkpoints and the profile, and the others wait
+for it at a barrier.  A tp axis above 1 raises (ROADMAP item [9b]).
 """
 from __future__ import annotations
 
@@ -49,8 +61,17 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from neuralsvd_tpu_torch.ops import cuda_gram
+from neuralsvd_tpu_torch.parallel.collectives import axis_index, pmean, psum_flat
+from neuralsvd_tpu_torch.parallel.mesh import (
+    barrier,
+    check_method_axis,
+    dp_group,
+    is_writer,
+    require_capturable,
+)
 from neuralsvd_tpu_torch.training.optimizers import global_norm, select_state
 from neuralsvd_tpu_torch.training.train_state import (
     STATE_FIELDS,
@@ -81,10 +102,13 @@ GRAPH_WARMUP_STEPS = 3  # eager steps on the capture stream before capture
 PROFILE_MARGIN_S = 0.1
 
 
-def block_seed(seed: int, start: int, stream: int = SAMPLE_STREAM) -> int:
+def block_seed(seed: int, start: int, stream: int = SAMPLE_STREAM,
+               rank: int = 0) -> int:
     """The seed of generator ``stream`` for the block that starts at
-    absolute iteration ``start`` of a run seeded ``seed``."""
-    hi, lo = np.random.SeedSequence([seed, start, stream]).generate_state(2)
+    absolute iteration ``start`` of a run seeded ``seed``, on data-parallel
+    rank ``rank`` (a further word of the seed after rank 0)."""
+    words = [seed, start, stream] + ([rank] if rank else [])
+    hi, lo = np.random.SeedSequence(words).generate_state(2)
     return ((int(hi) << 32) | int(lo)) & (2 ** 63 - 1)
 
 
@@ -103,10 +127,21 @@ def batch_stats(values: torch.Tensor) -> torch.Tensor:
     return torch.cat([pct, mean, mean], dim=0)
 
 
+def _mean_state(state, group):
+    """``state`` with its floating tensors averaged over ``group`` in one
+    flat all-reduce (other leaves, equal on every rank, kept)."""
+    leaves, spec = tree_flatten(state)
+    floats = [i for i, t in enumerate(leaves)
+              if isinstance(t, torch.Tensor) and t.is_floating_point()]
+    for i, m in zip(floats, psum_flat([leaves[i] for i in floats], group, mean=True)):
+        leaves[i] = m
+    return tree_unflatten(leaves, spec)
+
+
 def make_train_step(method, operator, optimizer, sampler: Callable,
                     importance: Optional[Callable] = None,
                     ema_decay: float = 0.99, grad_clip: float = 0.0,
-                    monitor: bool = False):
+                    monitor: bool = False, dp_axis=None):
     """Build the train step: (TrainState, generator[, probes]) ->
     (TrainState, metrics).
 
@@ -117,7 +152,17 @@ def make_train_step(method, operator, optimizer, sampler: Callable,
     norm.  The state is updated in place and returned.  ``metrics`` hold
     device tensors ``loss``, ``gnorm``, ``skipped`` and, with ``monitor``,
     the (9, L) ``quad_stats`` and ``sqnorm_stats``.
+
+    ``dp_axis``: a data-parallel process group (the method built with the
+    same ``axis_name``), or None.  With one the gradients (partial sums over
+    the local rows, normalised by the global batch) are SUMMED over the
+    group and the method state averaged, each in one flat all-reduce,
+    BEFORE the finite/clip/skip decision, so every rank takes the same
+    update; the monitor's statistics are averaged too.  Each rank passes
+    its own generators.  The method must be built with ``axis_name``
+    ``dp_axis`` (else ValueError).
     """
+    check_method_axis(method, dp_axis)
     stochastic_op = getattr(operator, "needs_key", False)
     own_probes: Dict[torch.device, torch.Generator] = {}
 
@@ -138,6 +183,9 @@ def make_train_step(method, operator, optimizer, sampler: Callable,
                 f, xv, importance, generator=gen, **kw)
         loss, grads, aux, method_state = method.loss_and_grad(
             ts.params, ts.method_state, x, op, importance)
+        if dp_axis is not None:
+            grads = dict(zip(grads, psum_flat(grads.values(), dp_axis)))
+            method_state = _mean_state(method_state, dp_axis)
         gnorm = global_norm(grads.values())
         finite = torch.isfinite(loss) & torch.isfinite(gnorm)
         with torch.no_grad():
@@ -158,8 +206,8 @@ def make_train_step(method, operator, optimizer, sampler: Callable,
                    "skipped": torch.logical_not(finite)}
         if monitor:
             f, Tf = aux["f"], aux["Tf"]
-            metrics["quad_stats"] = batch_stats(f * Tf)  # local energies
-            metrics["sqnorm_stats"] = batch_stats(f * f)
+            metrics["quad_stats"] = pmean(batch_stats(f * Tf), dp_axis)  # local energies
+            metrics["sqnorm_stats"] = pmean(batch_stats(f * f), dp_axis)
         return ts, metrics
 
     step.needs_probes = stochastic_op
@@ -176,14 +224,19 @@ class ScannedTrainStep:
     step eagerly n times.  The host reads nothing inside a block.  The
     graph reads and writes the state's tensors as they were at capture:
     a later block on the same TrainState raises if one was replaced.
+    ``group``: the data-parallel group of a step made with ``dp_axis``; the
+    rank is a further word of the generators' seeds, and a capture on a
+    group that cannot be captured (gloo) raises ValueError.
     """
 
     def __init__(self, step, steps_per_call: int, seed: int = 0,
-                 use_graph: bool = True):
+                 use_graph: bool = True, group=None):
         self.step = step
         self.steps_per_call = steps_per_call
         self.seed = seed
         self.use_graph = use_graph
+        self.group = group
+        self.rank = axis_index(group)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self._graph_state: Optional[TrainState] = None
         self._graph_ptrs: tuple = ()
@@ -205,9 +258,9 @@ class ScannedTrainStep:
     def begin_block(self, device, start: int) -> None:
         """Seed the generators from (seed, start) and rewind the traces."""
         sample, probes, _, pos = self.buffers(device)
-        sample.manual_seed(block_seed(self.seed, start, SAMPLE_STREAM))
+        sample.manual_seed(block_seed(self.seed, start, SAMPLE_STREAM, self.rank))
         if probes is not None:
-            probes.manual_seed(block_seed(self.seed, start, PROBE_STREAM))
+            probes.manual_seed(block_seed(self.seed, start, PROBE_STREAM, self.rank))
         pos.zero_()
 
     def eager_step(self, ts: TrainState) -> dict:
@@ -226,13 +279,15 @@ class ScannedTrainStep:
             raise RuntimeError("this PyTorch cannot register a generator with "
                                "a CUDA graph (needs torch >= 2.5)")
         device = ts.step.device
+        require_capturable(self.group, device)
         sample, probes, _, _ = self.buffers(device)
         with torch.no_grad():
             saved = {name: clone_tree(getattr(ts, name)) for name in STATE_FIELDS}
         stream = torch.cuda.Stream(device)
         stream.wait_stream(torch.cuda.current_stream(device))
         # the warm-up makes on the capture stream what a step creates on
-        # first use (kernel tickets, tile tables, masks, cuBLAS workspaces)
+        # first use (kernel tickets, tile tables, masks, cuBLAS workspaces,
+        # a data-parallel group's NCCL communicator)
         with torch.cuda.stream(stream):
             for _ in range(GRAPH_WARMUP_STEPS):
                 self.eager_step(ts)
@@ -340,6 +395,7 @@ def train_operator(
     profile_steps: int = 20,
     grad_clip: float = 0.0,
     mesh=None,
+    dp_axis: str = "dp",
     rescue_init_fn: Optional[Callable] = None,
     rescue_until: float = 0.7,
     initial_ts: Optional[TrainState] = None,
@@ -376,6 +432,9 @@ def train_operator(
     (``block_graph`` or ``block_eager``, keyed by its steps), of each eval
     (``eval``), checkpoint (``checkpoint``) and SpINx refresh
     (``spinx_refresh``) are appended to it; each ends in a device sync.
+    ``mesh``: a ``DeviceMesh`` (parallel/mesh.py) whose ``dp_axis``
+    group the method was built with (``axis_name``): data parallelism as
+    the module docstring says, the sampler's batch per rank.
 
     Returns (final TrainState, all_eigvals, all_norms).
     """
@@ -386,12 +445,10 @@ def train_operator(
     )
     from neuralsvd_tpu_torch.training.ewm import EWMMonitor
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "data parallelism (mesh) is not ported yet (ROADMAP queue 1, item 9)")
     ts = (initial_ts if initial_ts is not None
           else init_train_state(model, optimizer, method))
     device = ts.step.device
+    writer = mesh is None or is_writer()
     timings = {} if timings is None else timings
     if normalize is None:
         normalize = method.name in ("nestedlora", "neuralsvd")
@@ -402,11 +459,12 @@ def train_operator(
         monitors_sqnorm = [EWMMonitor() for _ in range(method.neigs)]
 
     use_scan = not monitor and num_iters >= print_freq > 1
-    step = make_train_step(method, operator, optimizer, sampler,
-                           importance=importance_train, ema_decay=ema_decay,
-                           grad_clip=grad_clip, monitor=monitor)
+    step_kw = dict(importance=importance_train, ema_decay=ema_decay,
+                   grad_clip=grad_clip, monitor=monitor)
+    group = None if mesh is None else dp_group(mesh, dp_axis)
+    step = make_train_step(method, operator, optimizer, sampler, dp_axis=group, **step_kw)
     blocks = ScannedTrainStep(step, max(print_freq, 1), seed=seed,
-                              use_graph=use_graph and use_scan)
+                              use_graph=use_graph and use_scan, group=group)
     path = "graph" if blocks.use_graph and device.type == "cuda" else "eager"
     log.info("train steps: %s blocks of %d", path, max(print_freq, 1))
 
@@ -440,7 +498,9 @@ def train_operator(
         timings.setdefault("eval", []).append(time.perf_counter() - t0)
         if checkpoint_fn is not None:
             t0 = time.perf_counter()
-            checkpoint_fn(ts, it_done, outputs)
+            if writer:
+                checkpoint_fn(ts, it_done, outputs)
+            barrier(group)
             timings.setdefault("checkpoint", []).append(time.perf_counter() - t0)
         if spinx_refresh is not None:
             t0 = time.perf_counter()
@@ -494,7 +554,7 @@ def train_operator(
     prof = None
     profile_end = 0
     while it < num_iters:
-        if profile_dir is not None and prof is None and it >= profile_start:
+        if profile_dir is not None and writer and prof is None and it >= profile_start:
             prof = _open_profile(device)
             profile_end = it + profile_steps
         n = min(print_freq - (it % print_freq), num_iters - it)
@@ -531,7 +591,7 @@ def train_operator(
             if total_skips:
                 row["skips"] = total_skips
             log.info("%s", row)
-            if log_writer is not None:
+            if log_writer is not None and writer:
                 log_writer.writerow(
                     {k: row.get(k) for k in
                      ("iter", "train_loss", "time", "steps_per_sec")})

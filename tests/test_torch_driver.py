@@ -228,12 +228,21 @@ def test_checkpoint_round_trip(tmp_path):
     assert latest_iteration_checkpoint(str(tmp_path / "empty")) is None
 
 
+class _TpMesh:
+    """A mesh's names and sizes, dp=1 x tp=2."""
+    mesh_dim_names = ("dp", "tp")
+
+    def size(self, dim):
+        return (1, 2)[dim]
+
+
 def test_train_operator_refuses_unported_options():
-    """Data parallelism raises naming its item (the SpINx refresh, refused
-    here before, runs: tests/test_torch_spin.py)."""
+    """A tp mesh axis above 1 raises naming its item, [9b] (data
+    parallelism runs: tests/test_torch_parallel.py; the SpINx refresh,
+    refused here before, runs: tests/test_torch_spin.py)."""
     model, op, sampler, imp, method, opt = _setup()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        train_operator(method, op, sampler, opt, model, 4, mesh=object())
+    with pytest.raises(NotImplementedError, match=r"\[9b\]"):
+        train_operator(method, op, sampler, opt, model, 4, mesh=_TpMesh())
 
 
 # -- the monitor statistics ----------------------------------------------------

@@ -15,8 +15,10 @@ ABSENT = BLOCKED + ("matplotlib",)
 
 
 def _port_sources():
+    # the data-parallel tests' ranks import only torch and the port too
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "profile_torch_e4.py"]
+                                         ROOT / "profile_torch_e4.py",
+                                         ROOT / "tests" / "torch_dp_workers.py"]
 
 
 def _module_names():
@@ -25,9 +27,10 @@ def _module_names():
 
 
 def test_port_imports_with_jax_blocked():
-    """Every port module (the CDK trainer included), chip_smoke and
-    profile_torch_e4 import in a process where the JAX stack and
-    matplotlib cannot be imported at all."""
+    """Every port module (the CDK trainer and parallel/ included),
+    chip_smoke, profile_torch_e4 and the data-parallel tests' ranks import
+    in a process where the JAX stack and matplotlib cannot be imported at
+    all."""
     code = "\n".join([
         "import importlib, importlib.util, sys",
         f"for m in {ABSENT!r}:",
@@ -37,6 +40,8 @@ def test_port_imports_with_jax_blocked():
         f"sys.path.insert(0, {str(ROOT)!r})",
         "importlib.import_module('chip_smoke')",
         "importlib.import_module('profile_torch_e4')",
+        f"sys.path.insert(0, {str(ROOT / 'tests')!r})",
+        "importlib.import_module('torch_dp_workers')",
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{ABSENT + ('neuralsvd_tpu',)!r} and sys.modules[m] is not None)",
         "assert not bad, bad",
@@ -46,6 +51,15 @@ def test_port_imports_with_jax_blocked():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+def test_the_scans_cover_parallel():
+    """parallel/ is among the modules both scans walk."""
+    assert {"neuralsvd_tpu_torch.parallel", "neuralsvd_tpu_torch.parallel.collectives",
+            "neuralsvd_tpu_torch.parallel.mesh", "neuralsvd_tpu_torch.parallel.sharding"
+            } <= set(_module_names())
+    assert {PORT / "parallel" / name for name in ("sharding.py", "collectives.py", "mesh.py")
+            } <= set(_port_sources())
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: p.name)
@@ -77,6 +91,10 @@ def test_entry_points_raise_without_cuda():
         get_sampler("gaussian", 8, 1, 2, 1.0)
     with pytest.raises(RuntimeError, match="CUDA"):
         compute_spectrum_evd(lambda x: x, [], None)
+    from neuralsvd_tpu_torch.parallel.mesh import rank_device
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rank_device(None)  # a rank's default device, --mesh's too
 
 
 def test_cdk_entry_points_raise_without_cuda():

@@ -443,7 +443,7 @@ def _float64_eigvals(cfg, model_kw, state):
     (dict(loss=config.LossConfig(name="spin")), None),
     (dict(loss=config.LossConfig(name="spinx")), None),
     (dict(problem="fp"), None),
-    (dict(mesh="dp"), "item 9"),
+    (dict(mesh="tp=2"), r"\[9b\]"),  # --mesh dp runs: test_torch_cli_mesh.py
     (dict(rescue=True, parallel=True), None),
     (dict(matmul_precision="high"), None),
     (dict(apply_exp_mask=True), None),

@@ -279,10 +279,11 @@ def test_main_runs_from_a_feature_root(tmp_path):
     assert len(_csv_rows(tmp_path / "log")) == 1
 
 
-# ids as when bf16 towers and lars raised (item 7); they build and train
-# now (match None), --mesh still raises
+# ids as when bf16 towers and lars raised (item 7) and --mesh (item 9);
+# they build and train now (match None, --mesh dp: test_torch_cli_mesh.py),
+# a tp mesh axis still raises (item [9b])
 @pytest.mark.parametrize("argv,match", [
-    (["--mesh", "dp"], "item 9"),
+    (["--mesh", "dp=1,tp=2"], r"\[9b\]"),
     (["--compute_dtype", "bf16"], None),
     (["--optimizer", "lars", "--momentum", "0.9", "--weight_decay", "1e-4"], None),
 ], ids=["argv0-item 9", "argv1-item 7", "argv2-item 7"])

@@ -468,7 +468,7 @@ def test_fokker_planck_vjp_with_graph_matches_jax():
 # -- refusals ---------------------------------------------------------------------
 
 def test_refusals_name_their_items():
-    """Only --mesh is refused now (item 9).  A graph through Tf on the
+    """Only a tp mesh axis is refused now (item [9b]).  A graph through Tf on the
     forward engine or the Hutchinson estimator runs and gives the default
     route's values with a graph; check_ported passes SpIN and SpINx on
     every Laplacian; loss_and_grad_kernel runs on a kernel operator."""
@@ -485,8 +485,8 @@ def test_refusals_name_their_items():
         for kw in (dict(laplacian_eps=-1.0), dict(laplacian_probes=2),
                    dict(laplacian_eps=-1.0, laplacian_mode="jvp", laplacian_probes=2)):
             pde.check_ported(config.PDEConfig(loss=config.LossConfig(name=name), **kw))
-        with pytest.raises(NotImplementedError, match="item 9"):
-            pde.check_ported(config.PDEConfig(loss=config.LossConfig(name=name), mesh="2"))
+        with pytest.raises(NotImplementedError, match=r"\[9b\]"):
+            pde.check_ported(config.PDEConfig(loss=config.LossConfig(name=name), mesh="tp=2"))
         method = get_evd_method(name, model, L)
         params = dict(model.named_parameters())
         loss, grads, _, _ = method.loss_and_grad_kernel(
