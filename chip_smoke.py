@@ -221,11 +221,30 @@ seconds:
               CDK step against the single-process step on the same pairs,
               both with SGD and no grad clip, so the gradient's scale
               shows.
+18. tp        tensor parallelism (--mesh tp=2, parallel/sharding.py) on two
+              gloo ranks on the one card (spawned, CUDA tensors; eager
+              steps, as gloo refuses a CUDA graph): (a) the E4 flags on SGD
+              through cli.pde.main, TP_E4_ITERS steps with one eval and a
+              checkpoint, each rank holding 8 of the 16 modes and gathering
+              f and Tf before the loss, against the same run without a mesh
+              (every parameter leaf at rtol 2e-4, atol 2e-5, the ranks bit
+              for bit alike), the checkpoint loaded into a one-process
+              TrainState; one step on Adam and on RMSprop (TP_E4_RUNS),
+              their optimizer states (the gradient's moments) at that
+              tolerance with atol scaled by each leaf's largest entry, and
+              each parameter outside it one whose gradient is under
+              TP_FLIP_GRAD of its leaf's largest (a sign-like first update
+              follows the rounding there); (b) the paper-width f32 CDK
+              step (512-8192-512 towers, L 512 + the constant, B 4096, 256 mode columns a
+              rank), TP_CDK_STEPS steps against the one-process step at the
+              same tolerance; both on K1-K3 on the gathered modes, one
+              launch of each a step on each rank.
 
 Then the {"kernels": [...]} line (numbers at the CDK shape, launches of
 the ten main paths that run K1-K3 (e4 trainer, pde_cli, hydrogen,
-oscillator, fp, cdk, pde_tiers, cdk_bf16, kernel_evd, sketchy_cli; the dp
-path takes the plain losses and launches none; the
+oscillator, fp, cdk, pde_tiers, cdk_bf16, kernel_evd, sketchy_cli, and
+tp_e4 and tp_cdk, summed over phase tp's two ranks; the dp path takes the
+plain losses and launches none; the
 CLI paths' are the eager launches counted by the wrappers plus the
 replayed launches counted in the traced block, each also under "paths"),
 per-path numbers under "paths", every shape's under "shapes"), the
@@ -302,6 +321,7 @@ from neuralsvd_tpu_torch.training.optimizers import (
     cosine_annealing,
     torch_rmsprop,
 )
+from neuralsvd_tpu_torch.training.rescue import named_leaves
 from neuralsvd_tpu_torch.training.train_operator import (
     GRAPH_WARMUP_STEPS,
     PROFILE_MARGIN_S,
@@ -544,6 +564,32 @@ DP_PLAIN_ATOL = 1e-6
 DP_SKETCHY_RTOL, DP_SKETCHY_ATOL = 2e-4, 2e-5
 DP_LOSS_TOL, DP_PARAM_TOL = (1e-5, 1e-6), (1e-4, 1e-6)  # (rtol, atol)
 DP_SPAWN_TIMEOUT_S = 120
+# Tensor parallelism (--mesh tp=2, parallel/sharding.py) on two gloo ranks
+# on the one card (spawned, CUDA tensors, joined within TP_SPAWN_TIMEOUT_S;
+# NCCL refuses two ranks on one device, and gloo refuses a CUDA graph, so
+# eager steps): (a) the E4 flags through cli.pde.main on SGD (their lr),
+# TP_E4_ITERS steps with one eval and its checkpoint, against the same run
+# without a mesh at TP_TOL on every parameter leaf (tests/test_cli_mesh.py
+# :62-63), the checkpoint loaded into a one-process TrainState; then one
+# step on Adam and on RMSprop, whose parameters are not held to TP_TOL: their
+# first update, lr·g/(|g| + eps) up to a constant, moves an entry whose
+# gradient lies inside the two runs' reduction-order rounding (a
+# cancellation) by a sizeable share of lr in either direction, where SGD's
+# update is linear in g.  Instead every tensor of their optimizer state (the
+# first step's moments: the gradient, scaled) is held to TP_TOL with atol a
+# share of the leaf's largest entry, and every parameter entry outside
+# TP_TOL must be one whose one-process gradient is under TP_FLIP_GRAD of its
+# leaf's largest; (b) the paper-width f32 CDK step
+# (CDK_ARGV: 512-8192-512 towers, L 512 + the constant, B 4096, 256 mode
+# columns a rank), TP_CDK_STEPS steps on the same pairs against the
+# one-process step at TP_TOL.  Both on K1-K3: one launch of each a step on
+# each rank
+TP_E4_ITERS, TP_E4_BLOCK = 200, 100
+TP_E4_RUNS = (("sgd", TP_E4_ITERS), ("adam", 1), ("rmsprop", 1))  # SGD's parameters checked
+TP_CDK_STEPS = 5
+TP_TOL = (2e-4, 2e-5)  # (rtol, atol)
+TP_FLIP_GRAD = 2e-5  # the moments' atol share: a larger gradient keeps its sign within it
+TP_SPAWN_TIMEOUT_S = 240
 # the online heads (90 train classes), kNN (k 200, T 0.1) and the multi-head
 # probe (PROBE_STEPS SGD steps of batch CDK_B) on the trained towers
 KNN_K, KNN_T = 200, 0.1
@@ -3290,9 +3336,10 @@ def _dp_gloo_rank(rank, port, tmp):
                                                   "--log_dir", tmp])
         run = pde.build(cfg, axis_name=group)
         x = torch.as_tensor(z[f"x{rank}"], device=DEVICE)
-        step = sharding.make_dp_train_step(run.method, run.operator, run.optimizer,
-                                           lambda g: x, mesh, importance=run.importance_train,
-                                           ema_decay=cfg.ema_decay)
+        step = sharding.make_mesh_train_step(run.method, run.operator, run.optimizer,
+                                             lambda g: x, mesh,
+                                             importance=run.importance_train,
+                                             ema_decay=cfg.ema_decay)
         ts = init_train_state(run.model, run.optimizer, run.method)
         _, metrics = step(ts, None)
         tr = make_trainer(_dp_cdk_args(tmp, "dp=2"), CDK_DIM, CDK_STEPS)
@@ -3317,23 +3364,24 @@ def _dp_gloo_rank(rank, port, tmp):
             torch.distributed.destroy_process_group()
 
 
-def _dp_gloo(tmp):
-    """Two gloo ranks on the one card, spawned, against the single-process
-    E4 and CDK steps."""
+def _spawn_two(target, tmp, prefix, timeout):
+    """Run ``target(rank, port, tmp)`` in two spawned processes (a free
+    localhost port for their group), each writing a traceback to
+    ``tmp``/<prefix><rank>.err on failure; joined within ``timeout``
+    seconds, then killed.  Fails the check unless both exit cleanly;
+    returns the seconds the two took."""
     import multiprocessing
     import socket
 
-    e4, cdk = _dp_step_inputs(tmp)
-    torch.cuda.empty_cache()
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
     ctx = multiprocessing.get_context("spawn")
     t0 = time.perf_counter()
-    procs = [ctx.Process(target=_dp_gloo_rank, args=(r, port, tmp)) for r in range(2)]
+    procs = [ctx.Process(target=target, args=(r, port, tmp)) for r in range(2)]
     for p in procs:
         p.start()
-    deadline = time.monotonic() + DP_SPAWN_TIMEOUT_S
+    deadline = time.monotonic() + timeout
     for p in procs:
         p.join(max(0.0, deadline - time.monotonic()))
     hung = [r for r, p in enumerate(procs) if p.is_alive()]
@@ -3341,12 +3389,19 @@ def _dp_gloo(tmp):
         if p.is_alive():
             p.kill()
             p.join(10)
-    spawn_s = time.perf_counter() - t0
-    errors = [open(os.path.join(tmp, f"rank{r}.err")).read() for r in range(2)
-              if os.path.exists(os.path.join(tmp, f"rank{r}.err"))]
+    errors = [open(os.path.join(tmp, f"{prefix}{r}.err")).read() for r in range(2)
+              if os.path.exists(os.path.join(tmp, f"{prefix}{r}.err"))]
     check(not hung and not errors and all(p.exitcode == 0 for p in procs),
-          f"gloo ranks: hung {hung}, exit codes {[p.exitcode for p in procs]}: {errors}")
-    out = {"spawn_s": spawn_s}
+          f"{target.__name__}: hung {hung}, exit codes {[p.exitcode for p in procs]}: {errors}")
+    return time.perf_counter() - t0
+
+
+def _dp_gloo(tmp):
+    """Two gloo ranks on the one card, spawned, against the single-process
+    E4 and CDK steps."""
+    e4, cdk = _dp_step_inputs(tmp)
+    torch.cuda.empty_cache()
+    out = {"spawn_s": _spawn_two(_dp_gloo_rank, tmp, "rank", DP_SPAWN_TIMEOUT_S)}
     for r in range(2):
         got = torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
         check(got["backend"] == "gloo" and got["refused"] and "gloo" in got["refused"],
@@ -3384,6 +3439,207 @@ def phase_dp(root):
     emit("dp", e4=e4, sketchy=sk, spin=spin, gloo=gloo, phase_s=time.perf_counter() - t0)
 
 
+def _tp_e4_argv(optimizer, iters, mesh=None):
+    """The E4 flags of a phase tp run (K1-K3 by default) on ``optimizer``
+    for ``iters`` steps with one eval, with ``mesh``."""
+    return _with_flags(PDE_E4_ARGV, num_iters=iters, eval_freq=iters,
+                       print_freq=min(iters, TP_E4_BLOCK),
+                       optimizer=optimizer) + (["--mesh", mesh] if mesh else [])
+
+
+def _tp_e4_runs(tmp, mesh=None):
+    """The phase tp E4 runs (TP_E4_RUNS): each one's whole parameters
+    (CPU), last eigenvalues, run directory, K1-K3 launches and eager
+    steps/s."""
+    out = {}
+    for optimizer, iters in TP_E4_RUNS:
+        cuda_gram.reset_launch_counts()
+        timings = {}
+        ts, eigvals, run_dir, _ = _pde_run(
+            _tp_e4_argv(optimizer, iters, mesh),
+            os.path.join(tmp, f"tp_{mesh or 'single'}_{optimizer}"), timings, use_graph=False)
+        out[optimizer] = {"params": clone_tree(ts.params, "cpu"),
+                          "opt_state": {k: v.detach().cpu() for k, v in named_leaves(ts.opt_state)},
+                          "iters": iters,
+                          "eigvals": np.asarray(eigvals[-1]).tolist(), "run_dir": run_dir,
+                          "launches": cuda_gram.launch_counts(),
+                          "steps_per_s": _block_rates(timings, "block_eager")}
+        del ts
+    return out
+
+
+def _tp_adaptive_check(label, ref, got):
+    """An adaptive optimizer's one step at tp against one process: every
+    tensor of the optimizer state (the gradient's moments) within TP_TOL,
+    atol scaled by the leaf's largest |entry|; and every parameter entry
+    outside TP_TOL one whose one-process gradient (read from the second
+    moment ``nu``) is under TP_FLIP_GRAD of its leaf's largest, where the
+    update's sign follows the rounding.  Returns both readings."""
+    moments = {k: _abs_excess(got["opt_state"][k].double(), m.double(), TP_TOL[0],
+                              TP_TOL[1] * max(m.abs().max().item(), 1e-30))
+               for k, m in ref["opt_state"].items()}
+    worst = max(moments, key=moments.get)
+    check(set(got["opt_state"]) == set(ref["opt_state"]) and moments[worst] <= 1.0,
+          f"{label}: optimizer state {moments[worst]:.3g}x tolerance ({worst})")
+    flip, misses = 0.0, 0
+    for k, p in ref["params"].items():
+        miss = (got["params"][k] - p).abs() > TP_TOL[0] * p.abs() + TP_TOL[1]
+        if miss.any():
+            nu = next(v for n, v in ref["opt_state"].items() if f".{n}".endswith(f".nu.{k}"))
+            grad = nu.double().sqrt()
+            flip = max(flip, (grad[miss].max() / grad.max()).item())
+            misses += int(miss.sum())
+    check(flip <= TP_FLIP_GRAD, f"{label}: a parameter outside the tolerance has "
+                                f"{flip:.3g} of its leaf's largest gradient")
+    return {"moments_tol_used": moments[worst], "worst_moment": worst,
+            "misses": misses, "grad_at_misses": flip}
+
+
+def _tp_cdk_args(tmp, mesh=None):
+    """The paper-width f32 CDK flags (CDK_ARGV, its grad clip included) of
+    phase tp's step, with ``mesh``."""
+    return get_args(CDK_ARGV + ["--num_epochs", str(CDK_EPOCHS), "--log_dir", tmp,
+                                "--device", DEVICE] + (["--mesh", mesh] if mesh else []))
+
+
+def _tp_references(tmp):
+    """The one-process E4 runs and CDK steps of phase tp, the initial E4
+    parameters, and the CDK pairs written to ``tmp``/tp_inputs.npz."""
+    e4 = _tp_e4_runs(tmp)
+    cfg = parse_pde_config(_tp_e4_argv(*TP_E4_RUNS[0]) + ["--device", DEVICE])
+    init = {k: p.detach().cpu().clone() for k, p in pde.build(cfg).model.named_parameters()}
+    rng = np.random.default_rng(SEED + 17)
+    cls = np.arange(CDK_B) % CDK_CLASSES
+    cx, cy = (3 * rng.standard_normal((CDK_CLASSES, CDK_DIM), dtype=np.float32)
+              for _ in range(2))
+    x = cx[cls] + rng.standard_normal((CDK_B, CDK_DIM), dtype=np.float32)
+    y = cy[cls] + rng.standard_normal((CDK_B, CDK_DIM), dtype=np.float32)
+    np.savez(os.path.join(tmp, "tp_inputs.npz"), x=x, y=y)
+    cuda_gram.reset_launch_counts()
+    cdk = _tp_cdk_steps(_tp_cdk_args(tmp), x, y)
+    cdk["launches"] = cuda_gram.launch_counts()
+    torch.cuda.empty_cache()
+    return e4, init, cdk
+
+
+def _tp_cdk_steps(args, x, y):
+    """TP_CDK_STEPS CDK steps of ``make_trainer(args)`` on the pairs: the
+    whole parameters (gathered under tp), the shapes held, the last loss,
+    the skips and the steps' seconds."""
+    tr = make_trainer(args, CDK_DIM, CDK_STEPS)
+    x, y = torch.as_tensor(x, device=DEVICE), torch.as_tensor(y, device=DEVICE)
+    params, opt_state = tr.params, tr.opt_state
+    skips = torch.zeros((), dtype=torch.int32, device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TP_CDK_STEPS):
+        params, opt_state, _, loss, _, skips = tr.step(params, opt_state, {}, x, y, skips)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    whole = params if tr.shards is None else tr.shards.gather_tree(params)
+    return {"params": clone_tree(whole, "cpu"), "loss": loss.item(), "skips": int(skips),
+            "held": {k: list(p.shape) for k, p in params.items()}, "steps_s": seconds}
+
+
+def _tp_gloo_rank(rank, port, tmp):
+    """One of phase tp's two gloo ranks on the card (a spawned process):
+    the E4 run and the CDK steps at --mesh tp=2; results to
+    ``tmp``/tp_rank<r>.pt, a traceback to tp_rank<r>.err."""
+    from neuralsvd_tpu_torch.parallel import mesh as tp_mesh
+
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK=str(rank),
+                      WORLD_SIZE="2")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        tp_mesh.init_process_group(DEVICE, backend="gloo")  # the CLIs reuse it
+        out = {"e4": _tp_e4_runs(tmp, "tp=2")}
+        z = np.load(os.path.join(tmp, "tp_inputs.npz"))
+        cuda_gram.reset_launch_counts()
+        out["cdk"] = _tp_cdk_steps(_tp_cdk_args(tmp, "tp=2"), z["x"], z["y"])
+        out["cdk"]["launches"] = cuda_gram.launch_counts()
+        out["backend"] = torch.distributed.get_backend()
+        torch.save(out, os.path.join(tmp, f"tp_rank{rank}.pt"))
+    except BaseException:
+        import traceback
+
+        with open(os.path.join(tmp, f"tp_rank{rank}.err"), "w") as fh:
+            fh.write(traceback.format_exc())
+        raise
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _tp_checkpoint_in_one_process(run_dir, params):
+    """The tp run's last checkpoint loaded into a one-process TrainState of
+    the E4 flags (every shape whole): whether its parameters equal the
+    run's bit for bit, and the file's bytes."""
+    path = os.path.join(run_dir, f"ckpt_{TP_E4_ITERS}")
+    cfg = parse_pde_config(_tp_e4_argv(*TP_E4_RUNS[0]) + ["--device", DEVICE])
+    run = pde.build(cfg)
+    template = init_train_state(run.model, run.optimizer, run.method)
+    load_state_tree(template, load_checkpoint(path))
+    same = all(torch.equal(template.params[k].cpu(), p) for k, p in params.items())
+    return same, os.path.getsize(path)
+
+
+def phase_tp(tmp):
+    """Tensor parallelism on the card: two gloo ranks at --mesh tp=2, the
+    E4 CLI run and the paper-width CDK step against one process; returns
+    each kernel's launches on the two ranks, by path."""
+    t0 = time.perf_counter()
+    e4, init, cdk = _tp_references(tmp)
+    spawn_s = _spawn_two(_tp_gloo_rank, tmp, "tp_rank", TP_SPAWN_TIMEOUT_S)
+    got = [torch.load(os.path.join(tmp, f"tp_rank{r}.pt"), weights_only=False)
+           for r in range(2)]
+    out = {"spawn_s": spawn_s, "backend": got[0]["backend"], "tol": TP_TOL}
+    launches = {}
+    checked = TP_E4_RUNS[0][0]
+    cases = [("e4", opt, e4[opt], [g["e4"][opt] for g in got], steps)
+             for opt, steps in TP_E4_RUNS] + [("cdk", None, cdk, [g["cdk"] for g in got],
+                                               TP_CDK_STEPS)]
+    for name, opt, ref, ranks, steps in cases:
+        label = name if opt is None else f"{name} {opt}"
+        check(all(n == steps for n in ref["launches"].values()) and ref["launches"],
+              f"tp {label} one process: launches {ref['launches']} for {steps} steps")
+        res = {"single": {k: v for k, v in ref.items() if k not in ("params", "opt_state")}}
+        for r, g in enumerate(ranks):
+            excess = {k: _abs_excess(g["params"][k], p, *TP_TOL) for k, p in ref["params"].items()}
+            worst = max(excess, key=excess.get)
+            if opt in (None, checked):
+                check(excess[worst] <= 1.0, f"tp rank {r} {label} vs one process: "
+                                            f"{excess[worst]:.3g}x tolerance ({worst})")
+                adaptive = {}
+            else:
+                adaptive = _tp_adaptive_check(f"tp rank {r} {label}", ref, g)
+            check(all(torch.equal(g["params"][k], ranks[0]["params"][k])
+                      for k in ref["params"]), f"tp {label}: rank {r} differs from rank 0")
+            check(set(g["launches"]) == set(ref["launches"])
+                  and all(n == steps for n in g["launches"].values()),
+                  f"tp rank {r} {label}: launches {g['launches']} for {steps} steps")
+            for k, n in g["launches"].items():
+                launches.setdefault(f"tp_{name}", {}).setdefault(k, 0)
+                launches[f"tp_{name}"][k] += n
+            res[f"rank{r}"] = {k: v for k, v in g.items() if k not in ("params", "opt_state")}
+            res[f"rank{r}"].update(tol_used=excess[worst], worst_leaf=worst, **adaptive)
+        if opt == checked:
+            res["moved"] = max((p - init[k]).abs().max().item() for k, p in ref["params"].items())
+            check(res["moved"] > 10 * TP_TOL[1], f"tp e4: the parameters moved {res['moved']:.3g}")
+        out[label.replace(" ", "_")] = res
+    held, width = got[0]["cdk"]["held"], parse_dims(_tp_cdk_args(tmp).network_dims)
+    check(held["x.layers.1.w"] == [width[0], width[1] // 2]
+          and held["y.layers.1.b"] == [width[1] // 2]
+          and held["x.layers.0.w"] == [CDK_DIM, width[0]], f"tp CDK shares held: {held}")
+    check(all(g["cdk"]["skips"] == 0 for g in got), "tp CDK: a skipped step")
+    same, nbytes = _tp_checkpoint_in_one_process(got[0]["e4"][checked]["run_dir"],
+                                                 got[0]["e4"][checked]["params"])
+    check(same, "tp checkpoint loaded in one process differs from the run's parameters")
+    out["checkpoint"] = {"loads_in_one_process": same, "bytes": nbytes}
+    emit("tp", **out, launches=launches, phase_s=time.perf_counter() - t0)
+    return launches
+
+
 def main():
     # full f32 products: TF32 keeps ~3 digits and would break the tolerances
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3411,6 +3667,7 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         counts["sketchy_cli"] = phase_sketchy_cli(tmp)
         phase_dp(os.path.join(tmp, "root"))
+        counts.update(phase_tp(tmp))
     kernels = []
     for kname, results in rows.items():
         at = {r["shape"]: r for r in results}
@@ -3421,7 +3678,8 @@ def main():
                  for path, shape in (("e4", "E4"), ("pde_cli", "E4"), ("cdk", "cdk"),
                                      ("hydrogen", "hydrogen"), ("oscillator", "oscillator"),
                                      ("fp", "fp"), ("pde_tiers", "E4"), ("cdk_bf16", "cdk"),
-                                     ("kernel_evd", "kernel_evd"), ("sketchy_cli", "cdk"))}
+                                     ("kernel_evd", "kernel_evd"), ("sketchy_cli", "cdk"),
+                                     ("tp_e4", "E4"), ("tp_cdk", "cdk"))}
         for path, m in measured.items():
             paths[path].update(m[kname])
         cdk = paths["cdk"]

@@ -25,8 +25,16 @@ neuralsvd_tpu_torch.cli.pde --mesh dp ...`` on N cards, or ``--mesh dp``
 alone for a one-rank NCCL group on one card.  Each rank samples
 ``batch_size // dp`` rows (``batch_size`` stays the global batch and must
 divide by 2·dp), the method's grams are averaged over the ranks, and only
-rank 0 writes the log directory's files.  A tp axis above 1 is refused
-before any training, naming ROADMAP item [9b].
+rank 0 writes the log directory's files.
+
+``--mesh tp=M`` or ``--mesh dp=N,tp=M`` (N·M ranks under ``torchrun``)
+shards the modes of the per-mode towers over tp (parallel/sharding.py) with
+the JAX GSPMD path's semantics (``neuralsvd_tpu/cli/pde.py:47-66``): every
+rank draws the global batch and keeps its dp share of each half, so the
+run is the one-process run up to reduction order; the evals, the rescue
+and the checkpoints (which do not depend on the mesh) see the gathered
+state.  NestedLoRA and NeuralEF run under tp; SpIN and SpINx refuse it,
+naming ROADMAP item [9c].
 """
 from __future__ import annotations
 
@@ -39,7 +47,7 @@ import torch
 
 from neuralsvd_tpu_torch.data.samplers import get_sampler, make_val_grid, make_val_mc
 from neuralsvd_tpu_torch.device import resolve_device
-from neuralsvd_tpu_torch.methods.factories import get_evd_method
+from neuralsvd_tpu_torch.methods.factories import TP_SPIN_REFUSAL, get_evd_method
 from neuralsvd_tpu_torch.models.mlp import parse_dims
 from neuralsvd_tpu_torch.models.wavefunctions import make_wavefunctions
 from neuralsvd_tpu_torch.operators.problems import get_problem
@@ -47,11 +55,14 @@ from neuralsvd_tpu_torch.parallel.collectives import axis_size
 from neuralsvd_tpu_torch.parallel.mesh import (
     barrier,
     dp_group,
+    given_sizes,
     is_writer,
     make_mesh,
     mesh_sizes,
     rank_device,
+    tp_group,
 )
+from neuralsvd_tpu_torch.parallel.sharding import mode_shards, shard_module
 from neuralsvd_tpu_torch.training.checkpoint import (
     latest_iteration_checkpoint,
     load_checkpoint,
@@ -66,6 +77,7 @@ from neuralsvd_tpu_torch.training.optimizers import (
 )
 from neuralsvd_tpu_torch.training.train_operator import train_operator
 from neuralsvd_tpu_torch.training.train_state import (
+    STATE_FIELDS,
     init_train_state,
     load_state_tree,
     state_tree,
@@ -83,22 +95,34 @@ log = logging.getLogger("neuralsvd_tpu_torch.pde")
 
 def check_ported(cfg: PDEConfig) -> None:
     """Raise NotImplementedError for a configuration the port cannot run
-    (a ``--mesh`` with a tp axis above 1), ValueError for a ``--mesh`` whose
-    dp does not divide the batch into even half-batches."""
+    (SpIN or SpINx with a tp axis above 1, given or absorbed: item [9c]),
+    ValueError for a ``--mesh`` whose dp does not divide the batch into
+    even half-batches."""
     if cfg.mesh:
-        dp = mesh_sizes(cfg.mesh).get("dp", 1)
+        spin = cfg.loss.name in ("spin", "spinx")
+        if spin and given_sizes(cfg.mesh).get("tp", 1) > 1:
+            raise NotImplementedError(TP_SPIN_REFUSAL)
+        sizes = mesh_sizes(cfg.mesh)
+        if spin and sizes.get("tp", 1) > 1:
+            raise NotImplementedError(TP_SPIN_REFUSAL)
+        dp = sizes.get("dp", 1)
         if cfg.batch_size % (2 * dp):
             raise ValueError(
                 f"batch_size {cfg.batch_size} must divide by 2*dp={2 * dp} "
                 "(even per-rank metric half-batches)")
 
 
-def build(cfg: PDEConfig, dev=None, axis_name=None) -> SimpleNamespace:
+def build(cfg: PDEConfig, dev=None, axis_name=None, tp_axis=None) -> SimpleNamespace:
     """The run's parts as the JAX CLI wires them: operator, ground_truth,
     n_particles, model, sample, importance_train, val_data, val_batches,
     importance_val, method, optimizer and rescue_init_fn (None without
     ``--rescue``), on ``dev`` (default: ``cfg.device``).  ``axis_name``: the
-    data-parallel group, whose ranks sample ``batch_size // dp`` rows each."""
+    data-parallel group, whose ranks sample ``batch_size // dp`` rows each.
+    ``tp_axis``: the tensor-parallel group; the sampler then draws the
+    global batch, ``shards`` (None for a shared trunk) says which modes this
+    rank holds, ``local_model`` and ``method`` are this rank's share and
+    ``eval_method`` the method on the whole ``model``.  Without one
+    ``local_model`` is ``model`` and ``eval_method`` is ``method``."""
     dev = resolve_device(cfg.device if dev is None else dev)
     operator, ground_truth, n_particles = get_problem(
         problem=cfg.problem, potential_type=cfg.potential_type,
@@ -137,7 +161,8 @@ def build(cfg: PDEConfig, dev=None, axis_name=None) -> SimpleNamespace:
         if cfg.sampling_weights:
             weights = tuple(float(v) for v in cfg.sampling_weights.split(",") if v)
     sample, importance_train = get_sampler(
-        cfg.sampling_mode, cfg.batch_size // axis_size(axis_name), n_particles,
+        cfg.sampling_mode,
+        cfg.batch_size // (1 if tp_axis is not None else axis_size(axis_name)), n_particles,
         cfg.ndim, scale, sampling_weights=weights, device=dev)
 
     val_batches = importance_val = val_data = None
@@ -152,15 +177,22 @@ def build(cfg: PDEConfig, dev=None, axis_name=None) -> SimpleNamespace:
 
     method_opts = {"neuralef": cfg.loss.neuralef, "spin": cfg.loss.spin,
                    "spinx": cfg.loss.spin}.get(cfg.loss.name, cfg.loss.neuralsvd)
-    method = get_evd_method(cfg.loss.name, model, cfg.neigs, sort=cfg.sort,
-                            axis_name=axis_name, **vars(method_opts))
+    shards = mode_shards(model, tp_axis, cfg.neigs)
+    local_model = model if shards is None else shard_module(model, shards)
+    method = get_evd_method(cfg.loss.name, local_model, cfg.neigs, sort=cfg.sort,
+                            axis_name=axis_name,
+                            mode_axis=None if shards is None else shards.group,
+                            **vars(method_opts))
+    eval_method = method if shards is None else get_evd_method(
+        cfg.loss.name, model, cfg.neigs, sort=cfg.sort, **vars(method_opts))
 
     lr_schedule = (cosine_annealing(cfg.lr, cfg.num_iters)
                    if cfg.use_lr_scheduler else None)
     optimizer = build_optimizer(
         cfg.optimizer, cfg.lr, momentum=cfg.momentum,
         rmsprop_decay=cfg.rmsprop_decay, adam_eps=cfg.adam_eps,
-        lr_schedule=lr_schedule, spike_reject_factor=cfg.spike_reject_factor)
+        lr_schedule=lr_schedule, spike_reject_factor=cfg.spike_reject_factor,
+        shards=shards)
     if cfg.tail_lr_boost != 1.0:
         # per-mode LR on the slow truncation-edge towers, safe under
         # sequential nesting; the leading-axis == neigs heuristic needs
@@ -171,7 +203,7 @@ def build(cfg: PDEConfig, dev=None, axis_name=None) -> SimpleNamespace:
         assert_mode_axis_unambiguous(dict(model.named_parameters()), cfg.neigs)
         scales = np.where(np.arange(cfg.neigs) >= cfg.tail_lr_start,
                           cfg.tail_lr_boost, 1.0).astype(np.float32)
-        optimizer = chain(optimizer, per_mode_lr(scales, cfg.neigs))
+        optimizer = chain(optimizer, per_mode_lr(scales, cfg.neigs, shards))
         log.info("tail LR boost %.2fx from mode %d", cfg.tail_lr_boost,
                  cfg.tail_lr_start)
 
@@ -191,21 +223,24 @@ def build(cfg: PDEConfig, dev=None, axis_name=None) -> SimpleNamespace:
         model=model, sample=sample, importance_train=importance_train,
         val_data=val_data, val_batches=val_batches,
         importance_val=importance_val, method=method, optimizer=optimizer,
-        rescue_init_fn=rescue_init_fn)
+        rescue_init_fn=rescue_init_fn, shards=shards, local_model=local_model,
+        eval_method=eval_method)
 
 
 def main(cfg: PDEConfig, timings=None, use_graph: bool = True):
     """Train as the JAX CLI does; returns (TrainState, all_eigvals,
-    all_norms).  ``timings`` and ``use_graph``: see ``train_operator``."""
+    all_norms), under tp the TrainState gathered from every rank's share.
+    ``timings`` and ``use_graph``: see ``train_operator``."""
     logging.basicConfig(level=logging.INFO)
     check_ported(cfg)
-    mesh = group = None
+    mesh = group = tp = everyone = None
     if cfg.mesh:
         mesh = make_mesh(cfg.mesh, device=cfg.device)
-        group = dp_group(mesh)
+        group, tp = dp_group(mesh), tp_group(mesh)
+        everyone = torch.distributed.group.WORLD
         dev = rank_device(cfg.device)
-        log.info("mesh %s (dp %d; sampler batch %d)", mesh, axis_size(group),
-                 cfg.batch_size // axis_size(group))
+        log.info("mesh %s (dp %d, tp %d; sampler batch %d)", mesh, axis_size(group),
+                 axis_size(tp), cfg.batch_size // (1 if tp is not None else axis_size(group)))
     else:
         dev = resolve_device(cfg.device)
     torch.set_float32_matmul_precision("highest")
@@ -213,16 +248,16 @@ def main(cfg: PDEConfig, timings=None, use_graph: bool = True):
 
     log_dir = os.path.join(cfg.log_dir, run_name(cfg))
     exists = os.path.exists(log_dir)
-    barrier(group)  # every rank has looked before rank 0 makes it
+    barrier(everyone)  # every rank has looked before rank 0 makes it
     if exists and not (cfg.overwrite or cfg.resume):
         raise ValueError(f"{log_dir} exists and --overwrite not set")
     if writer:
         os.makedirs(log_dir, exist_ok=True)
-    barrier(group)
+    barrier(everyone)
     log.info("log dir: %s", log_dir)
 
-    run = build(cfg, dev, axis_name=group)
-    model, method, optimizer = run.model, run.method, run.optimizer
+    run = build(cfg, dev, axis_name=group, tp_axis=tp)
+    method, optimizer = run.method, run.optimizer
     val_data = run.val_data
 
     logger = (CSVLogger(log_dir, ["iter", "train_loss", "time", "steps_per_sec"])
@@ -257,13 +292,16 @@ def main(cfg: PDEConfig, timings=None, use_graph: bool = True):
         latest = latest_iteration_checkpoint(log_dir)
         if latest is not None:
             start_iter, path = latest
-            initial_ts = init_train_state(model, optimizer, method)
-            load_state_tree(initial_ts, load_checkpoint(path))
+            initial_ts = init_train_state(run.local_model, optimizer, method)
+            tree = load_checkpoint(path)
+            if run.shards is not None:  # a checkpoint holds every mode
+                tree = {name: run.shards.narrow_tree(tree[name]) for name in STATE_FIELDS}
+            load_state_tree(initial_ts, tree)
             log.info("resuming from %s at iter %d", path, start_iter)
 
     try:
         ts, all_eigvals, all_norms = train_operator(
-            method, run.operator, run.sample, optimizer, model,
+            method, run.operator, run.sample, optimizer, run.local_model,
             num_iters=cfg.num_iters,
             importance_train=run.importance_train,
             importance_val=run.importance_val, val_batches=run.val_batches,
@@ -275,7 +313,9 @@ def main(cfg: PDEConfig, timings=None, use_graph: bool = True):
             profile_dir=(os.path.join(log_dir, "profile") if cfg.profile
                          else None),
             profile_start=cfg.profile_start, profile_steps=cfg.profile_steps,
-            grad_clip=cfg.grad_clip, mesh=mesh if group is not None else None,
+            grad_clip=cfg.grad_clip,
+            mesh=mesh if group is not None or tp is not None else None,
+            shards=run.shards, eval_method=run.eval_method,
             rescue_init_fn=run.rescue_init_fn,
             rescue_until=cfg.rescue_until, initial_ts=initial_ts,
             start_iter=start_iter, use_graph=use_graph, timings=timings)
@@ -287,7 +327,7 @@ def main(cfg: PDEConfig, timings=None, use_graph: bool = True):
         np.savez(os.path.join(log_dir, "stats.npz"),
                  all_eigvals=np.asarray(all_eigvals),
                  all_norms=np.asarray(all_norms))
-    barrier(group)
+    barrier(everyone)
     log.info("done; stats saved to %s", log_dir)
     return ts, all_eigvals, all_norms
 

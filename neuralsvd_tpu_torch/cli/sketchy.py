@@ -20,14 +20,22 @@ CLI pins float32.  A departure: ``main`` raises on an empty valid split
 before training, where the JAX CLI fails at the first epoch's valid eval.
 
 ``--mesh dp[=N]`` trains data-parallel (parallel/sharding.py,
-``make_dp_cdk_step``): every rank runs the same loader with the same seed
+``make_mesh_cdk_step``): every rank runs the same loader with the same seed
 and keeps its contiguous 1/dp of each batch's pairs (a ragged tail past a
 multiple of dp dropped, as in JAX), so a dp run sees the batches of a
 single process; the grams are averaged over the ranks and the gradients
 summed, and ``--grad_clip`` clips the global gradient.  Every rank runs the
 retrieval evals on its replicated parameters, so all take the same best
 P@K decision; only rank 0 writes the log, the checkpoints and the arrays.
-A tp axis above 1 raises NotImplementedError (ROADMAP item [9b]).
+
+``--mesh tp=M`` or ``--mesh dp=N,tp=M`` (the JAX CLI's GSPMD path,
+``neuralsvd_tpu/cli/sketchy.py:188-235``; ``--neigs`` must divide by tp)
+shards the towers' last layers by mode columns over tp
+(parallel/sharding.py ``make_mesh_cdk_step``): a rank computes its modes of
+f and g for its dp share of the pairs, the towers gather all modes before
+the row norm, and the hidden layers' gradients are summed over tp.  The
+evals, the checkpoints (which do not depend on the mesh) and the returned
+parameters are the whole model's, gathered after each epoch.
 """
 from __future__ import annotations
 
@@ -59,8 +67,13 @@ from neuralsvd_tpu_torch.parallel.mesh import (
     local_rows,
     make_mesh,
     rank_device,
+    tp_group,
 )
-from neuralsvd_tpu_torch.parallel.sharding import make_dp_cdk_step
+from neuralsvd_tpu_torch.parallel.sharding import (
+    make_mesh_cdk_step,
+    mode_shards,
+    shard_module,
+)
 from neuralsvd_tpu_torch.training.cdk_step import make_cdk_train_step
 from neuralsvd_tpu_torch.training.checkpoint import load_checkpoint, save_checkpoint
 from neuralsvd_tpu_torch.training.optimizers import build_optimizer, warmup_cosine_schedule
@@ -138,27 +151,33 @@ def make_density_ratio_fn(model, set_first_mode_const: bool):
 
 
 class Trainer(NamedTuple):
-    model: HeteroNetwork
-    params: dict
+    model: HeteroNetwork  # the whole model (evals, checkpoints)
+    params: dict  # the trained parameters: this rank's share under tp
     method: object
     opt_state: object
     step: object
     device: torch.device
     group: object  # the data-parallel process group, None without --mesh
+    shards: object = None  # the ModeShards of a tp mesh, else None
 
 
 def make_trainer(args, input_dim: int, steps_per_epoch: int) -> Trainer:
     """The two-tower model (initialised from ``args.seed``), the CDK method,
     the optimizer with its schedule, and the train step; with ``--mesh``
-    the data-parallel step on its dp group."""
-    mesh = group = None
+    the data-parallel step on its dp group, or with a tp axis the step on
+    this rank's share of the modes (``Trainer.params``, the method's model:
+    ``shard_module``)."""
+    mesh = group = tp = None
     if args.mesh:
         mesh = make_mesh(args.mesh, device=args.device)
-        group = dp_group(mesh)
+        group, tp = dp_group(mesh), tp_group(mesh)
         dev = rank_device(args.device)
         if args.batch_size % axis_size(group):
             raise ValueError(f"batch_size {args.batch_size} must divide by "
                              f"dp={axis_size(group)} for dp sharding")
+        if args.neigs % axis_size(tp):
+            raise ValueError(f"neigs {args.neigs} must divide by "
+                             f"tp={axis_size(tp)} (mode-axis sharding)")
         log.info("mesh %s", mesh)
     else:
         dev = resolve_device(args.device)
@@ -168,8 +187,10 @@ def make_trainer(args, input_dim: int, steps_per_epoch: int) -> Trainer:
         regularize_mode=args.regularize_mode,
         generator=torch.Generator().manual_seed(args.seed),
         compute_dtype=args.compute_dtype).to(dev)
-    params = dict(model.named_parameters())
-    method = get_cdk_method(args.loss_name, model, args.neigs,
+    shards = mode_shards(model, tp, parse_dims(args.network_dims)[-1])
+    local = model if shards is None else shard_module(model, shards)
+    params = dict(local.named_parameters())
+    method = get_cdk_method(args.loss_name, local, args.neigs,
                             step=args.nsvd_step,
                             sequential=args.nsvd_sequential,
                             set_first_mode_const=args.nsvd_const,
@@ -183,10 +204,10 @@ def make_trainer(args, input_dim: int, steps_per_epoch: int) -> Trainer:
     optimizer = build_optimizer(args.optimizer, args.base_lr,
                                 momentum=args.momentum,
                                 weight_decay=args.weight_decay,
-                                lr_schedule=lr_schedule)
-    step = (make_cdk_train_step(method, optimizer, args.grad_clip) if group is None
-            else make_dp_cdk_step(method, optimizer, mesh, args.grad_clip))
-    return Trainer(model, params, method, optimizer.init(params), step, dev, group)
+                                lr_schedule=lr_schedule, shards=shards)
+    step = (make_cdk_train_step(method, optimizer, args.grad_clip) if mesh is None
+            else make_mesh_cdk_step(method, optimizer, mesh, args.grad_clip, shards))
+    return Trainer(model, params, method, optimizer.init(params), step, dev, group, shards)
 
 
 def _to(tree, device):
@@ -249,7 +270,7 @@ def run_training(args, train_loader, test_loader, valid_loader, input_dim,
                  timings=None):
     """Shared training loop (also used by the tests with synthetic loaders).
     Returns (params, trunc_results); ``params`` hold the best parameters
-    by valid P@K.
+    by valid P@K, of the whole model under tp.
 
     The wall seconds of each part of the run are logged at the end and,
     given a dict ``timings``, appended to ``timings[part]``: once an epoch
@@ -259,10 +280,22 @@ def run_training(args, train_loader, test_loader, valid_loader, input_dim,
     """
     timings = {} if timings is None else timings
     tr = make_trainer(args, input_dim, train_loader.max_steps)
-    model, params, method, step_fn, dev, group = (
-        tr.model, tr.params, tr.method, tr.step, tr.device, tr.group)
+    model, params, method, step_fn, dev, group, shards = (
+        tr.model, tr.params, tr.method, tr.step, tr.device, tr.group, tr.shards)
     writer = is_writer()
+    everyone = torch.distributed.group.WORLD if args.mesh else None
     opt_state = tr.opt_state
+    # the whole model's parameters, which the evals read: ``params`` itself
+    # without tp, else gathered from every rank's share after each epoch
+    full = params if shards is None else dict(model.named_parameters())
+
+    def gather_full():
+        if shards is not None:
+            with torch.no_grad():
+                for k, v in shards.gather_tree(params).items():
+                    full[k].copy_(v)
+
+    gather_full()
     method_state = method.init_state(params)
     rs_fn = make_density_ratio_fn(model, args.nsvd_const)
 
@@ -278,7 +311,7 @@ def run_training(args, train_loader, test_loader, valid_loader, input_dim,
 
     skip_count = torch.zeros((), dtype=torch.int32, device=dev)
     best_valid_pk = -1.0
-    best_params = _detached(params)
+    best_params = _detached(full)
     start_epoch = 0
 
     ckpt_path = os.path.join(args.log_dir, "ckpt")
@@ -286,15 +319,19 @@ def run_training(args, train_loader, test_loader, valid_loader, input_dim,
     if args.resume and os.path.exists(ckpt_path):
         restored = load_checkpoint(ckpt_path)
         with torch.no_grad():
-            for k, p in params.items():
+            for k, p in full.items():
                 p.copy_(restored["params"][k])
-        opt_state = _to(restored["opt_state"], dev)
+            if shards is not None:  # a checkpoint holds every mode
+                for k, p in params.items():
+                    p.copy_(shards.narrow(k, restored["params"][k]))
+        opt_state = _to(restored["opt_state"] if shards is None
+                        else shards.narrow_tree(restored["opt_state"]), dev)
         start_epoch = int(restored["epoch"])
         best_valid_pk = float(restored["best_valid_pk"])
         # the JAX CLI keeps its fresh initial parameters as the "best"
         # ones here; the best checkpoint is what they stand for
         best_params = (_to(load_checkpoint(best_path), dev)
-                       if os.path.exists(best_path) else _detached(params))
+                       if os.path.exists(best_path) else _detached(full))
         log.info("resumed from epoch %d", start_epoch)
 
     model_x = lambda v: model.apply_single(v, "x")  # noqa: E731
@@ -314,6 +351,7 @@ def run_training(args, train_loader, test_loader, valid_loader, input_dim,
                     torch.as_tensor(local_rows(y, group), device=dev), skip_count)
                 losses.append(loss)
                 last_batch = (x, y)
+            gather_full()
 
         with _span(timings, "eval", dev):
             test_pk, test_ap = retrieval_test.evaluate(
@@ -337,20 +375,21 @@ def run_training(args, train_loader, test_loader, valid_loader, input_dim,
         with _span(timings, "checkpoint", dev):
             if row["valid_P@K"] > best_valid_pk:
                 best_valid_pk = row["valid_P@K"]
-                best_params = _detached(params)
+                best_params = _detached(full)
                 if writer:
                     save_checkpoint(best_path, _to(best_params, "cpu"))
+            whole_opt = opt_state if shards is None else shards.gather_tree(opt_state)
             if writer:
                 save_checkpoint(ckpt_path, {
-                    "params": _to(_detached(params), "cpu"),
-                    "opt_state": _to(opt_state, "cpu"),
+                    "params": _to(_detached(full), "cpu"),
+                    "opt_state": _to(whole_opt, "cpu"),
                     "epoch": epoch + 1,
                     "best_valid_pk": best_valid_pk,
                 })
-            barrier(group)
+            barrier(everyone)
         if last_batch is not None and writer:
             with _span(timings, "ratios", dev):
-                rs_joint, rs_indep = rs_fn(params, *(torch.as_tensor(a, device=dev)
+                rs_joint, rs_indep = rs_fn(full, *(torch.as_tensor(a, device=dev)
                                                      for a in last_batch))
                 np.savez(os.path.join(args.log_dir, f"ratios_e{epoch}.npz"),
                          rs_joint=rs_joint.cpu().numpy(),
@@ -360,7 +399,7 @@ def run_training(args, train_loader, test_loader, valid_loader, input_dim,
 
     # final: spectrum/orthogonality + truncation sweep on the best params
     with torch.no_grad():
-        for k, p in params.items():
+        for k, p in full.items():
             p.copy_(best_params[k])
     with _span(timings, "spectrum", dev):
         spectrum, orth_x, orth_y = compute_spectrum_svd(
@@ -394,9 +433,9 @@ def run_training(args, train_loader, test_loader, valid_loader, input_dim,
         np.savez(os.path.join(args.log_dir, "best_stats.npz"),
                  spectrum=spectrum, orth_x=orth_x, orth_y=orth_y,
                  trunc_results=json.dumps(trunc_results))
-    barrier(group)
+    barrier(everyone)
     log.info("seconds by part: %s", timings)
-    return params, trunc_results
+    return full, trunc_results
 
 
 if __name__ == "__main__":

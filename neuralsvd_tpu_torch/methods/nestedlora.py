@@ -32,6 +32,17 @@ averaged over the group's ranks (JAX's ``_resolve_use_pallas`` :35-56):
 "auto" with a group takes the plain loss, and True with a group raises
 ``ValueError``, since a kernel packaging has no place for the all-reduce
 between its gram pass and its masked sum.
+
+``mode_axis`` (a tp process group, or None): ``model`` is then a rank's
+share of the modes (parallel/sharding.py ``shard_module``) and
+``loss_and_grad`` all-gathers the f and Tf the operator returns for those
+modes (``parallel.collectives.gather_modes``) before the loss, which sees
+all L modes, as GSPMD gathers them for the JAX package; the gather sits
+outside the operator, so no forward-Laplacian dual meets a collective.
+With ``axis_name`` None the loss on the gathered (B, L) takes K1-K3 on the
+card, once a step on each rank.  A sort (``register_eigvals``) permutes
+the gathered modes.  The CDK method needs no such axis: a sharded
+two-tower network gathers its own modes before its row norm.
 """
 from __future__ import annotations
 
@@ -55,6 +66,7 @@ from neuralsvd_tpu_torch.ops.nestedlora import (
     nestedlora_cdk_loss,
     nestedlora_evd_loss,
 )
+from neuralsvd_tpu_torch.parallel.collectives import gather_modes
 
 
 def _build_masks(neigs: int, step: int, sequential: bool,
@@ -100,11 +112,12 @@ class NestedLoRA:
 
     def __init__(self, model: nn.Module, neigs: int, step: int = 1,
                  sequential: bool = False, sort: bool = False,
-                 axis_name=None, use_pallas="auto"):
+                 axis_name=None, use_pallas="auto", mode_axis=None):
         self.model = model
         self.neigs = neigs
         self.sort = sort  # read by callers, as in the JAX package
         self.axis_name = axis_name
+        self.mode_axis = mode_axis
         self.use_pallas = _resolve_use_pallas(use_pallas, axis_name)
         self._np_masks = _build_masks(neigs, step, sequential)
         self._masks: Dict[torch.device, tuple] = {}
@@ -131,10 +144,20 @@ class NestedLoRA:
         return {}
 
     def _model(self, params) -> Callable:
-        if self.sort_indices is not None:
+        if self.sort_indices is not None and self.mode_axis is None:
             idx = torch.as_tensor(self.sort_indices)
             return lambda x: functional_call(self.model, params, (x,))[:, idx.to(x.device)]
         return lambda x: functional_call(self.model, params, (x,))
+
+    def _modes(self, t):
+        """All L modes of a rank's share ``t`` under ``mode_axis`` (then
+        sorted), ``t`` itself without one."""
+        if self.mode_axis is None:
+            return t
+        t = gather_modes(t, self.mode_axis, self.neigs)
+        if self.sort_indices is not None:
+            t = t[:, torch.as_tensor(self.sort_indices).to(t.device)]
+        return t
 
     def eval_apply(self, params, state, x):
         return functional_call(self.model, params, (x,))
@@ -146,7 +169,7 @@ class NestedLoRA:
         f1/f2 (contiguous row views), as the kernels require.
         """
         Tf, fs = operator(self._model(params), x, importance)
-        return self._loss_and_grad(params, state, fs, Tf)
+        return self._loss_and_grad(params, state, self._modes(fs), self._modes(Tf))
 
     def loss_and_grad_kernel(self, params, state, x, get_approx_kernel_op,
                              importance=None, split_batch: bool = False):
@@ -159,12 +182,13 @@ class NestedLoRA:
         f = self._model(params)
         if not split_batch:
             Tf, fs = get_approx_kernel_op(x)(f, x, importance)
-            return self._loss_and_grad(params, state, fs, Tf)
+            return self._loss_and_grad(params, state, self._modes(fs), self._modes(Tf))
         if x.shape[0] % 2:
             raise ValueError("the batch must split into two equal halves")
         x1, x2 = torch.chunk(x, 2)
         Kf1, f1 = get_approx_kernel_op(x2)(f, x1, importance)
-        return self._loss_and_grad(params, state, f1, Kf1, f2=f(x2))
+        return self._loss_and_grad(params, state, self._modes(f1), self._modes(Kf1),
+                                   f2=self._modes(f(x2)))
 
     def _loss_and_grad(self, params, state, fs, Tf, f2=None):
         """The EVD loss on (fs, Tf) with the halves of fs, or with (fs, f2)

@@ -30,6 +30,12 @@ ranks, and so is the squared batch norm, inside the differentiable model
 (``pmean_grad``, whose backward sums the cotangents over the ranks as
 JAX's ``shard_map(check_vma=False)`` transposes pmean); the variance and
 align terms keep the local batch sizes, as in JAX.
+
+``mode_axis`` (a tp process group, or None): ``model`` is a rank's share of
+the modes; the batch norm divides each of its modes by that mode's own
+norm, and the operator's φ and Tφ are all-gathered along the modes
+(``parallel.collectives.gather_modes``) before the loss, as are the raw
+outputs from which the norm EMAs, (1, L) on every rank, are updated.
 """
 from __future__ import annotations
 
@@ -41,7 +47,7 @@ from torch import nn
 from torch.func import functional_call
 
 from neuralsvd_tpu_torch.ops.gram import compute_gram
-from neuralsvd_tpu_torch.parallel.collectives import pmean, pmean_grad
+from neuralsvd_tpu_torch.parallel.collectives import gather_modes, pmean, pmean_grad
 
 
 class NeuralEFLoss(torch.autograd.Function):
@@ -108,7 +114,7 @@ class NeuralEigenfunctions:
     def __init__(self, model: nn.Module, neigs: int,
                  batchnorm_mode: str = "unbiased", unbiased: bool = False,
                  include_diag: bool = False, sort: bool = False,
-                 axis_name=None):
+                 axis_name=None, mode_axis=None):
         if batchnorm_mode not in ("biased", "unbiased", "none"):
             raise ValueError(f"unknown batchnorm_mode {batchnorm_mode!r}")
         self.model = model
@@ -118,6 +124,7 @@ class NeuralEigenfunctions:
         self.diagonal = 0 if include_diag else 1
         self.sort = sort  # read by callers, as in the JAX package
         self.axis_name = axis_name
+        self.mode_axis = mode_axis
         self.eigvals: Optional[np.ndarray] = None
         self.sort_indices: Optional[np.ndarray] = None
 
@@ -141,9 +148,19 @@ class NeuralEigenfunctions:
 
     def _raw(self, params, x):
         out = functional_call(self.model, params, (x,))
-        if self.sort_indices is not None:
+        if self.sort_indices is not None and self.mode_axis is None:
             out = out[:, torch.as_tensor(self.sort_indices).to(out.device)]
         return out
+
+    def _modes(self, t):
+        """All L modes of a rank's share ``t`` under ``mode_axis`` (then
+        sorted), ``t`` itself without one."""
+        if self.mode_axis is None:
+            return t
+        t = gather_modes(t, self.mode_axis, self.neigs)
+        if self.sort_indices is not None:
+            t = t[:, torch.as_tensor(self.sort_indices).to(t.device)]
+        return t
 
     def _train_model(self, params, state):
         """(model, collect): ``model`` divides by the live batch norm (the
@@ -200,7 +217,7 @@ class NeuralEigenfunctions:
     def loss_and_grad(self, params, state, x, operator, importance=None):
         """(loss, grads {name: tensor}, aux {f, Tf, eigvals}, new state)."""
         model, collect = self._train_model(params, state)
-        Tphi, phi = operator(model, x, importance)
+        Tphi, phi = (self._modes(t) for t in operator(model, x, importance))
         if phi.shape[0] % 2:
             raise ValueError("the batch must split into two equal halves")
         phi1, phi2 = torch.chunk(phi, 2)
@@ -221,13 +238,15 @@ class NeuralEigenfunctions:
             if x.shape[0] % 2:
                 raise ValueError("the batch must split into two equal halves")
             x1, x2 = torch.chunk(x, 2)
-            Kphi1, phi1 = get_approx_kernel_op(x2)(model, x1, importance)
-            Kphi2, phi2 = get_approx_kernel_op(x1)(model, x2, importance)
+            Kphi1, phi1 = (self._modes(t) for t in
+                           get_approx_kernel_op(x2)(model, x1, importance))
+            Kphi2, phi2 = (self._modes(t) for t in
+                           get_approx_kernel_op(x1)(model, x2, importance))
             phi, Kphi = torch.cat([phi1, phi2]), torch.cat([Kphi1, Kphi2])
             loss = neuralef_loss(self.unbiased, self.diagonal, phi, Kphi, phi1, Kphi1,
                                  phi2, Kphi2, self.axis_name)
         else:
-            Kphi, phi = get_approx_kernel_op(x)(model, x, importance)
+            Kphi, phi = (self._modes(t) for t in get_approx_kernel_op(x)(model, x, importance))
             loss = neuralef_loss(self.unbiased, self.diagonal, phi, Kphi, phi, Kphi,
                                  phi, Kphi, self.axis_name)
         return self._finish(params, x, collect, loss, phi, Kphi)
@@ -236,7 +255,7 @@ class NeuralEigenfunctions:
         """The new norm state from the unnormalised outputs on ``x``, and
         the gradients of ``loss``."""
         with torch.no_grad():
-            new_state = collect(self._raw(params, x))  # unnormalised outputs
+            new_state = collect(self._modes(self._raw(params, x)))  # unnormalised outputs
         names = list(params)
         grads = torch.autograd.grad(loss, [params[k] for k in names],
                                     allow_unused=True, materialize_grads=True)

@@ -84,10 +84,38 @@ class HeteroNetwork(nn.Module):
             self.head_y = MLP(head, generator=generator)
         self.r_up = math.sqrt(mu)
         self.regularize_mode = regularize_mode
+        # a tp mesh's all-gather of the modes (parallel/sharding.py
+        # ``shard_module``), before the row norm of normalize_embedding,
+        # which takes every mode, and before the heads
+        self.mode_gather = None
+
+    def mode_axes(self):
+        """{name: mode axis} of each tower's last layer, the parameters a
+        tp mesh shards by mode: w (d, L) by columns, b and a weight
+        normalization's gain (L,) (JAX's ``cdk_mode_shardings``,
+        ``neuralsvd_tpu/parallel/sharding.py:222-242``)."""
+        out = {}
+        for side in ("x", "y"):
+            layers = getattr(self, side).layers
+            last = layers[len(layers) - 1]
+            for name, axis in (("w", 1), ("b", 0), ("g", 0)):
+                if getattr(last, name, None) is not None:
+                    out[f"{side}.layers.{len(layers) - 1}.{name}"] = axis
+        return out
+
+    def pre_gather_parameters(self):
+        """The towers' hidden layers: replicated on a tp mesh, and used
+        before the modes are gathered (the heads come after)."""
+        axes = self.mode_axes()
+        return [name for name, _ in self.named_parameters()
+                if name.startswith(("x.", "y.")) and name not in axes]
 
     def apply_single(self, v: torch.Tensor, side: str, classify: bool = False):
         tower = {"x": self.x, "y": self.y}[side]
-        emb = normalize_embedding(tower(v), self.r_up, self.regularize_mode)
+        z = tower(v)
+        if self.mode_gather is not None:
+            z = self.mode_gather(z)
+        emb = normalize_embedding(z, self.r_up, self.regularize_mode)
         if not classify:
             return emb
         if self.num_classes <= 0:

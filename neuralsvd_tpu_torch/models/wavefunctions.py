@@ -134,6 +134,19 @@ class Wavefunction(nn.Module):
                 if hasattr(module, "per_mode_parameters")
                 for name in module.per_mode_parameters()]
 
+    def mode_axes(self):
+        """{name: mode axis} of the parameters a tp mesh shards by mode
+        (parallel/mesh.py ``ModeShards``): every per-mode parameter, on
+        its leading axis, where the base network has per-mode towers; none
+        on a shared trunk, whose last layer mixes every mode, so that a tp
+        mesh replicates the whole model, as the JAX package's
+        ``mode_sharded_params`` does (``neuralsvd_tpu/parallel/
+        sharding.py:98``).  Then the exponential mask's scales shard too,
+        slot l scaling mode l only (JAX replicates them)."""
+        if not hasattr(self.base, "per_mode_parameters"):
+            return {}
+        return {name: 0 for name in self.per_mode_parameters()}
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x2 = x.reshape(x.shape[0], -1)
         out = self.base(x2)

@@ -1,40 +1,44 @@
-"""The mesh of data parallelism on ``torch.distributed``, and its groups.
+"""The mesh on ``torch.distributed``, and its groups.
 
 Port of ``parse_mesh_spec`` (``neuralsvd_tpu/parallel/sharding.py``
 :51-95), the CLI's ``--mesh`` grammar, exactly, and of ``make_mesh``
 (:29-48): a ``torch.distributed.device_mesh.DeviceMesh`` with
-``mesh_dim_names`` over the default process group, which
-``init_process_group`` starts where none runs: under ``torchrun`` from its
-environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``), otherwise as a
-one-rank group on an in-process ``HashStore``, so ``--mesh dp`` runs on
-one card.  NCCL for CUDA devices, gloo for the CPU.  With the helpers the
-drivers share: the dp group of a mesh, the writing rank, a barrier, the
-check that a CUDA graph may capture a group's collectives, and a rank's
-rows of a batch.
+``mesh_dim_names`` (``("dp",)``, ``("tp",)`` or both, in the spec's order)
+over the default process group, which ``init_process_group`` starts where
+none runs: under ``torchrun`` from its environment (``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK``), otherwise as a one-rank group on an
+in-process ``HashStore``, so ``--mesh dp`` runs on one card.  NCCL for
+CUDA devices, gloo for the CPU.  With the helpers the drivers share: the
+dp and tp groups of a mesh, the modes a tp rank holds (``mode_range``,
+``ModeShards``), the writing rank, a barrier, the check that a CUDA graph
+may capture a group's collectives, and a rank's rows of a batch
+(``local_rows`` on the dp path, ``half_rows`` on the tp path).
 
-A ``tp`` axis above 1 (the GSPMD mode sharding of ParallelMLP and of the
-CDK towers' last layer) raises ``NotImplementedError`` naming ROADMAP item
-[9b].  A gloo group's collectives cannot be captured in a CUDA graph
+A gloo group's collectives cannot be captured in a CUDA graph
 (``require_capturable``); a graph request on one raises, and only eager
 steps run there.
 """
 from __future__ import annotations
 
 import os
-from typing import Optional
+from dataclasses import dataclass, field
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from neuralsvd_tpu_torch.parallel.collectives import axis_size
+from neuralsvd_tpu_torch.parallel.collectives import (
+    all_gather_modes,
+    axis_index,
+    axis_size,
+    mode_chunk,
+)
 
-__all__ = ["TP_REFUSAL", "barrier", "check_method_axis", "dp_group", "init_process_group",
-           "is_writer", "local_rows", "make_mesh", "mesh_sizes", "parse_mesh_spec",
-           "rank_device", "require_capturable"]
-
-TP_REFUSAL = ("a tp mesh axis above 1 (GSPMD mode-axis sharding) is not ported "
-              "yet (ROADMAP item [9b]); use --mesh dp[=N]")
+__all__ = ["ModeShards", "barrier", "check_method_axis", "dp_group", "given_sizes",
+           "half_rows", "init_process_group", "is_writer", "local_rows", "make_mesh",
+           "mesh_sizes", "mode_range", "parse_mesh_spec", "rank_device",
+           "require_capturable", "tp_group"]
 
 
 def parse_mesh_spec(spec: str, n_avail: int):
@@ -88,19 +92,18 @@ def _world_size() -> int:
     return int(os.environ.get("WORLD_SIZE", "1"))
 
 
+def given_sizes(spec: str) -> dict:
+    """{axis: size} of the axes ``spec`` gives a size, without counting
+    ranks (the checks a CLI makes before it starts a group)."""
+    return {name.strip(): int(n) for name, n in
+            (part.strip().split("=", 1) for part in spec.split(",") if "=" in part)}
+
+
 def mesh_sizes(spec: str) -> dict:
     """{axis: size} of ``spec`` over the ranks of the default group (or of
-    the ``torchrun`` environment, or 1, before one runs); raises
-    ``NotImplementedError`` for a tp axis above 1, given or absorbed, before
-    it counts the ranks."""
-    given = dict(part.strip().split("=", 1) for part in spec.split(",") if "=" in part)
-    if int(given.get("tp", 1)) > 1:
-        raise NotImplementedError(TP_REFUSAL)
+    the ``torchrun`` environment, or 1, before one runs)."""
     axes, shape = parse_mesh_spec(spec, _world_size())
-    sizes = dict(zip(axes, shape))
-    if sizes.get("tp", 1) > 1:
-        raise NotImplementedError(TP_REFUSAL)
-    return sizes
+    return dict(zip(axes, shape))
 
 
 def rank_device(device=None) -> torch.device:
@@ -145,8 +148,8 @@ def init_process_group(device=None, backend: Optional[str] = None) -> torch.devi
 def make_mesh(spec: str, device=None, backend: Optional[str] = None):
     """A ``DeviceMesh`` of ``spec`` (``parse_mesh_spec``) over every rank
     of the default group, started by ``init_process_group`` where none
-    runs.  Raises ``NotImplementedError`` for tp above 1 and ValueError
-    where the mesh leaves ranks out."""
+    runs; a dp x tp mesh gives both groups.  Raises ValueError where the
+    mesh leaves ranks out."""
     from torch.distributed.device_mesh import DeviceMesh
 
     dev = init_process_group(device, backend)
@@ -159,16 +162,100 @@ def make_mesh(spec: str, device=None, backend: Optional[str] = None):
     return DeviceMesh(dev.type, ranks, mesh_dim_names=tuple(sizes))
 
 
+def _axis_group(mesh, axis: str):
+    names = tuple(mesh.mesh_dim_names or ()) if mesh is not None else ()
+    if axis not in names:
+        return None
+    return mesh.get_group(axis)
+
+
 def dp_group(mesh, dp_axis: str = "dp"):
     """The process group of ``mesh``'s ``dp_axis``, None where it has
-    none (a one-device mesh); raises ``NotImplementedError`` for a tp axis
-    above 1."""
-    names = tuple(mesh.mesh_dim_names or ())
-    if "tp" in names and mesh.size(names.index("tp")) > 1:
-        raise NotImplementedError(TP_REFUSAL)
-    if dp_axis not in names:
-        return None
-    return mesh.get_group(dp_axis)
+    none (a one-device or a tp-only mesh)."""
+    return _axis_group(mesh, dp_axis)
+
+
+def tp_group(mesh, tp_axis: str = "tp"):
+    """The process group of ``mesh``'s ``tp_axis`` (the mode axis), None
+    where it has none; ``parse_mesh_spec`` drops a tp axis of size 1."""
+    return _axis_group(mesh, tp_axis)
+
+
+def mode_range(n_modes: int, group) -> tuple:
+    """(lo, hi): the modes ``[lo, hi)`` this rank of the tp ``group``
+    holds, ceil(L / M) a rank in rank order and the rest on the last (L 55
+    at tp=2: 28 and 27, as GSPMD pads 55 to 56); ``(0, L)`` without a
+    group.  Raises ValueError where a rank would hold no mode."""
+    if group is None:
+        return 0, n_modes
+    c = mode_chunk(n_modes, group)
+    if c * (axis_size(group) - 1) >= n_modes:
+        raise ValueError(f"{n_modes} modes leave a rank of tp={axis_size(group)} "
+                         "without a mode")
+    lo = axis_index(group) * c
+    return lo, min(lo + c, n_modes)
+
+
+@dataclass(frozen=True)
+class ModeShards:
+    """How a model's parameters lie on the tp ``group``: ``axes`` maps each
+    per-mode parameter (its slot l feeds mode l only) to its mode axis, of
+    which this rank holds ``mode_range``'s slice; ``pre_gather`` names the
+    replicated parameters that act before the modes are gathered (a
+    two-tower network's hidden layers), whose gradient each rank holds only
+    in part and which the step sums over the group.  Every other parameter
+    is replicated and acts after the gather, so its gradient is whole on
+    every rank (the JAX package's GSPMD shardings: ``mode_sharded_params``,
+    ``cdk_mode_shardings``, ``neuralsvd_tpu/parallel/sharding.py:98,222``)."""
+
+    group: object
+    n_modes: int
+    axes: Dict[str, int]
+    pre_gather: frozenset = field(default_factory=frozenset)
+
+    @property
+    def range(self) -> tuple:
+        return mode_range(self.n_modes, self.group)
+
+    def narrow(self, name: str, t):
+        """This rank's slice of the whole tensor ``t`` of parameter
+        ``name`` (``t`` itself for a replicated one)."""
+        if name not in self.axes:
+            return t
+        lo, hi = self.range
+        return t.narrow(self.axes[name], lo, hi - lo)
+
+    def narrow_tree(self, tree):
+        """This rank's share of a state tree (parameters, optimizer moments,
+        EMA: dicts keyed by parameter name, in dicts, lists and (named)
+        tuples); other leaves as they are.  Matched by name, where the JAX
+        package matches by shape (``_shardings_like``, sharding.py:245)."""
+        return _map_named(tree, self.narrow)
+
+    def gather_tree(self, tree):
+        """The whole state tree from every rank's share (new tensors for
+        the sharded leaves, the others as they are); ``narrow_tree``'s
+        inverse."""
+        def gather(name, t):
+            if name not in self.axes:
+                return t
+            return all_gather_modes(t, self.group, self.n_modes, self.axes[name])
+
+        return _map_named(tree, gather)
+
+
+def _map_named(tree, fn, key=None):
+    """``fn(name, tensor)`` on every tensor of ``tree``, ``name`` the key
+    of the nearest dict above it."""
+    if isinstance(tree, torch.Tensor):
+        return fn(key, tree)
+    if isinstance(tree, dict):
+        return {k: _map_named(v, fn, k) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map_named(v, fn, key) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map_named(v, fn, key) for v in tree)
+    return tree
 
 
 def is_writer() -> bool:
@@ -214,3 +301,13 @@ def local_rows(x, group):
     k = x.shape[0] // n
     r = dist.get_rank(group)
     return x[r * k:(r + 1) * k]
+
+
+def half_rows(x, group):
+    """This rank's 1/n of each half of the rows of ``x`` (the tp path's
+    global batch, whose halves are the loss's f1 and f2), concatenated:
+    the ranks' f1 rows are then slices of the global f1 and the dp mean of
+    their grams is the global gram.  ``x`` without a group."""
+    if group is None:
+        return x
+    return torch.cat([local_rows(h, group) for h in torch.chunk(x, 2)])

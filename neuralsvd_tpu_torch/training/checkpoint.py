@@ -3,7 +3,8 @@
 Port of ``neuralsvd_tpu/training/checkpoint.py``: ``save_checkpoint`` /
 ``load_checkpoint`` for the CDK trainer and the PDE CLI (whose
 ``ckpt_<it>`` files ``latest_iteration_checkpoint`` finds for
-``--resume``, as ``neuralsvd_tpu/cli/pde.py:213-229`` does), and the
+``--resume``, as ``neuralsvd_tpu/cli/pde.py:213-229`` does),
+``latest_checkpoint`` (:142), and the
 checkpoint API of the validation harnesses, ``save_resumable``,
 ``load_resumable`` and ``load_pretrained`` (:41-155), without two faults
 of the original: its save deletes the old checkpoint before the new one
@@ -56,15 +57,29 @@ def load_checkpoint(path: str) -> Any:
                       weights_only=True)
 
 
-def latest_iteration_checkpoint(log_dir: str) -> Optional[Tuple[int, str]]:
-    """(it, path) of the ``ckpt_<it>`` file in ``log_dir`` with the largest
-    ``it``, or None when there is none."""
+def latest_iteration_checkpoint(log_dir: str,
+                                prefix: str = "ckpt_") -> Optional[Tuple[int, str]]:
+    """(step, path) of the ``<prefix><step>`` entry of ``log_dir`` with the
+    largest step, or None (no such entry, or no directory).  A step is
+    digits only, the rule of the JAX CLI's resume
+    (``neuralsvd_tpu/cli/pde.py:215-216``): a name that Python's ``int``
+    would also read (a sign, spaces, underscores) is not a checkpoint."""
+    if not os.path.isdir(log_dir):
+        return None
+    pattern = re.compile(re.escape(prefix) + r"(\d+)")
     found = [(int(m.group(1)), name) for name in os.listdir(log_dir)
-             if (m := re.fullmatch(r"ckpt_(\d+)", name))]
+             if (m := pattern.fullmatch(name))]
     if not found:
         return None
-    it, name = max(found)
-    return it, os.path.join(log_dir, name)
+    step, name = max(found)
+    return step, os.path.join(log_dir, name)
+
+
+def latest_checkpoint(log_dir: str, prefix: str = "ckpt_") -> Optional[str]:
+    """The path alone of ``latest_iteration_checkpoint``, the JAX
+    package's signature (``neuralsvd_tpu/training/checkpoint.py:142``)."""
+    latest = latest_iteration_checkpoint(log_dir, prefix)
+    return None if latest is None else latest[1]
 
 
 def save_resumable(path: str, ts: TrainState, chunk: int) -> str:

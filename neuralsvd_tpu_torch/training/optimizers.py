@@ -23,6 +23,14 @@ are device tensors and are kept too, as the JAX step keeps every array
 leaf of its optimizer state.  Schedules and ``reject_spikes`` are
 functions of those device counts and read nothing on the host, so an
 update may be captured in a CUDA graph.
+
+On a tp mesh a rank holds only its modes' slices of the per-mode
+parameters, their gradients and moments (``shards``, a
+``parallel.mesh.ModeShards``): the reductions that cross those slices,
+the global norm of ``grad_clip`` and ``reject_spikes`` and LARS's per-leaf
+norms, sum the slices' squares over the tp group (one all-reduce each), and
+``per_mode_lr`` scales a slice by its modes' factors.  So every rank of
+the group takes the one-process values, and the same skip decisions.
 """
 from __future__ import annotations
 
@@ -30,6 +38,8 @@ from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from neuralsvd_tpu_torch.parallel.collectives import psum
 
 
 class TorchRMSpropState(NamedTuple):
@@ -72,6 +82,25 @@ def torch_rmsprop(learning_rate: float, alpha: float = 0.999,
 def global_norm(tensors) -> torch.Tensor:
     return torch.linalg.vector_norm(
         torch.stack([torch.linalg.vector_norm(t) for t in tensors]))
+
+
+def _whole_sq_norms(slices, group) -> list:
+    """The squared norms of the whole tensors whose slices this rank holds
+    (each slice's squares summed over ``group`` in one all-reduce)."""
+    if not slices:
+        return []
+    return list(psum(torch.stack([torch.sum(torch.square(t)) for t in slices]), group))
+
+
+def grad_norm(grads: dict, shards=None) -> torch.Tensor:
+    """The global norm of the gradient dict ``grads``; on a tp mesh
+    (``shards``) of the whole gradient, the per-mode slices' squares
+    summed over the group, equal on every rank."""
+    if shards is None:
+        return global_norm(grads.values())
+    sq = _whole_sq_norms([g for k, g in grads.items() if k in shards.axes], shards.group)
+    sq += [torch.sum(torch.square(g)) for k, g in grads.items() if k not in shards.axes]
+    return torch.sqrt(torch.sum(torch.stack(sq)))
 
 
 class Optimizer(NamedTuple):
@@ -145,14 +174,22 @@ def _trace(decay: float) -> Optimizer:
     return Optimizer(init, update)
 
 
-def _scale_by_trust_ratio(trust_coefficient: float) -> Optimizer:
+def _scale_by_trust_ratio(trust_coefficient: float, shards=None) -> Optimizer:
     """optax's ``scale_by_trust_ratio`` (min_norm 0, eps 0): each tensor's
-    update times c·‖p‖/‖u‖, or times 1 where either norm is 0."""
+    update times c·‖p‖/‖u‖, or times 1 where either norm is 0; the norms
+    of a tp-sharded tensor are the whole tensor's."""
     def update(grads, state, params):
         out = {}
+        p_sq = u_sq = {}
+        if shards is not None:
+            names = [k for k in grads if k in shards.axes]
+            sq = _whole_sq_norms([params[k] for k in names] + [grads[k] for k in names],
+                                 shards.group)
+            p_sq, u_sq = dict(zip(names, sq[:len(names)])), dict(zip(names, sq[len(names):]))
         for k, u in grads.items():
-            p_norm = torch.linalg.vector_norm(params[k])
-            u_norm = torch.linalg.vector_norm(u)
+            p_norm = (torch.sqrt(p_sq[k]) if k in p_sq
+                      else torch.linalg.vector_norm(params[k]))
+            u_norm = torch.sqrt(u_sq[k]) if k in u_sq else torch.linalg.vector_norm(u)
             ratio = trust_coefficient * p_norm / u_norm
             zero = (p_norm == 0) | (u_norm == 0)
             out[k] = u * torch.where(zero, torch.ones_like(ratio), ratio)
@@ -204,19 +241,20 @@ def _scale_by_lr(learning_rate) -> Optimizer:
 
 
 def reject_spikes(factor: float = 25.0, decay: float = 0.99,
-                  warmup: int = 100) -> Optimizer:
+                  warmup: int = 100, shards=None) -> Optimizer:
     """Zero the update whose global gradient norm exceeds ``factor`` x its
     running EMA (chained before the optimizer, so a spike neither steps nor
     enters the second moments).  The first ``warmup`` steps always pass;
     rejected steps leave the EMA alone.  State: {"gnorm_ema", "count",
-    "rejected"}, device tensors."""
+    "rejected"}, device tensors; ``shards``: the norm of a tp mesh's whole
+    gradient (``grad_norm``)."""
     def init(params):
         device = next(iter(params.values())).device
         return {"gnorm_ema": torch.zeros((), device=device),
                 "count": _count(params), "rejected": _count(params)}
 
     def update(grads, state, params=None):
-        gnorm = global_norm(grads.values())
+        gnorm = grad_norm(grads, shards)
         ok = ((state["count"] < warmup) | (gnorm <= factor * state["gnorm_ema"]))
         ok = ok & torch.isfinite(gnorm)
         ema = torch.where(
@@ -248,13 +286,19 @@ def assert_mode_axis_unambiguous(params, neigs: int) -> None:
                 f"features.")
 
 
-def per_mode_lr(scales, neigs: int) -> Optimizer:
+def per_mode_lr(scales, neigs: int, shards=None) -> Optimizer:
     """Scale the final updates of each eigenfunction tower by ``scales``
     (L,): every update whose leading size is ``neigs`` (chained after the
-    optimizer, so it is a per-mode learning rate)."""
+    optimizer, so it is a per-mode learning rate).  On a tp mesh
+    (``shards``) every update sharded on its leading axis, whose leading
+    size is the rank's share of the modes, by the slice of ``scales`` of
+    those modes."""
     scales = torch.as_tensor(np.asarray(scales, dtype=np.float32))
     if tuple(scales.shape) != (neigs,):
         raise ValueError(f"scales must have shape ({neigs},)")
+    if shards is not None:
+        lo, hi = shards.range
+        scales, neigs = scales[lo:hi], hi - lo
     # made once a device: a copy inside a captured step would be a
     # host-to-device copy during capture
     cache: Dict[torch.device, torch.Tensor] = {}
@@ -262,7 +306,9 @@ def per_mode_lr(scales, neigs: int) -> Optimizer:
     def update(grads, state, params=None):
         out = {}
         for k, u in grads.items():
-            if u.ndim >= 1 and u.shape[0] == neigs:
+            per_mode = (shards.axes.get(k) == 0 if shards is not None
+                        else u.ndim >= 1 and u.shape[0] == neigs)
+            if per_mode:
                 if u.device not in cache:
                     cache[u.device] = scales.to(u.device)
                 u = u * cache[u.device].reshape((neigs,) + (1,) * (u.ndim - 1))
@@ -273,10 +319,10 @@ def per_mode_lr(scales, neigs: int) -> Optimizer:
 
 
 def lars(learning_rate, weight_decay: float = 0.0, momentum: float = 0.9,
-         trust_coefficient: float = 0.001) -> Optimizer:
+         trust_coefficient: float = 0.001, shards=None) -> Optimizer:
     """Layer-wise adaptive rate scaling, as the JAX package chains it."""
     return chain(_add_decayed_weights(weight_decay),
-                 _scale_by_trust_ratio(trust_coefficient), _trace(momentum),
+                 _scale_by_trust_ratio(trust_coefficient, shards), _trace(momentum),
                  _scale_by_lr(learning_rate))
 
 
@@ -284,19 +330,20 @@ def build_optimizer(name: str, learning_rate: float, momentum: float = 0.0,
                     weight_decay: float = 0.0, rmsprop_decay: float = 0.999,
                     adam_eps: float = 1e-7,
                     lr_schedule: Optional[Callable] = None,
-                    spike_reject_factor: float = 0.0) -> Optimizer:
+                    spike_reject_factor: float = 0.0, shards=None) -> Optimizer:
     """"sgd", "adam", "adamw", "lars" or "rmsprop"; ``lr_schedule(count)`` replaces the
     constant ``learning_rate`` where given; ``spike_reject_factor`` > 0
-    chains ``reject_spikes`` before it."""
+    chains ``reject_spikes`` before it; ``shards``: a tp mesh's
+    ``ModeShards`` (module docstring)."""
     base = _build_base(name, learning_rate, momentum, weight_decay,
-                       rmsprop_decay, adam_eps, lr_schedule)
+                       rmsprop_decay, adam_eps, lr_schedule, shards)
     if spike_reject_factor > 0:
-        return chain(reject_spikes(spike_reject_factor), base)
+        return chain(reject_spikes(spike_reject_factor, shards=shards), base)
     return base
 
 
 def _build_base(name, learning_rate, momentum, weight_decay, rmsprop_decay,
-                adam_eps, lr_schedule) -> Optimizer:
+                adam_eps, lr_schedule, shards=None) -> Optimizer:
     lr = lr_schedule if lr_schedule is not None else learning_rate
     if name == "rmsprop":
         rms = torch_rmsprop(1.0 if callable(lr) else lr, alpha=rmsprop_decay,
@@ -312,7 +359,7 @@ def _build_base(name, learning_rate, momentum, weight_decay, rmsprop_decay,
         return chain(_scale_by_adam(eps=adam_eps),
                      _add_decayed_weights(weight_decay), _scale_by_lr(lr))
     if name == "lars":
-        return lars(lr, weight_decay=weight_decay, momentum=momentum)
+        return lars(lr, weight_decay=weight_decay, momentum=momentum, shards=shards)
     if name == "sgd":
         parts = []
         if weight_decay:

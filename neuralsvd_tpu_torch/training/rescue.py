@@ -38,22 +38,22 @@ from neuralsvd_tpu_torch.methods.spectrum import mode_health
 from neuralsvd_tpu_torch.training.train_state import TrainState
 
 
-def _leaves(tree, path=""):
+def named_leaves(tree, path=""):
     """(name, tensor) of every tensor in a nest of dicts, lists, tuples
     and NamedTuples, in a fixed order; names join keys and indices by '.'."""
     if isinstance(tree, torch.Tensor):
         yield path, tree
     elif isinstance(tree, dict):
         for k, v in tree.items():
-            yield from _leaves(v, f"{path}.{k}" if path else str(k))
+            yield from named_leaves(v, f"{path}.{k}" if path else str(k))
     elif isinstance(tree, (tuple, list)):
         fields = getattr(tree, "_fields", range(len(tree)))
         for k, v in zip(fields, tree):
-            yield from _leaves(v, f"{path}.{k}" if path else str(k))
+            yield from named_leaves(v, f"{path}.{k}" if path else str(k))
 
 
 def _mode_leaves(tree, neigs: int):
-    return [(name, leaf) for name, leaf in _leaves(tree)
+    return [(name, leaf) for name, leaf in named_leaves(tree)
             if leaf.ndim >= 1 and leaf.shape[0] == neigs]
 
 
@@ -72,7 +72,7 @@ def tree_permute_modes(tree, perm) -> None:
 def _tree_splice_tail(old_tree, fresh_tree, neigs: int, n_tail: int) -> None:
     """Copy the last ``n_tail`` mode slices of ``fresh_tree`` into those
     of ``old_tree``, matching tensors by name."""
-    fresh = dict(_leaves(fresh_tree))
+    fresh = dict(named_leaves(fresh_tree))
     with torch.no_grad():
         for name, leaf in _mode_leaves(old_tree, neigs):
             leaf[neigs - n_tail:] = fresh[name][neigs - n_tail:].to(leaf.device)

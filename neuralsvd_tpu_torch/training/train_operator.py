@@ -49,7 +49,24 @@ records none); a gloo group cannot be captured and a graph request on one
 raises.  Every rank runs the evals, the rescue and the
 SpINx refresh on identical state, so the ranks stay identical; only rank 0
 writes the CSV log, the checkpoints and the profile, and the others wait
-for it at a barrier.  A tp axis above 1 raises (ROADMAP item [9b]).
+for it at a barrier.
+
+Tensor parallelism (a ``tp`` axis above 1, JAX's GSPMD path,
+``neuralsvd_tpu/training/train_operator.py:256-286``) switches to the
+semantics of a global batch, where JAX's ``gspmd`` flag does: every rank
+draws the whole batch from generators that do not fold in the rank, and
+with dp as well keeps its 1/dp of each half (``mesh.half_rows``), so the
+ranks' f1 and f2 rows are slices of the global halves and the dp mean of
+their grams is the one-process gram; only a stochastic operator's probes
+fold in the dp rank.  A tp rank holds its modes' slices of the per-mode
+parameters, their moments and EMA (``shards``, a ``mesh.ModeShards``); the
+method (built with ``mode_axis`` the tp group) gathers f and Tf along the
+modes before the loss, the step sums the gradients of the replicated
+parameters used before the gather over tp, and the optimizer's norms are
+those of the whole tensors.  So the run is the one-process run up to
+reduction order.  The evals, the rescue and the checkpoints run on the
+gathered state (``eval_method``: the method on the whole model), and the
+rescue's edits are narrowed back into each rank's share in place.
 """
 from __future__ import annotations
 
@@ -61,6 +78,7 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from neuralsvd_tpu_torch.ops import cuda_gram
@@ -69,10 +87,12 @@ from neuralsvd_tpu_torch.parallel.mesh import (
     barrier,
     check_method_axis,
     dp_group,
+    half_rows,
     is_writer,
     require_capturable,
+    tp_group,
 )
-from neuralsvd_tpu_torch.training.optimizers import global_norm, select_state
+from neuralsvd_tpu_torch.training.optimizers import global_norm, grad_norm, select_state
 from neuralsvd_tpu_torch.training.train_state import (
     STATE_FIELDS,
     TrainState,
@@ -141,7 +161,7 @@ def _mean_state(state, group):
 def make_train_step(method, operator, optimizer, sampler: Callable,
                     importance: Optional[Callable] = None,
                     ema_decay: float = 0.99, grad_clip: float = 0.0,
-                    monitor: bool = False, dp_axis=None):
+                    monitor: bool = False, dp_axis=None, tp_axis=None, shards=None):
     """Build the train step: (TrainState, generator[, probes]) ->
     (TrainState, metrics).
 
@@ -161,8 +181,23 @@ def make_train_step(method, operator, optimizer, sampler: Callable,
     update; the monitor's statistics are averaged too.  Each rank passes
     its own generators.  The method must be built with ``axis_name``
     ``dp_axis`` (else ValueError).
+
+    ``tp_axis``: a tensor-parallel group (the module docstring): the
+    sampler draws the global batch, of which the step keeps this dp rank's
+    share of each half; ``shards`` (a ``ModeShards`` on ``tp_axis``, None
+    where the model has no per-mode parameter and every rank holds all of
+    it) says which parameters this rank holds a slice of; the method must
+    be built with ``mode_axis`` its group (else ValueError).  The gradients
+    of ``shards.pre_gather`` are summed over ``tp_axis`` (one flat
+    all-reduce) before the dp sum, and the clip and the finite test read
+    the whole gradient's norm.
     """
     check_method_axis(method, dp_axis)
+    mode_group = None if shards is None else shards.group
+    if getattr(method, "mode_axis", None) is not mode_group:
+        raise ValueError(f"method.mode_axis={getattr(method, 'mode_axis', None)!r} must be "
+                         f"the step's mode-sharding group ({mode_group!r})")
+    pre_gather = [] if shards is None else sorted(shards.pre_gather)
     stochastic_op = getattr(operator, "needs_key", False)
     own_probes: Dict[torch.device, torch.Generator] = {}
 
@@ -176,6 +211,8 @@ def make_train_step(method, operator, optimizer, sampler: Callable,
     def step(ts: TrainState, generator, probes=None) -> tuple:
         x = sampler(generator)
         x = x.reshape(x.shape[0], -1)
+        if tp_axis is not None:
+            x = half_rows(x, dp_axis)
         op = operator
         if stochastic_op:
             gen = probes if probes is not None else default_probes(x.device, generator)
@@ -183,10 +220,13 @@ def make_train_step(method, operator, optimizer, sampler: Callable,
                 f, xv, importance, generator=gen, **kw)
         loss, grads, aux, method_state = method.loss_and_grad(
             ts.params, ts.method_state, x, op, importance)
+        if pre_gather:
+            grads.update(zip(pre_gather, psum_flat([grads[k] for k in pre_gather],
+                                                   shards.group)))
         if dp_axis is not None:
             grads = dict(zip(grads, psum_flat(grads.values(), dp_axis)))
             method_state = _mean_state(method_state, dp_axis)
-        gnorm = global_norm(grads.values())
+        gnorm = grad_norm(grads, shards)
         finite = torch.isfinite(loss) & torch.isfinite(gnorm)
         with torch.no_grad():
             if grad_clip > 0:
@@ -226,17 +266,22 @@ class ScannedTrainStep:
     a later block on the same TrainState raises if one was replaced.
     ``group``: the data-parallel group of a step made with ``dp_axis``; the
     rank is a further word of the generators' seeds, and a capture on a
-    group that cannot be captured (gloo) raises ValueError.
+    group that cannot be captured (gloo) raises ValueError.  ``tp_group``:
+    the tensor-parallel group of a step made with ``tp_axis``; then the
+    sample generator is seeded as without a mesh on every rank (the global
+    batch) and only the probe generator takes the dp rank.
     """
 
     def __init__(self, step, steps_per_call: int, seed: int = 0,
-                 use_graph: bool = True, group=None):
+                 use_graph: bool = True, group=None, tp_group=None):
         self.step = step
         self.steps_per_call = steps_per_call
         self.seed = seed
         self.use_graph = use_graph
         self.group = group
+        self.tp_group = tp_group
         self.rank = axis_index(group)
+        self.sample_rank = 0 if tp_group is not None else self.rank
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self._graph_state: Optional[TrainState] = None
         self._graph_ptrs: tuple = ()
@@ -258,7 +303,7 @@ class ScannedTrainStep:
     def begin_block(self, device, start: int) -> None:
         """Seed the generators from (seed, start) and rewind the traces."""
         sample, probes, _, pos = self.buffers(device)
-        sample.manual_seed(block_seed(self.seed, start, SAMPLE_STREAM, self.rank))
+        sample.manual_seed(block_seed(self.seed, start, SAMPLE_STREAM, self.sample_rank))
         if probes is not None:
             probes.manual_seed(block_seed(self.seed, start, PROBE_STREAM, self.rank))
         pos.zero_()
@@ -280,6 +325,7 @@ class ScannedTrainStep:
                                "a CUDA graph (needs torch >= 2.5)")
         device = ts.step.device
         require_capturable(self.group, device)
+        require_capturable(self.tp_group, device)
         sample, probes, _, _ = self.buffers(device)
         with torch.no_grad():
             saved = {name: clone_tree(getattr(ts, name)) for name in STATE_FIELDS}
@@ -402,6 +448,8 @@ def train_operator(
     start_iter: int = 0,
     use_graph: bool = True,
     timings: Optional[dict] = None,
+    shards=None,
+    eval_method=None,
 ):
     """Host driver: blocks of ``print_freq`` steps, a print row after each,
     an eval of the EMA parameters every ``eval_freq`` steps with its
@@ -434,9 +482,15 @@ def train_operator(
     (``spinx_refresh``) are appended to it; each ends in a device sync.
     ``mesh``: a ``DeviceMesh`` (parallel/mesh.py) whose ``dp_axis``
     group the method was built with (``axis_name``): data parallelism as
-    the module docstring says, the sampler's batch per rank.
+    the module docstring says, the sampler's batch per rank.  A ``tp``
+    axis above 1 in ``mesh``: tensor parallelism (module docstring), the
+    sampler's batch global; ``model`` and ``method`` are then this rank's
+    share of the modes (``shards``, None on a model with no per-mode
+    parameter) and ``eval_method`` the method on the whole model, which
+    the evals and the rescue use (default: ``method``).
 
-    Returns (final TrainState, all_eigvals, all_norms).
+    Returns (final TrainState, all_eigvals, all_norms); under tp the
+    TrainState gathered from every rank's share.
     """
     from neuralsvd_tpu_torch.methods.spectrum import (
         compute_spectrum_evd,
@@ -462,9 +516,23 @@ def train_operator(
     step_kw = dict(importance=importance_train, ema_decay=ema_decay,
                    grad_clip=grad_clip, monitor=monitor)
     group = None if mesh is None else dp_group(mesh, dp_axis)
-    step = make_train_step(method, operator, optimizer, sampler, dp_axis=group, **step_kw)
+    tp = None if mesh is None else tp_group(mesh)
+    everyone = None if mesh is None else dist.group.WORLD  # waits for the writer
+    eval_method = method if eval_method is None else eval_method
+    step = make_train_step(method, operator, optimizer, sampler, dp_axis=group,
+                           tp_axis=tp, shards=shards, **step_kw)
     blocks = ScannedTrainStep(step, max(print_freq, 1), seed=seed,
-                              use_graph=use_graph and use_scan, group=group)
+                              use_graph=use_graph and use_scan, group=group,
+                              tp_group=tp)
+
+    def whole_state() -> TrainState:
+        """The TrainState of all modes: ``ts``, or under tp every rank's
+        share gathered (new tensors)."""
+        if shards is None:
+            return ts
+        return TrainState(step=ts.step, method_state=ts.method_state,
+                          **{name: shards.gather_tree(getattr(ts, name))
+                             for name in ("params", "opt_state", "ema_params")})
     path = "graph" if blocks.use_graph and device.type == "cuda" else "eager"
     log.info("train steps: %s blocks of %d", path, max(print_freq, 1))
 
@@ -472,8 +540,9 @@ def train_operator(
 
     def run_eval(it_done):
         t0 = time.perf_counter()
+        whole = whole_state()
         outputs = compute_spectrum_evd(
-            (method.eval_apply, ts.ema_params, ts.method_state),
+            (eval_method.eval_apply, whole.ema_params, whole.method_state),
             val_batches(), operator, importance_train=importance_train,
             importance_val=importance_val, post_align=post_align,
             normalize=normalize, device=device)
@@ -494,13 +563,13 @@ def train_operator(
                      method.neigs)
         if (rescue_init_fn is not None and not health["healthy"].all()
                 and it_done <= rescue_until * num_iters):
-            run_rescue(it_done, cov, np.asarray(outputs["quad"]))
+            run_rescue(whole, it_done, cov, np.asarray(outputs["quad"]))
         timings.setdefault("eval", []).append(time.perf_counter() - t0)
         if checkpoint_fn is not None:
             t0 = time.perf_counter()
             if writer:
-                checkpoint_fn(ts, it_done, outputs)
-            barrier(group)
+                checkpoint_fn(whole, it_done, outputs)
+            barrier(everyone)
             timings.setdefault("checkpoint", []).append(time.perf_counter() - t0)
         if spinx_refresh is not None:
             t0 = time.perf_counter()
@@ -514,7 +583,7 @@ def train_operator(
 
     rescue_grace: list = []
 
-    def run_rescue(it_done, cov, quad):
+    def run_rescue(whole, it_done, cov, quad):
         from neuralsvd_tpu_torch.models.wavefunctions import scale_mode_amplitudes
         from neuralsvd_tpu_torch.training.rescue import rescue_modes
 
@@ -522,20 +591,23 @@ def train_operator(
             # batch norms on one val batch (a relative measure only)
             x = torch.as_tensor(next(iter(val_batches())), device=device)
             with torch.no_grad():
-                f = method.eval_apply(params, ts.method_state, x)
+                f = eval_method.eval_apply(params, whole.method_state, x)
             return torch.mean(f * f, dim=0).cpu().numpy()
 
         scale_fn = (scale_mode_amplitudes
-                    if any(k.startswith("base.ws.") for k in ts.params)  # ParallelMLP
+                    if any(k.startswith("base.ws.") for k in whole.params)  # ParallelMLP
                     else None)
         pointers = state_pointers(ts)
         generator = torch.Generator().manual_seed(
             block_seed(seed + 1, it_done, RESCUE_STREAM))
         _, info = rescue_modes(
-            ts, rescue_init_fn, generator, cov, quad, method.neigs,
+            whole, rescue_init_fn, generator, cov, quad, method.neigs,
             measure_norms=measure_norms if scale_fn else None,
             scale_fn=scale_fn, clone_healthy_tail=scale_fn is not None,
             grace_slots=rescue_grace)
+        if shards is not None:  # every rank's share of the rescued modes
+            load_state_tree(ts, {name: shards.narrow_tree(getattr(whole, name))
+                                 for name in STATE_FIELDS})
         if state_pointers(ts) != pointers:
             raise RuntimeError("the rescue replaced a tensor of the TrainState")
         rescue_grace[:] = list(info["tail_slots"]) if info["n_spurious"] else []
@@ -599,4 +671,4 @@ def train_operator(
             run_eval(it)
     if prof is not None:  # the loop ended inside the trace window
         _close_profile(prof, device, profile_dir)
-    return ts, all_eigvals, all_norms
+    return whole_state(), all_eigvals, all_norms

@@ -1,6 +1,7 @@
-"""CSV metric logging.
+"""CSV and JSONL metric logging.
 
-Port of ``neuralsvd_tpu/utils/logging.py::CSVLogger``, with one fault of
+Port of ``neuralsvd_tpu/utils/logging.py``: ``MetricsLogger`` (:29), and
+``CSVLogger``, with one fault of
 the original repaired: it names the file by the second it was opened and
 opens it with "w", so a second logger in the same directory within the
 same second truncated the first one's rows (a resumed run that starts
@@ -10,6 +11,7 @@ from __future__ import annotations
 
 import csv
 import datetime
+import json
 import os
 from typing import Sequence
 
@@ -38,3 +40,21 @@ class CSVLogger:
 
     def close(self):
         self._file.close()
+
+
+class MetricsLogger:
+    """Append-only JSONL scalar log, ``log_dir/name``: one line per scalar,
+    ``{"step", "tag", "value"}``, as the JAX package writes it."""
+
+    def __init__(self, log_dir: str, name: str = "metrics.jsonl"):
+        os.makedirs(log_dir, exist_ok=True)
+        self._fh = open(os.path.join(log_dir, name), "a")
+
+    def log(self, step: int, **scalars):
+        for tag, value in scalars.items():
+            self._fh.write(json.dumps(
+                {"step": int(step), "tag": tag, "value": float(value)}) + "\n")
+        self._fh.flush()
+
+    def close(self):
+        self._fh.close()

@@ -1,17 +1,23 @@
-"""Data parallelism of the PyTorch port across cards: the PDE CLI's
-``--mesh dp=N`` with its NCCL all-reduces captured in CUDA graphs.
+"""The PyTorch port's mesh across cards: the PDE CLI's ``--mesh dp=N``,
+``tp=M`` or ``dp=N,tp=M`` with its NCCL collectives captured in CUDA
+graphs.
 
 Run on a host with N cards (N >= 2), from the root of the repository:
 
-    torchrun --standalone --nproc-per-node N scripts/torch_dp_nccl.py [--out DIR]
+    torchrun --standalone --nproc-per-node N scripts/torch_dp_nccl.py [--mesh SPEC] [--out DIR]
 
-Every rank runs ``neuralsvd_tpu_torch.cli.pde.main`` on the E4 flags (the
-plain loss, ``--neuralsvd.use_pallas false``, which the dp path takes)
-with ``--mesh dp``: ITERS steps in graph blocks of BLOCK with one eval at
-the end, the second block traced by rank 0; then the same run as eager
-steps.  It checks that
+``--mesh`` defaults to ``dp`` (dp=N).  Every rank runs
+``neuralsvd_tpu_torch.cli.pde.main`` on the E4 flags with that mesh: on a
+mesh with dp above 1 the plain loss (``--neuralsvd.use_pallas false``,
+which the dp path takes), on a tp-only mesh the default, K1-K3 on the
+gathered modes; ITERS steps in graph blocks of BLOCK with one eval at the
+end, the second block traced by rank 0; then the same run as eager steps
+(the K1-K3 launches of which the wrappers count).  Under tp each rank
+holds its share of the modes and gathers them (all-gathers) before the
+loss; the run returns the gathered state.  It checks that
 
-- every rank ends the graph run with rank 0's state, bit for bit;
+- every rank ends the graph run with rank 0's (gathered) state, bit for
+  bit;
 - the graph run matches the eager run at the CLI's graph-vs-eager
   tolerance (rtol 1e-5, atol 1e-6 of each leaf's largest entry);
 - rank 0's traced graph block holds NCCL kernels (at N >= 2: a
@@ -23,7 +29,8 @@ kernels a traced step); the exit code is 1 where a check failed.
 
 ``--device cpu`` runs the eager run alone on gloo at small widths (run it
 with ``torchrun --standalone --nproc-per-node 2 scripts/torch_dp_nccl.py
---device cpu``): a check of the script itself, not a measurement.
+--device cpu``, or with ``--mesh tp=2``): a check of the script itself,
+not a measurement.
 """
 from __future__ import annotations
 
@@ -43,10 +50,12 @@ import torch.distributed as dist
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from neuralsvd_tpu_torch.cli import pde  # noqa: E402
+from neuralsvd_tpu_torch.ops import cuda_gram  # noqa: E402
+from neuralsvd_tpu_torch.parallel.mesh import parse_mesh_spec  # noqa: E402
 from neuralsvd_tpu_torch.training.train_state import state_tree  # noqa: E402
 from neuralsvd_tpu_torch.utils.config import parse_pde_config, run_name  # noqa: E402
 
-# the E4 flags (chip_smoke.py's PDE_E4_ARGV) on the plain loss
+# the E4 flags (chip_smoke.py's PDE_E4_ARGV); PLAIN where dp is above 1
 E4_ARGV = ("--potential_type hydrogen --ndim 2 --neigs 16 --parallel true "
            "--apply_boundary false --laplacian_eps -1 --operator_scale 100 "
            "--use_fourier_feature true --fourier_mapping_size 1024 "
@@ -55,7 +64,8 @@ E4_ARGV = ("--potential_type hydrogen --ndim 2 --neigs 16 --parallel true "
            "--sampling_mode gaussian_mixture --sampling_scales 0.5,2,6,16 "
            "--batch_size 512 --optimizer rmsprop --lr 1e-4 --use_lr_scheduler true "
            "--ema_decay 0.995 --neuralsvd.sequential true --seed 0 "
-           "--neuralsvd.use_pallas false --overwrite true").split()
+           "--overwrite true").split()
+PLAIN = ["--neuralsvd.use_pallas", "false"]
 ITERS, BLOCK = 1000, 250
 CPU_FLAGS = ("--fourier_mapping_size 16 --mlp_hidden_dims 16,16 --batch_size 64 "
              "--lim 4 --val_eps 0.5").split()
@@ -127,24 +137,28 @@ def _run(argv, log_dir, use_graph):
 def main():
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--device", default=None, help="default: this rank's card")
+    p.add_argument("--mesh", default="dp", help="the CLI's --mesh (default: dp, all ranks)")
     p.add_argument("--out", default=None, help="where the runs' log folders go "
                                                "(default: a temporary folder)")
     args = p.parse_args()
     cpu = args.device == "cpu"
     world = int(os.environ.get("WORLD_SIZE", "1"))
     iters, block = (CPU_ITERS, CPU_BLOCK) if cpu else (ITERS, BLOCK)
-    argv = (E4_ARGV + (CPU_FLAGS if cpu else [])
-            + ["--mesh", f"dp={world}", "--num_iters", str(iters), "--print_freq", str(block),
+    sizes = dict(zip(*parse_mesh_spec(args.mesh, world)))
+    argv = (E4_ARGV + (PLAIN if sizes.get("dp", 1) > 1 else []) + (CPU_FLAGS if cpu else [])
+            + ["--mesh", args.mesh, "--num_iters", str(iters), "--print_freq", str(block),
                "--eval_freq", str(iters)] + (["--device", args.device] if args.device else []))
     traced = ["--profile", "true", "--profile_start", str(block),
               "--profile_steps", str(block)]
-    out = {"world": world, "argv": argv, "iters": iters, "block": block}
+    out = {"world": world, "mesh": sizes, "argv": argv, "iters": iters, "block": block}
     with tempfile.TemporaryDirectory() as tmp:
         root = args.out or tmp
         if not cpu:
             gts, geig, gtimes, gsec, gdir = _run(argv + traced, os.path.join(root, "graph"), True)
+        cuda_gram.reset_launch_counts()
         ets, eeig, etimes, esec, _ = _run(argv, os.path.join(root, "eager"), False)
         device = ets.step.device
+        out["eager_launches"] = cuda_gram.launch_counts()
         checks = {"eager_ranks_equal": _same_on_every_rank(ets, device)}
         out["eager"] = {"run_s": esec, "eigvals": [float(v) for v in eeig[-1]],
                         "steps_per_s": [n / s for n, s in etimes.get("block_eager", [])]}

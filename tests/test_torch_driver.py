@@ -21,9 +21,11 @@ from neuralsvd_tpu_torch.cli import pde
 from neuralsvd_tpu_torch.data import samplers
 from neuralsvd_tpu_torch.data.samplers import get_sampler
 from neuralsvd_tpu_torch.methods import spectrum
+from neuralsvd_tpu_torch.methods.factories import get_evd_method
 from neuralsvd_tpu_torch.methods.nestedlora import NestedLoRA
 from neuralsvd_tpu_torch.models.wavefunctions import make_wavefunctions
 from neuralsvd_tpu_torch.operators.problems import get_problem
+from neuralsvd_tpu_torch.parallel.mesh import ModeShards
 from neuralsvd_tpu_torch.training import ewm
 from neuralsvd_tpu_torch.training.checkpoint import (
     latest_iteration_checkpoint,
@@ -229,20 +231,33 @@ def test_checkpoint_round_trip(tmp_path):
 
 
 class _TpMesh:
-    """A mesh's names and sizes, dp=1 x tp=2."""
+    """A mesh's names, sizes and groups, dp=1 x tp=2 (stand-in groups)."""
     mesh_dim_names = ("dp", "tp")
+    groups = {"dp": object(), "tp": object()}
 
     def size(self, dim):
         return (1, 2)[dim]
 
+    def get_group(self, axis):
+        return self.groups[axis]
+
 
 def test_train_operator_refuses_unported_options():
-    """A tp mesh axis above 1 raises naming its item, [9b] (data
-    parallelism runs: tests/test_torch_parallel.py; the SpINx refresh,
-    refused here before, runs: tests/test_torch_spin.py)."""
+    """On a tp mesh: SpIN and SpINx refuse a mode axis, naming their item,
+    [9c]; train_operator refuses a method not built for the mesh's groups (its
+    ``axis_name`` the dp group, its ``mode_axis`` the tp group of the
+    shards) before any step.  (The tp path itself: tests/test_torch_tp.py.)"""
     model, op, sampler, imp, method, opt = _setup()
-    with pytest.raises(NotImplementedError, match=r"\[9b\]"):
-        train_operator(method, op, sampler, opt, model, 4, mesh=_TpMesh())
+    mesh = _TpMesh()
+    for name in ("spin", "spinx"):
+        with pytest.raises(NotImplementedError, match=r"\[9c\]"):
+            get_evd_method(name, model, L, mode_axis=mesh.groups["tp"])
+    with pytest.raises(ValueError, match="axis_name"):
+        train_operator(method, op, sampler, opt, model, 4, mesh=mesh)
+    shards = ModeShards(mesh.groups["tp"], L, {"base.ws.0": 0})
+    method = NestedLoRA(model, neigs=L, sequential=True, axis_name=mesh.groups["dp"])
+    with pytest.raises(ValueError, match="mode_axis"):
+        train_operator(method, op, sampler, opt, model, 4, mesh=mesh, shards=shards)
 
 
 # -- the monitor statistics ----------------------------------------------------

@@ -36,7 +36,8 @@ from neuralsvd_tpu_torch.cli.sketchy import make_cdk_train_step
 from neuralsvd_tpu_torch.convert import _named_leaves, method_state_from_jax, params_from_jax
 from neuralsvd_tpu_torch.methods.nestedlora import NestedLoRA, NestedLoRAForCDK
 from neuralsvd_tpu_torch.models.wavefunctions import make_wavefunctions
-from neuralsvd_tpu_torch.parallel.mesh import TP_REFUSAL, mesh_sizes, parse_mesh_spec
+from neuralsvd_tpu_torch.parallel import mesh as mesh_module
+from neuralsvd_tpu_torch.parallel.mesh import given_sizes, mesh_sizes, parse_mesh_spec
 from neuralsvd_tpu_torch.training.train_operator import block_seed, make_train_step
 from neuralsvd_tpu_torch.training.train_state import init_train_state
 from neuralsvd_tpu_torch.utils import config
@@ -71,19 +72,37 @@ def test_parse_mesh_spec_grammar():
             parse_mesh_spec(spec, 8)
 
 
-def test_mesh_refusals_without_a_group():
-    """A tp axis above 1 raises naming [9b] before the ranks are counted;
-    the PDE CLI refuses a batch that does not split into 2·dp halves and a
-    mesh wider than the ranks, before any training."""
-    for spec in ("tp=2", "dp=1,tp=2", "dp=4,tp=2"):
-        with pytest.raises(NotImplementedError, match=r"\[9b\]"):
+def test_mesh_refusals_without_a_group(monkeypatch):
+    """The refusals that remain before a group of several ranks runs: bad
+    specs, a mesh wider than the ranks (one here; four through a stand-in
+    rank count), a batch that does not split into 2·dp halves, and SpIN
+    and SpINx on a tp axis (item [9c]); a tp axis now parses and sizes,
+    given or absorbed (the 4-rank spanning check:
+    tests/test_torch_tp.py::test_tp_step_at_dp2_tp2_matches_jax_gspmd)."""
+    for spec in ("pp=2", "dp,tp", "dp=2,dp=2", ""):
+        with pytest.raises(ValueError):
             mesh_sizes(spec)
-    assert "[9b]" in TP_REFUSAL
+    for spec in ("tp=2", "dp=1,tp=2", "dp=4,tp=2"):
+        with pytest.raises(ValueError, match="needs [0-9]+ devices, only 1"):
+            mesh_sizes(spec)
+    assert given_sizes("dp=4,tp=2") == {"dp": 4, "tp": 2} and given_sizes("dp,tp=2") == {"tp": 2}
     assert mesh_sizes("dp") == {"dp": 1} and mesh_sizes("dp=1,tp=1") == {"dp": 1}
     with pytest.raises(ValueError, match="2\\*dp=2"):
         pde.check_ported(config.PDEConfig(mesh="dp", batch_size=65))
     with pytest.raises(ValueError, match="needs 2 devices"):
         pde.check_ported(config.PDEConfig(mesh="dp=2"))
+    monkeypatch.setattr(mesh_module, "_world_size", lambda: 4)
+    assert mesh_sizes("dp=2,tp=2") == {"dp": 2, "tp": 2}
+    assert mesh_sizes("tp") == {"tp": 4} and mesh_sizes("dp,tp=2") == {"dp": 2, "tp": 2}
+    with pytest.raises(ValueError, match="needs 8 devices, only 4"):
+        mesh_sizes("dp=4,tp=2")
+    with pytest.raises(ValueError, match="2\\*dp=4"):
+        pde.check_ported(config.PDEConfig(mesh="dp=2,tp=2", batch_size=66))
+    pde.check_ported(config.PDEConfig(mesh="dp=2,tp=2", batch_size=64))
+    for name in ("spin", "spinx"):
+        for spec in ("tp=2", "dp=2,tp"):  # given, and absorbed from the 4 ranks
+            with pytest.raises(NotImplementedError, match=r"\[9c\]"):
+                pde.check_ported(config.PDEConfig(loss=config.LossConfig(name=name), mesh=spec))
 
 
 def test_block_seed_rank_zero_keeps_the_stream():
@@ -264,7 +283,7 @@ def _half_consistent_union(xs):
 
 
 def test_dp_train_step_matches_the_single_process_step(tmp_path):
-    """``make_dp_train_step`` dp=2 (gradients SUMMED over the ranks, not
+    """``make_mesh_train_step`` dp=2 (gradients SUMMED over the ranks, not
     averaged) against the port's single-process step on the half-consistent
     union, plain and with a grad clip that bites: the loss, the global
     gradient norm before the clip, and the parameters after one SGD step
@@ -313,7 +332,7 @@ def test_dp_train_step_matches_the_single_process_step(tmp_path):
 
 @pytest.mark.parametrize("grad_clip", [0.0, 0.05])
 def test_dp_cdk_step_matches_the_single_process_step(tmp_path, grad_clip):
-    """``make_dp_cdk_step`` dp=2, three steps on each rank's half of the
+    """``make_mesh_cdk_step`` dp=2, three steps on each rank's half of the
     pairs, against ``make_cdk_train_step`` on the whole batch: loss, its
     two parts, the parameters, and aux's f/g gathered in global order."""
     rng = np.random.default_rng(3)

@@ -443,7 +443,8 @@ def _float64_eigvals(cfg, model_kw, state):
     (dict(loss=config.LossConfig(name="spin")), None),
     (dict(loss=config.LossConfig(name="spinx")), None),
     (dict(problem="fp"), None),
-    (dict(mesh="tp=2"), r"\[9b\]"),  # --mesh dp runs: test_torch_cli_mesh.py
+    # --mesh dp and tp run (test_torch_cli_mesh.py, test_torch_tp.py); SpIN on tp does not
+    (dict(mesh="tp=2", loss=config.LossConfig(name="spin")), r"\[9c\]"),
     (dict(rescue=True, parallel=True), None),
     (dict(matmul_precision="high"), None),
     (dict(apply_exp_mask=True), None),

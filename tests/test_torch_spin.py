@@ -468,7 +468,8 @@ def test_fokker_planck_vjp_with_graph_matches_jax():
 # -- refusals ---------------------------------------------------------------------
 
 def test_refusals_name_their_items():
-    """Only a tp mesh axis is refused now (item [9b]).  A graph through Tf on the
+    """Only SpIN and SpINx on a tp mesh axis are refused now (item [9c]; the
+    axis itself runs for NestedLoRA and NeuralEF).  A graph through Tf on the
     forward engine or the Hutchinson estimator runs and gives the default
     route's values with a graph; check_ported passes SpIN and SpINx on
     every Laplacian; loss_and_grad_kernel runs on a kernel operator."""
@@ -485,7 +486,7 @@ def test_refusals_name_their_items():
         for kw in (dict(laplacian_eps=-1.0), dict(laplacian_probes=2),
                    dict(laplacian_eps=-1.0, laplacian_mode="jvp", laplacian_probes=2)):
             pde.check_ported(config.PDEConfig(loss=config.LossConfig(name=name), **kw))
-        with pytest.raises(NotImplementedError, match=r"\[9b\]"):
+        with pytest.raises(NotImplementedError, match=r"\[9c\]"):
             pde.check_ported(config.PDEConfig(loss=config.LossConfig(name=name), mesh="tp=2"))
         method = get_evd_method(name, model, L)
         params = dict(model.named_parameters())

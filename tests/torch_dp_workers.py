@@ -201,12 +201,12 @@ TRAIN_CASES = {"plain": dict(), "clip": dict(grad_clip=10.0), "nonfinite": dict(
 
 
 def train_step_rank(rank, d, inputs):
-    """``make_dp_train_step`` on this rank's fixed local batch, one step per
+    """``make_mesh_train_step`` on this rank's fixed local batch, one step per
     case of TRAIN_CASES from the same initial state (the "nonfinite" case
     has a NaN row on rank 1), plus the refusals that need a group."""
     from neuralsvd_tpu_torch.methods.nestedlora import NestedLoRA, NestedLoRAForCDK
     from neuralsvd_tpu_torch.parallel.mesh import require_capturable
-    from neuralsvd_tpu_torch.parallel.sharding import make_dp_cdk_step, make_dp_train_step
+    from neuralsvd_tpu_torch.parallel.sharding import make_mesh_cdk_step, make_mesh_train_step
     from neuralsvd_tpu_torch.training.cdk_step import make_cdk_train_step
     from neuralsvd_tpu_torch.training.train_operator import make_train_step
     from neuralsvd_tpu_torch.training.train_state import init_train_state
@@ -218,7 +218,7 @@ def train_step_rank(rank, d, inputs):
         model, opt = evd_setup()
         method = NestedLoRA(model, L, sequential=True, axis_name=group)
         x = torch.tensor(z[f"{case}/x{rank}"])
-        step = make_dp_train_step(method, weighted_operator, opt, lambda g: x, mesh,
+        step = make_mesh_train_step(method, weighted_operator, opt, lambda g: x, mesh,
                                   ema_decay=0.9, **kw)
         ts = init_train_state(model, opt, method)
         _, metrics = step(ts, torch.Generator())
@@ -230,9 +230,9 @@ def train_step_rank(rank, d, inputs):
     # the refusals: a method without the group, a step without the
     # method's group, use_pallas=True with one, a graph on gloo
     model, opt = evd_setup()
-    for make, method in ((make_dp_train_step, NestedLoRA(model, L)),
-                         (make_dp_cdk_step, NestedLoRAForCDK(model, L))):
-        args = ((method, weighted_operator, opt, None, mesh) if make is make_dp_train_step
+    for make, method in ((make_mesh_train_step, NestedLoRA(model, L)),
+                         (make_mesh_cdk_step, NestedLoRAForCDK(model, L))):
+        args = ((method, weighted_operator, opt, None, mesh) if make is make_mesh_train_step
                 else (method, opt, mesh))
         _expect(ValueError, "axis_name", make, *args)
     _expect(ValueError, "axis_name", make_train_step, NestedLoRA(model, L, axis_name=group),
@@ -270,16 +270,16 @@ CDK_STEPS = 3
 
 
 def cdk_step_rank(rank, d, inputs, grad_clip):
-    """``make_dp_cdk_step``: CDK_STEPS steps on this rank's rows of the
+    """``make_mesh_cdk_step``: CDK_STEPS steps on this rank's rows of the
     pairs."""
     from neuralsvd_tpu_torch.methods.nestedlora import NestedLoRAForCDK
-    from neuralsvd_tpu_torch.parallel.sharding import make_dp_cdk_step
+    from neuralsvd_tpu_torch.parallel.sharding import make_mesh_cdk_step
 
     mesh, group = _mesh()
     z = np.load(inputs)
     model, opt = cdk_setup()
     method = NestedLoRAForCDK(model, 4, axis_name=group)
-    step = make_dp_cdk_step(method, opt, mesh, grad_clip=grad_clip)
+    step = make_mesh_cdk_step(method, opt, mesh, grad_clip=grad_clip)
     params = dict(model.named_parameters())
     state, skips = opt.init(params), torch.zeros((), dtype=torch.int32)
     x, y = (torch.tensor(_rows(z[k], rank)) for k in ("x", "y"))
