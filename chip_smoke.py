@@ -238,13 +238,29 @@ seconds:
               step (512-8192-512 towers, L 512 + the constant, B 4096, 256 mode columns a
               rank), TP_CDK_STEPS steps against the one-process step at the
               same tolerance; both on K1-K3 on the gathered modes, one
-              launch of each a step on each rank.
+              launch of each a step on each rank; (c) SpIN and SpINx at
+              hydrogen.sh's width (L 36, 2055 features, B 512, FD at eps
+              0.01) on SGD with a clip, TP_SPIN_ITERS eager steps and one
+              eval with its checkpoint, each rank holding 18 of the 36 slots
+              of j_avg, against one process: parameters, the gathered
+              j_avg, sigma_avg and chol, the ranks bit for bit, each rank's
+              j_avg bytes and peak memory, the tp checkpoint loaded in one
+              process bit for bit, SpINx's refresh from it against the tp
+              run's weights; no K1-K3 launch;
+19. export    the serving export (utils/export.py): the E4 wavefunction
+              (f32, and the `high` tier, its products tiered_einsum ops)
+              and the paper-width CDK x tower (f32, bf16) saved to .pt2
+              files, reloaded and evaluated at 3 and 4096 rows against the
+              eager modules; the exported and eager calls' ms;
+20. dryrun    graft_entry.entry() (the flagship L 36 model on the card) and
+              graft_entry.dryrun_multichip(4) (a dp x tp PDE step and a dp
+              CDK step on four gloo CPU ranks, in its subprocess).
 
 Then the {"kernels": [...]} line (numbers at the CDK shape, launches of
 the ten main paths that run K1-K3 (e4 trainer, pde_cli, hydrogen,
 oscillator, fp, cdk, pde_tiers, cdk_bf16, kernel_evd, sketchy_cli, and
 tp_e4 and tp_cdk, summed over phase tp's two ranks; the dp path takes the
-plain losses and launches none; the
+plain losses and launches none, nor do tp_spin and tp_spinx; the
 CLI paths' are the eager launches counted by the wrappers plus the
 replayed launches counted in the traced block, each also under "paths"),
 per-path numbers under "paths", every shape's under "shapes"), the
@@ -269,6 +285,7 @@ import time
 import numpy as np
 import torch
 
+from neuralsvd_tpu_torch import graft_entry
 from neuralsvd_tpu_torch.cli import pde
 from neuralsvd_tpu_torch.cli import sketchy
 from neuralsvd_tpu_torch.cli.sketchy import get_args, make_trainer, run_training
@@ -325,6 +342,8 @@ from neuralsvd_tpu_torch.training.rescue import named_leaves
 from neuralsvd_tpu_torch.training.train_operator import (
     GRAPH_WARMUP_STEPS,
     PROFILE_MARGIN_S,
+    REFRESH_STREAM,
+    block_seed,
     make_scanned_train_step,
     make_train_step,
     train_operator,
@@ -335,6 +354,7 @@ from neuralsvd_tpu_torch.training.train_state import (
     load_state_tree,
     state_tree,
 )
+from neuralsvd_tpu_torch.utils import export
 from neuralsvd_tpu_torch.utils.config import parse_pde_config, run_name
 from neuralsvd_tpu_torch.utils.meters import accuracy
 
@@ -589,7 +609,48 @@ TP_E4_RUNS = (("sgd", TP_E4_ITERS), ("adam", 1), ("rmsprop", 1))  # SGD's parame
 TP_CDK_STEPS = 5
 TP_TOL = (2e-4, 2e-5)  # (rtol, atol)
 TP_FLIP_GRAD = 2e-5  # the moments' atol share: a larger gradient keeps its sign within it
-TP_SPAWN_TIMEOUT_S = 240
+TP_SPAWN_TIMEOUT_S = 480
+# (c) SpIN and SpINx at hydrogen.sh's width (HYDROGEN_ARGV with --loss
+# spin|spinx: L 36, 2055 features, per-mode 128³ towers, B 512, FD at eps
+# 0.01) on SGD at the script's lr without its schedule and with a grad clip
+# of TP_SPIN_CLIP (SGD takes SpIN's first, whitened gradient whole: on the
+# CPU at toy width one step moved σ from 0.31 to 1064 and two reduction
+# orders parted; the clip reads the whole gradient's norm on both sides),
+# TP_SPIN_ITERS eager steps in two blocks (the second one's rate is printed)
+# with one eval at the end (its checkpoint, then SpINx's refresh) on a grid
+# at --val_eps TP_SPIN_VAL_EPS (10⁴ points, not the script's 10⁶: the eval
+# is not what is held here), at --mesh tp=2 against one process: the
+# parameters at TP_TOL, the gathered j_avg, sigma_avg and chol at TP_TOL
+# with atol a share of each leaf's largest entry (the Jacobian average's
+# batch sums run to ~10² at toy width, where 2e-5 is below their float32
+# rounding), the ranks bit for bit, each rank's j_avg bytes (half of 36·P·4)
+# and peak memory, the tp SpIN checkpoint loaded in one process with equal
+# j_avg, and SpINx's weights: one process refreshes from the tp run's
+# checkpoint on the same batch in float64, and the tp run's refresh must be
+# within TP_WEIGHTS_RTOL of it, or within RECIPE_F64_FACTOR times one
+# process's own float32 refresh's distance from it (finite differences at
+# eps 0.01 leave two float32 evaluations ~1e-3 apart, and the weights,
+# square roots of ratios of squared gradient norms, carry it: at hydrogen.sh
+# on the H100 the two float32 refreshes sat 9.1e-3 apart); the two runs'
+# weights are printed, not gated (a float32 refresh moves its weights by
+# ~2e-4 of themselves under a 1e-7 relative change of the parameters,
+# tests/test_torch_tp_spin.py); no K1-K3 launch
+TP_SPIN_ITERS, TP_SPIN_VAL_EPS, TP_SPIN_CLIP, TP_WEIGHTS_RTOL = 20, 1.0, 1.0, 1e-4
+# the parameters must move more than TP_SPIN_MOVED (2.5 x TP_TOL's atol), so
+# that a wrong gradient would show; SGD clipped at 1 moves an entry at most lr
+# (1e-4) a step, and SpINx's concentrated gradient moved one by 1.0e-4 in 20
+TP_SPIN_MOVED = 5e-5
+TP_SPIN_LOSSES = ("spin", "spinx")
+# The serving export (utils/export.py): the E4 wavefunction (float32, and at
+# --matmul_precision high, each tower product one tiered_einsum operator in
+# the program) and the
+# paper-width CDK x tower (CDK_ARGV's widths, f32 and bf16), exported with a
+# dynamic batch, saved to a .pt2 file and reloaded, at EXPORT_BATCHES rows
+# against the eager module: bit for bit, or within EXPORT_RTOL and
+# EXPORT_ATOL of the largest entry; CUDA-event ms of both calls
+EXPORT_BATCHES = (3, 4096)
+EXPORT_RTOL, EXPORT_ATOL = 1e-6, 1e-7
+DRYRUN_RANKS = 4  # graft_entry.dryrun_multichip on gloo CPU ranks
 # the online heads (90 train classes), kNN (k 200, T 0.1) and the multi-head
 # probe (PROBE_STEPS SGD steps of batch CDK_B) on the trained towers
 KNN_K, KNN_T = 200, 0.1
@@ -3519,7 +3580,68 @@ def _tp_references(tmp):
     cdk = _tp_cdk_steps(_tp_cdk_args(tmp), x, y)
     cdk["launches"] = cuda_gram.launch_counts()
     torch.cuda.empty_cache()
-    return e4, init, cdk
+    spin = _tp_spin_runs(tmp)
+    cfg = parse_pde_config(_tp_spin_argv("spin") + ["--device", DEVICE])
+    spin["init"] = {k: p.detach().cpu().clone()
+                    for k, p in pde.build(cfg).model.named_parameters()}
+    return e4, init, cdk, spin
+
+
+def _tp_spin_argv(loss, mesh=None):
+    """hydrogen.sh's flags of a phase tp SpIN or SpINx run (TP_SPIN_*)."""
+    return _with_flags(HYDROGEN_ARGV, loss=loss, optimizer="sgd", use_lr_scheduler="false",
+                       grad_clip=TP_SPIN_CLIP, num_iters=TP_SPIN_ITERS,
+                       eval_freq=TP_SPIN_ITERS, print_freq=TP_SPIN_ITERS // 2,
+                       val_eps=TP_SPIN_VAL_EPS) + (["--mesh", mesh] if mesh else [])
+
+
+def _same_on_every_rank(tree) -> bool:
+    """Whether every rank's tensors of ``tree`` equal rank 0's bit for bit
+    (rank 0's broadcast over the default group)."""
+    leaves = [t for _, t in named_leaves(tree) if t.is_floating_point()]
+    flat = torch.cat([t.detach().reshape(-1) for t in leaves])
+    ref = flat.clone()
+    torch.distributed.broadcast(ref, 0)
+    differ = torch.tensor([float(not torch.equal(flat, ref))], device=flat.device)
+    torch.distributed.all_reduce(differ)
+    return differ.item() == 0
+
+
+def _tp_spin_runs(tmp, mesh=None):
+    """The phase tp SpIN and SpINx runs (TP_SPIN_*), eager, with ``mesh``:
+    each one's whole parameters and method state (CPU; under a mesh on rank
+    0 only, the ranks checked bit for bit), last eigenvalues, run directory,
+    K1-K3 launches, the method state's bytes on this rank, peak memory and
+    eager steps/s."""
+    out = {}
+    for loss in TP_SPIN_LOSSES:
+        cuda_gram.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        timings = {}
+        ts, eigvals, run_dir, records = _pde_run(
+            _tp_spin_argv(loss, mesh), os.path.join(tmp, f"tp_{mesh or 'single'}_{loss}"),
+            timings, use_graph=False)
+        torch.cuda.synchronize()
+        rows = _rows(records)
+        check(rows and all(np.isfinite(r["train_loss"]) and "skips" not in r for r in rows),
+              f"tp {loss} ({mesh}): rows {rows}")
+        res = {"eigvals": np.asarray(eigvals[-1]).tolist(), "run_dir": run_dir,
+               "launches": cuda_gram.launch_counts(),
+               "state_bytes": next(r.args for r in records
+                                   if r.msg.startswith("method state bytes")),
+               "peak_bytes": torch.cuda.max_memory_allocated(),
+               "steps_per_s": _block_rates(timings, "block_eager")}
+        if mesh:
+            res["same_as_rank0"] = _same_on_every_rank(
+                {"params": ts.params, "method_state": ts.method_state})
+        if not mesh or torch.distributed.get_rank() == 0:
+            res.update(params=clone_tree(ts.params, "cpu"),
+                       method_state=clone_tree(ts.method_state, "cpu"))
+        out[loss] = res
+        del ts
+        torch.cuda.empty_cache()
+    return out
 
 
 def _tp_cdk_steps(args, x, y):
@@ -3543,8 +3665,8 @@ def _tp_cdk_steps(args, x, y):
 
 def _tp_gloo_rank(rank, port, tmp):
     """One of phase tp's two gloo ranks on the card (a spawned process):
-    the E4 run and the CDK steps at --mesh tp=2; results to
-    ``tmp``/tp_rank<r>.pt, a traceback to tp_rank<r>.err."""
+    the E4 run, the CDK steps and the SpIN and SpINx runs at --mesh tp=2;
+    results to ``tmp``/tp_rank<r>.pt, a traceback to tp_rank<r>.err."""
     from neuralsvd_tpu_torch.parallel import mesh as tp_mesh
 
     os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK=str(rank),
@@ -3558,6 +3680,8 @@ def _tp_gloo_rank(rank, port, tmp):
         cuda_gram.reset_launch_counts()
         out["cdk"] = _tp_cdk_steps(_tp_cdk_args(tmp, "tp=2"), z["x"], z["y"])
         out["cdk"]["launches"] = cuda_gram.launch_counts()
+        torch.cuda.empty_cache()
+        out["spin"] = _tp_spin_runs(tmp, "tp=2")
         out["backend"] = torch.distributed.get_backend()
         torch.save(out, os.path.join(tmp, f"tp_rank{rank}.pt"))
     except BaseException:
@@ -3584,12 +3708,100 @@ def _tp_checkpoint_in_one_process(run_dir, params):
     return same, os.path.getsize(path)
 
 
+def _tp_spin_in_one_process(loss, run_dir, whole):
+    """The tp run's last checkpoint in a one-process TrainState of its
+    flags: whether its parameters and method state equal the run's
+    (``whole``, gathered) bit for bit; for SpINx the weights one process
+    refreshes from it on the refresh's batch (train_operator's
+    REFRESH_STREAM at the last step) in float32 and in float64, and the tp
+    run's refreshed weights held to the float64 ones (see TP_SPIN_*)."""
+    cfg = parse_pde_config(_tp_spin_argv(loss) + ["--device", DEVICE])
+    run = pde.build(cfg)
+    template = init_train_state(run.model, run.optimizer, run.method)
+    path = os.path.join(run_dir, f"ckpt_{TP_SPIN_ITERS}")
+    t0 = time.perf_counter()
+    load_state_tree(template, load_checkpoint(path))
+    out = {"bytes": os.path.getsize(path), "load_s": time.perf_counter() - t0}
+    state = clone_tree(template.method_state, "cpu")
+    if loss == "spinx":  # the checkpoint is written before the eval's refresh
+        state["weights"] = whole["method_state"]["weights"]
+    out["equal"] = (all(torch.equal(template.params[k].cpu(), p) for k, p in
+                        whole["params"].items())
+                    and all(torch.equal(a, b) for (_, a), (_, b) in
+                            zip(named_leaves(state), named_leaves(whole["method_state"]))))
+    check(out["equal"], f"tp {loss}: the checkpoint in one process differs from the run")
+    if loss == "spinx":
+        refreshed = {}
+        for dtype in (torch.float32, torch.float64):
+            run.model.to(dtype)  # template.params are its parameters
+            state = _to(template.method_state, DEVICE, dtype)
+            x = run.sample(torch.Generator(device=DEVICE).manual_seed(
+                block_seed(cfg.seed, TP_SPIN_ITERS, REFRESH_STREAM)))
+            run.method.refresh_weights(template.params, state,
+                                       x.reshape(x.shape[0], -1).to(dtype), run.operator,
+                                       run.importance_train)
+            refreshed[dtype] = state["weights"].double().cpu()
+        f64 = refreshed[torch.float64]
+        tp_err = _abs_excess(whole["method_state"]["weights"].double(), f64,
+                             TP_WEIGHTS_RTOL, 0.0)
+        single_err = _abs_excess(refreshed[torch.float32], f64, TP_WEIGHTS_RTOL, 0.0)
+        out.update(weights_f64=f64.tolist(), tp_vs_f64_rtol_used=tp_err,
+                   one_process_f32_vs_f64_rtol_used=single_err)
+        check(tp_err <= max(1.0, RECIPE_F64_FACTOR * single_err),
+              f"tp spinx: the tp run's refresh {tp_err:.3g}x rtol {TP_WEIGHTS_RTOL} of the "
+              f"float64 refresh, one process's float32 {single_err:.3g}x")
+    del template
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_spin_checks(ref, got):
+    """Phase tp's SpIN and SpINx runs at tp=2 against one process
+    (TP_SPIN_*); returns the readings and each path's launches."""
+    out, launches = {}, {}
+    for loss in TP_SPIN_LOSSES:
+        r, ranks = ref[loss], [g["spin"][loss] for g in got]
+        g0 = ranks[0]
+        res = {"single": {k: v for k, v in r.items() if k not in ("params", "method_state")}}
+        excess = {f"param {k}": _abs_excess(g0["params"][k], p, *TP_TOL)
+                  for k, p in r["params"].items()}
+        want = dict(named_leaves(r["method_state"]))
+        for k, v in named_leaves(g0["method_state"]):
+            if k != "weights":
+                excess[f"state {k}"] = _abs_excess(
+                    v, want[k], TP_TOL[0], TP_TOL[1] * want[k].abs().max().item())
+        worst = max(excess, key=excess.get)
+        check(excess[worst] <= 1.0, f"tp {loss} vs one process: {excess[worst]:.3g}x "
+                                    f"tolerance ({worst})")
+        res.update(tol_used=excess[worst], worst_leaf=worst,
+                   moved=max((p - ref["init"][k]).abs().max().item()
+                             for k, p in r["params"].items()))
+        check(res["moved"] > TP_SPIN_MOVED, f"tp {loss}: the parameters moved {res['moved']:.3g}")
+        if loss == "spinx":  # information: two runs' refreshes (not gated, see TP_SPIN_*)
+            res["weights_run_vs_run_rtol_used"] = _abs_excess(
+                g0["method_state"]["weights"], r["method_state"]["weights"], 1e-4, 0.0)
+        for i, g in enumerate(ranks):
+            check(g["same_as_rank0"], f"tp {loss}: rank {i} differs from rank 0")
+            check(not any(g["launches"].values()) and not any(r["launches"].values()),
+                  f"tp {loss}: K1-K3 launched {g['launches']}, one process {r['launches']}")
+            if loss == "spin":
+                check(2 * g["state_bytes"]["j_avg"] == r["state_bytes"]["j_avg"],
+                      f"tp spin rank {i}: j_avg {g['state_bytes']} against one process's "
+                      f"{r['state_bytes']}")
+            res[f"rank{i}"] = {k: v for k, v in g.items() if k not in ("params", "method_state")}
+        launches[f"tp_{loss}"] = {k: sum(g["launches"][k] for g in ranks) for k in g0["launches"]}
+        res["checkpoint"] = _tp_spin_in_one_process(loss, g0["run_dir"], g0)
+        out[loss] = res
+    return out, launches
+
+
 def phase_tp(tmp):
     """Tensor parallelism on the card: two gloo ranks at --mesh tp=2, the
-    E4 CLI run and the paper-width CDK step against one process; returns
-    each kernel's launches on the two ranks, by path."""
+    E4 CLI run, the paper-width CDK step and SpIN and SpINx at hydrogen.sh's
+    width against one process; returns each kernel's launches on the two
+    ranks, by path."""
     t0 = time.perf_counter()
-    e4, init, cdk = _tp_references(tmp)
+    e4, init, cdk, spin = _tp_references(tmp)
     spawn_s = _spawn_two(_tp_gloo_rank, tmp, "tp_rank", TP_SPAWN_TIMEOUT_S)
     got = [torch.load(os.path.join(tmp, f"tp_rank{r}.pt"), weights_only=False)
            for r in range(2)]
@@ -3636,8 +3848,82 @@ def phase_tp(tmp):
                                                  got[0]["e4"][checked]["params"])
     check(same, "tp checkpoint loaded in one process differs from the run's parameters")
     out["checkpoint"] = {"loads_in_one_process": same, "bytes": nbytes}
+    out["spin"], spin_launches = _tp_spin_checks(spin, got)
+    launches.update(spin_launches)
     emit("tp", **out, launches=launches, phase_s=time.perf_counter() - t0)
     return launches
+
+
+def _export_case(tmp, label, apply_fn, params, input_dim):
+    """One serving export on the card: saved to ``tmp``/<label>.pt2 and
+    reloaded; at EXPORT_BATCHES rows against the eager ``apply_fn``, bit
+    for bit or within EXPORT_RTOL/EXPORT_ATOL of the largest entry; the
+    exported and eager calls' CUDA-event ms."""
+    path = os.path.join(tmp, f"{label}.pt2")
+    t0 = time.perf_counter()
+    export.save_evaluator(path, apply_fn, params, input_dim)
+    out = {"export_s": time.perf_counter() - t0, "bytes": os.path.getsize(path)}
+    t0 = time.perf_counter()
+    fn = export.load_evaluator_file(path)
+    out["load_s"] = time.perf_counter() - t0
+    out["tiered_ops"] = sum("tiered_einsum" in str(n.target) for n in fn.graph.nodes)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    for rows in EXPORT_BATCHES:
+        x = torch.randn((rows, input_dim), generator=gen, device=DEVICE)
+        with torch.no_grad():
+            got, want = fn(x), apply_fn(params, x)
+        check(got.shape == want.shape, f"export {label}: shape {got.shape} != {want.shape}")
+        excess = _excess(got.double(), want.double(), EXPORT_RTOL, EXPORT_ATOL)
+        check(excess <= 1.0, f"export {label} at {rows} rows: {excess:.3g}x tolerance")
+        with torch.no_grad():
+            out[f"rows{rows}"] = {
+                "bit_for_bit": torch.equal(got, want), "tol_used": excess,
+                "ms": time_ms(lambda: fn(x), iters=20, reps=5),
+                "eager_ms": time_ms(lambda: apply_fn(params, x), iters=20, reps=5)}
+    return out
+
+
+def phase_export(tmp):
+    """The serving export (utils/export.py) on the card: the E4
+    wavefunction (float32 and the 'high' tier) and the paper-width CDK x
+    tower (f32, bf16), reloaded from their files against the eager
+    modules."""
+    from torch.func import functional_call
+
+    t0 = time.perf_counter()
+    out = {"tol": [EXPORT_RTOL, EXPORT_ATOL], "batches": list(EXPORT_BATCHES)}
+    for label, flags in (("e4", []), ("e4_high", ["--matmul_precision", "high"])):
+        cfg = parse_pde_config(PDE_E4_ARGV + flags + ["--device", DEVICE])
+        model = pde.build(cfg).model
+        params = {k: p.detach() for k, p in model.named_parameters()}
+        out[label] = _export_case(tmp, label, lambda p, x, m=model: functional_call(m, p, (x,)),
+                                  params, NDIM)
+    check(out["e4"]["tiered_ops"] == 0 and out["e4_high"]["tiered_ops"] == len(HIDDEN) + 1,
+          f"export: tiered products {out['e4']['tiered_ops']}, {out['e4_high']['tiered_ops']}")
+    args = _tp_cdk_args(tmp)
+    for label, dtype in (("cdk_f32", None), ("cdk_bf16", "bf16")):
+        net = HeteroNetwork(CDK_DIM, parse_dims(args.network_dims), args.activation, mu=args.mu,
+                            generator=torch.Generator().manual_seed(SEED),
+                            compute_dtype=dtype).to(DEVICE)
+        params = {k: p.detach() for k, p in net.named_parameters()}
+        out[label] = _export_case(
+            tmp, label, lambda p, x, m=net: functional_call(m, p, (x, x))[0], params, CDK_DIM)
+    emit("export", **out, phase_s=time.perf_counter() - t0)
+
+
+def phase_dryrun():
+    """graft_entry: the flagship model's entry on the card, and
+    dryrun_multichip on DRYRUN_RANKS gloo CPU ranks in its subprocess."""
+    t0 = time.perf_counter()
+    fn, args = graft_entry.entry()
+    with torch.no_grad():
+        out = fn(*args)
+    check(out.shape == (512, 36) and bool(torch.isfinite(out).all()),
+          f"entry: {tuple(out.shape)}")
+    t1 = time.perf_counter()
+    graft_entry.dryrun_multichip(DRYRUN_RANKS)
+    emit("dryrun", entry_shape=list(out.shape), ranks=DRYRUN_RANKS,
+         dryrun_s=time.perf_counter() - t1, phase_s=time.perf_counter() - t0)
 
 
 def main():
@@ -3668,6 +3954,8 @@ def main():
         counts["sketchy_cli"] = phase_sketchy_cli(tmp)
         phase_dp(os.path.join(tmp, "root"))
         counts.update(phase_tp(tmp))
+        phase_export(tmp)
+    phase_dryrun()
     kernels = []
     for kname, results in rows.items():
         at = {r["shape"]: r for r in results}
@@ -3679,7 +3967,8 @@ def main():
                                      ("hydrogen", "hydrogen"), ("oscillator", "oscillator"),
                                      ("fp", "fp"), ("pde_tiers", "E4"), ("cdk_bf16", "cdk"),
                                      ("kernel_evd", "kernel_evd"), ("sketchy_cli", "cdk"),
-                                     ("tp_e4", "E4"), ("tp_cdk", "cdk"))}
+                                     ("tp_e4", "E4"), ("tp_cdk", "cdk"),
+                                     ("tp_spin", "hydrogen"), ("tp_spinx", "hydrogen"))}
         for path, m in measured.items():
             paths[path].update(m[kname])
         cdk = paths["cdk"]

@@ -33,8 +33,9 @@ the JAX GSPMD path's semantics (``neuralsvd_tpu/cli/pde.py:47-66``): every
 rank draws the global batch and keeps its dp share of each half, so the
 run is the one-process run up to reduction order; the evals, the rescue
 and the checkpoints (which do not depend on the mesh) see the gathered
-state.  NestedLoRA and NeuralEF run under tp; SpIN and SpINx refuse it,
-naming ROADMAP item [9c].
+state.  Every ``--loss`` runs under tp: SpIN's Jacobian average is sharded
+with the modes (``methods/spin.py``) and gathered into each checkpoint, and
+SpINx's NTK refresh takes the whole gradient's norms.
 """
 from __future__ import annotations
 
@@ -47,7 +48,7 @@ import torch
 
 from neuralsvd_tpu_torch.data.samplers import get_sampler, make_val_grid, make_val_mc
 from neuralsvd_tpu_torch.device import resolve_device
-from neuralsvd_tpu_torch.methods.factories import TP_SPIN_REFUSAL, get_evd_method
+from neuralsvd_tpu_torch.methods.factories import get_evd_method
 from neuralsvd_tpu_torch.models.mlp import parse_dims
 from neuralsvd_tpu_torch.models.wavefunctions import make_wavefunctions
 from neuralsvd_tpu_torch.operators.problems import get_problem
@@ -55,10 +56,11 @@ from neuralsvd_tpu_torch.parallel.collectives import axis_size
 from neuralsvd_tpu_torch.parallel.mesh import (
     barrier,
     dp_group,
-    given_sizes,
+    half_rows,
     is_writer,
     make_mesh,
     mesh_sizes,
+    method_state_axes,
     rank_device,
     tp_group,
 )
@@ -94,18 +96,10 @@ log = logging.getLogger("neuralsvd_tpu_torch.pde")
 
 
 def check_ported(cfg: PDEConfig) -> None:
-    """Raise NotImplementedError for a configuration the port cannot run
-    (SpIN or SpINx with a tp axis above 1, given or absorbed: item [9c]),
-    ValueError for a ``--mesh`` whose dp does not divide the batch into
-    even half-batches."""
+    """Raise ValueError for a ``--mesh`` that does not fit the ranks or
+    whose dp does not divide the batch into even half-batches."""
     if cfg.mesh:
-        spin = cfg.loss.name in ("spin", "spinx")
-        if spin and given_sizes(cfg.mesh).get("tp", 1) > 1:
-            raise NotImplementedError(TP_SPIN_REFUSAL)
-        sizes = mesh_sizes(cfg.mesh)
-        if spin and sizes.get("tp", 1) > 1:
-            raise NotImplementedError(TP_SPIN_REFUSAL)
-        dp = sizes.get("dp", 1)
+        dp = mesh_sizes(cfg.mesh).get("dp", 1)
         if cfg.batch_size % (2 * dp):
             raise ValueError(
                 f"batch_size {cfg.batch_size} must divide by 2*dp={2 * dp} "
@@ -279,10 +273,14 @@ def main(cfg: PDEConfig, timings=None, use_graph: bool = True):
     spinx_refresh = None
     if cfg.loss.name == "spinx":
         def spinx_refresh(ts, generator):
-            """SpINx's NTK weights from one batch drawn from ``generator``."""
+            """SpINx's NTK weights from one batch drawn from ``generator``
+            (under tp this dp rank's share of the global batch, as a step
+            takes it)."""
             x = run.sample(generator)
-            method.refresh_weights(ts.params, ts.method_state,
-                                   x.reshape(x.shape[0], -1), run.operator,
+            x = x.reshape(x.shape[0], -1)
+            if tp is not None:
+                x = half_rows(x, group)
+            method.refresh_weights(ts.params, ts.method_state, x, run.operator,
                                    run.importance_train)
 
     # --resume: restart from the latest ckpt_<it>; the generators are seeded
@@ -295,7 +293,8 @@ def main(cfg: PDEConfig, timings=None, use_graph: bool = True):
             initial_ts = init_train_state(run.local_model, optimizer, method)
             tree = load_checkpoint(path)
             if run.shards is not None:  # a checkpoint holds every mode
-                tree = {name: run.shards.narrow_tree(tree[name]) for name in STATE_FIELDS}
+                tree = run.shards.narrow_fields({name: tree[name] for name in STATE_FIELDS},
+                                                method_state_axes(method))
             load_state_tree(initial_ts, tree)
             log.info("resuming from %s at iter %d", path, start_iter)
 

@@ -4,8 +4,7 @@ Port of ``neuralsvd_tpu/methods/factories.py``: ``get_evd_method``
 (:13-37: NestedLoRA, NeuralEF, SpIN and SpINx) and ``get_cdk_method``
 (:40-46), with the data-parallel ``axis_name`` (a process group or None,
 parallel/collectives.py) passed to every method, and the tp group
-(``mode_axis``, None without one) to NestedLoRA and NeuralEF.  SpIN and
-SpINx refuse a tp group (``TP_SPIN_REFUSAL``).
+(``mode_axis``, None without one) to every EVD method.
 """
 from __future__ import annotations
 
@@ -15,11 +14,6 @@ from neuralsvd_tpu_torch.methods.nestedlora import NestedLoRA, NestedLoRAForCDK
 from neuralsvd_tpu_torch.methods.neuralef import NeuralEigenfunctions
 from neuralsvd_tpu_torch.methods.spin import SpIN
 from neuralsvd_tpu_torch.methods.spinx import SpINx
-
-
-TP_SPIN_REFUSAL = (
-    "SpIN and SpINx on a tp mesh axis (their Jacobian average and sigma channel over "
-    "mode-sharded parameters) are not ported yet (ROADMAP item [9c]); use --mesh dp[=N]")
 
 
 def get_evd_method(method_name: str, model: nn.Module, neigs: int,
@@ -33,8 +27,6 @@ def get_evd_method(method_name: str, model: nn.Module, neigs: int,
                           sequential=opts.get("sequential", False), sort=sort,
                           axis_name=axis_name, mode_axis=mode_axis,
                           use_pallas=opts.get("use_pallas", "auto"))
-    if method_name in ("spin", "spinx") and mode_axis is not None:
-        raise NotImplementedError(TP_SPIN_REFUSAL)
     if method_name == "neuralef":
         return NeuralEigenfunctions(
             model, neigs, batchnorm_mode=opts.get("batchnorm_mode", "unbiased"),
@@ -42,9 +34,11 @@ def get_evd_method(method_name: str, model: nn.Module, neigs: int,
             include_diag=opts.get("include_diag", False), sort=sort,
             axis_name=axis_name, mode_axis=mode_axis)
     if method_name == "spin":
-        return SpIN(model, neigs, decay=opts.get("decay", 0.01), axis_name=axis_name)
+        return SpIN(model, neigs, decay=opts.get("decay", 0.01), axis_name=axis_name,
+                    mode_axis=mode_axis)
     if method_name == "spinx":
-        return SpINx(model, neigs, decay=opts.get("decay", 0.01), axis_name=axis_name)
+        return SpINx(model, neigs, decay=opts.get("decay", 0.01), axis_name=axis_name,
+                     mode_axis=mode_axis)
     raise NotImplementedError(method_name)
 
 

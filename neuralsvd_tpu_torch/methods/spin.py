@@ -39,6 +39,27 @@ False)`` sends each basis cotangent through psum(ct)/n, which gives it back
 unchanged.  So each rank's ``j_avg`` and σ-channel gradient are its own
 until the dp train step averages the state and sums the gradients over the
 ranks (parallel/sharding.py).
+
+``mode_axis`` (the tensor-parallel group, or None): the model is a rank's
+share (``parallel.sharding.shard_module``), whose outputs are the modes
+``[lo, hi)`` of ``parallel.mesh.mode_range``.  φ and Tφ (and, split, σ's
+rows [φ1; φ2]) are gathered along the modes before σ and π, so σ, π, gσ,
+gπ, ``sigma_avg`` and ``chol`` are whole and equal on every rank, and the
+π channel's VJP goes through the gather's backward, which hands each rank
+its modes' slice.  The σ channel differentiates the rank's own outputs
+with the gathered φ in the cotangent: a per-mode leaf's compact ``j_avg``
+is then (L, hi-lo, ...), entry [m, s] for the rank's slot s (L passes over
+a network of the rank's modes), and a replicated leaf upstream of the
+gather holds the rank's columns j[:, lo:hi] of its dense layout, whose
+contraction with gσ[:, lo:hi] is partial: the mesh step sums such a
+leaf's gradient over tp (``ModeShards.pre_gather``), π channel and σ
+channel at once.  So every leaf of ``j_avg`` has its modes on axis 1
+(``state_mode_axes``), where the name-matched ``ModeShards.narrow_tree``
+would take axis 0.  Under dp x tp the batch is one global batch split over
+the dp ranks (the JAX GSPMD path's semantics): the σ channel's contraction
+divides by the dp size, each rank's share of the mean Jacobian's, and the
+train step's dp mean of the state and sum of the gradients complete it;
+the dp ranks at one tp index hold the same slots, so that mean is right.
 """
 from __future__ import annotations
 
@@ -50,7 +71,8 @@ from torch.func import functional_call
 from torch.profiler import record_function
 
 from neuralsvd_tpu_torch.ops.gram import global_batch_size
-from neuralsvd_tpu_torch.parallel.collectives import pmean
+from neuralsvd_tpu_torch.parallel.collectives import axis_size, gather_modes, pmean
+from neuralsvd_tpu_torch.parallel.mesh import mode_range
 
 JITTER = 1e-3
 # the profiler ranges of a step: the π channel (operator and its VJP), the
@@ -116,26 +138,44 @@ class SpIN:
     name = "spin"
 
     def __init__(self, model: nn.Module, neigs: int, decay: float = 0.01,
-                 axis_name=None):
+                 axis_name=None, mode_axis=None):
         """decay: 0 = frozen moving average, 1 = no memory."""
         self.model = model
         self.neigs = neigs
         self.decay = decay
         self.axis_name = axis_name
+        self.mode_axis = mode_axis
         declared = getattr(model, "per_mode_parameters", None)
         self.per_mode = frozenset(declared() if declared is not None else ())
+        self.lo, self.hi = mode_range(neigs, mode_axis)
+        if mode_axis is not None:
+            axes = dict(getattr(model, "mode_axes", dict)())
+            if any(k not in self.per_mode or a != 0 for k, a in axes.items()):
+                raise ValueError(f"SpIN on a tp group needs every mode-sharded parameter "
+                                 f"per-mode on its leading axis: {axes}")
 
     def _apply(self, params, x):
         return functional_call(self.model, params, (x,))
 
+    def _modes(self, t):
+        """All L modes of a rank's outputs ``t`` under ``mode_axis``."""
+        return gather_modes(t, self.mode_axis, self.neigs)
+
     def _j_shape(self, name, p) -> tuple:
         L = self.neigs
-        return ((L,) if name in self.per_mode else (L, L)) + tuple(p.shape)
+        return ((L,) if name in self.per_mode else (L, self.hi - self.lo)) + tuple(p.shape)
 
     def state_bytes(self, params) -> int:
-        """The bytes of ``j_avg`` for ``params``."""
+        """The bytes of ``j_avg`` for ``params`` (a rank's share under
+        ``mode_axis``)."""
         return sum(torch.Size(self._j_shape(k, p)).numel() * p.element_size()
                    for k, p in params.items())
+
+    def state_mode_axes(self):
+        """The mode axis of each sharded leaf of the state: axis 1 of every
+        ``j_avg`` leaf (a per-mode leaf's slot, a dense leaf's column);
+        ``sigma_avg`` and ``chol`` are whole on every rank."""
+        return {"j_avg": {k: 1 for k, _ in self.model.named_parameters()}}
 
     def init_state(self, params):
         """Zero ``sigma_avg`` and ``j_avg``, identity ``chol``, in the
@@ -157,27 +197,32 @@ class SpIN:
 
     def _jacobian(self, params, x, phi) -> Dict[str, torch.Tensor]:
         """j_new[m, l] = 2/B Σ_b φ[b,m] ∂φ[b,l]/∂θ in each leaf's layout,
-        from a B-row model call: L passes (one batched call) when every
-        leaf is per-mode, else L batched calls of one-hot columns."""
+        for the model's own output columns l (the rank's modes under
+        ``mode_axis``; ``phi`` has all L), from a B-row model call: L
+        passes (one batched call) when every leaf is per-mode, else one
+        batched call of L one-hot cotangents per output column."""
         names = list(params)
         leaves = [params[k] for k in names]
         out = self._apply(params, x)
-        B, L = out.shape
+        B, n = out.shape
+        L = phi.shape[1]
         c = (2.0 / B) * phi.T  # (m, b)
         if all(k in self.per_mode for k in names):
-            cot = c[:, :, None].expand(L, B, L)
+            cot = c[:, :, None].expand(L, B, n)
             return dict(zip(names, _batched_grad(out, leaves, cot, False)))
         j_new = {k: p.new_empty(self._j_shape(k, p)) for k, p in params.items()}
-        for col in range(L):
-            cot = out.new_zeros((L, B, L))
+        for col in range(n):
+            cot = out.new_zeros((L, B, n))
             cot[:, :, col] = c
-            grads = _batched_grad(out, leaves, cot, col < L - 1)
+            grads = _batched_grad(out, leaves, cot, col < n - 1)
             for k, g in zip(names, grads):
                 j_new[k][:, col] = g[:, col] if k in self.per_mode else g
         return j_new
 
     def _contract(self, name, gsigma, j):
-        """Σ_{m,l} gσ[m, l] j[m, l] in the leaf's layout."""
+        """Σ_{m,l} gσ[m, l] j[m, l] in the leaf's layout, over the rank's
+        columns l under ``mode_axis``."""
+        gsigma = gsigma[:, self.lo:self.hi]
         if name in self.per_mode:
             return torch.einsum("ms,ms...->s...", gsigma, j)
         return torch.tensordot(gsigma, j, dims=2)
@@ -189,7 +234,8 @@ class SpIN:
         def pi_inputs():
             Tphi, phi = operator(lambda xx: self._apply(params, xx), x, importance,
                                  with_graph=True)
-            return Tphi, phi, phi.detach(), x
+            phi = self._modes(phi)
+            return self._modes(Tphi), phi, phi.detach(), x
 
         return self._step(params, state, pi_inputs)
 
@@ -213,9 +259,10 @@ class SpIN:
         def pi_inputs():
             model = lambda xx: self._apply(params, xx)  # noqa: E731
             Kphi1, phi1 = get_approx_kernel_op(x2)(model, x1, importance, with_graph=True)
+            phi1 = self._modes(phi1)
             with torch.no_grad():  # φ2 enters σ only, which takes no gradient
-                phi2 = model(x2)
-            return Kphi1, phi1, torch.cat([phi1.detach(), phi2]), x1
+                phi2 = self._modes(model(x2))
+            return self._modes(Kphi1), phi1, torch.cat([phi1.detach(), phi2]), x1
 
         return self._step(params, state, pi_inputs)
 
@@ -244,6 +291,8 @@ class SpIN:
                 allow_unused=True, materialize_grads=True)
         with record_function(sigma_range):
             j_new = self._jacobian(params, x, phi_d)
+        if self.mode_axis is not None and group is not None:
+            gsigma = gsigma / axis_size(group)  # a dp rank's share (module docstring)
         grads = {}
         with record_function(j_range), torch.no_grad():
             for k, g_pi in zip(names, grads_pi):

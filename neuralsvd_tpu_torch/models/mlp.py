@@ -237,6 +237,19 @@ class _TieredProduct(torch.autograd.Function):
         return None, None, ga, gb
 
 
+@torch.library.custom_op("neuralsvd_tpu_torch::tiered_einsum", mutates_args=())
+def tiered_einsum_op(eq: str, tier: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``_tiered_einsum`` as one operator: what a ``torch.export`` program
+    holds for a tiered product, since cuBLAS's TF32 switch is a global
+    setting that no traced graph records (utils/export.py)."""
+    return _tiered_einsum(eq, tier, a, b)
+
+
+@tiered_einsum_op.register_fake
+def _(eq, tier, a, b):
+    return torch.einsum(eq, a, b)
+
+
 def tower_product(eq: str, a: torch.Tensor, b: torch.Tensor, precision=None):
     """The tower product ``torch.einsum(eq, a, b)`` at ``precision`` (None,
     a tier, or a split spec, see ``resolve_matmul_precision``): the
@@ -256,6 +269,8 @@ def tower_product(eq: str, a: torch.Tensor, b: torch.Tensor, precision=None):
         prec = head  # the two tiers compute alike
     if prec is None:
         return torch.einsum(eq, a, b)
+    if torch.compiler.is_exporting() and a.device.type == "cuda":
+        return tiered_einsum_op(eq, prec, a, b)
     if torch._C._functorch.peek_interpreter_stack() is not None:
         # inside torch.func's jvp or vmap (the nested-JVP Laplacian), whose
         # nested JVPs would not differentiate a Function's own jvp: the

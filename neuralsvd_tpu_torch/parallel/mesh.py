@@ -37,8 +37,8 @@ from neuralsvd_tpu_torch.parallel.collectives import (
 
 __all__ = ["ModeShards", "barrier", "check_method_axis", "dp_group", "given_sizes",
            "half_rows", "init_process_group", "is_writer", "local_rows", "make_mesh",
-           "mesh_sizes", "mode_range", "parse_mesh_spec", "rank_device",
-           "require_capturable", "tp_group"]
+           "mesh_sizes", "method_state_axes", "mode_layout", "mode_range",
+           "parse_mesh_spec", "rank_device", "require_capturable", "tp_group"]
 
 
 def parse_mesh_spec(spec: str, n_avail: int):
@@ -242,6 +242,61 @@ class ModeShards:
             return all_gather_modes(t, self.group, self.n_modes, self.axes[name])
 
         return _map_named(tree, gather)
+
+    def narrow_state(self, tree, axes):
+        """This rank's share of a method state: each leaf that ``axes`` (a
+        tree of the same dicts, the method's ``state_mode_axes()``) gives
+        an int is narrowed on that axis, every other leaf kept; None keeps
+        the whole tree.  Matched by place, not by name: SpIN's ``j_avg`` is
+        keyed by parameter name but has its modes on another axis."""
+        lo, hi = self.range
+        return _map_axes(tree, axes, lambda t, a: t.narrow(a, lo, hi - lo))
+
+    def gather_state(self, tree, axes):
+        """``narrow_state``'s inverse: the whole method state from every
+        rank's share (new tensors for the sharded leaves)."""
+        return _map_axes(tree, axes, lambda t, a: all_gather_modes(
+            t, self.group, self.n_modes, a))
+
+    def narrow_fields(self, tree: dict, method_axes):
+        """This rank's share of a TrainState's fields ({field: tree}, e.g.
+        a checkpoint's): ``method_state`` by ``narrow_state`` on
+        ``method_axes``, the others by ``narrow_tree``."""
+        return {name: (self.narrow_state(t, method_axes) if name == "method_state"
+                       else self.narrow_tree(t)) for name, t in tree.items()}
+
+
+def mode_layout(model) -> tuple:
+    """({name: mode axis} of ``model``'s per-mode parameters
+    (``model.mode_axes()``, none where it names none), the replicated
+    parameters that act before the modes are gathered
+    (``model.pre_gather_parameters()`` where it names them, else every
+    other parameter: a wavefunction's are all upstream of its output))."""
+    axes = dict(getattr(model, "mode_axes", dict)())
+    if hasattr(model, "pre_gather_parameters"):
+        return axes, frozenset(model.pre_gather_parameters())
+    return axes, frozenset(name for name, _ in model.named_parameters() if name not in axes)
+
+
+def method_state_axes(method):
+    """The mode axes of ``method``'s state (its ``state_mode_axes()``),
+    None where every leaf of it is replicated over tp."""
+    axes = getattr(method, "state_mode_axes", None)
+    return None if axes is None else axes()
+
+
+def _map_axes(tree, axes, fn):
+    """``fn(tensor, axis)`` on every tensor of ``tree`` to which ``axes``
+    gives an int at the same place (dict keys and list positions)."""
+    if axes is None:
+        return tree
+    if isinstance(axes, int):
+        return fn(tree, axes)
+    if isinstance(tree, dict):
+        return {k: _map_axes(v, axes.get(k), fn) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map_axes(v, a, fn) for v, a in zip(tree, axes))
+    return tree
 
 
 def _map_named(tree, fn, key=None):

@@ -40,7 +40,7 @@ from torch import nn
 from neuralsvd_tpu_torch.models.mlp import ParallelMLP, _is_split
 from neuralsvd_tpu_torch.models.two_tower import HeteroNetwork
 from neuralsvd_tpu_torch.parallel.collectives import all_gather_rows, gather_modes
-from neuralsvd_tpu_torch.parallel.mesh import ModeShards, dp_group, tp_group
+from neuralsvd_tpu_torch.parallel.mesh import ModeShards, dp_group, mode_layout, tp_group
 from neuralsvd_tpu_torch.training.cdk_step import make_cdk_train_step
 from neuralsvd_tpu_torch.training.train_operator import ScannedTrainStep, make_train_step
 
@@ -131,18 +131,13 @@ def make_mesh_cdk_step(method, optimizer, mesh, grad_clip: float = 0.0,
 
 def mode_shards(model: nn.Module, group, n_modes: int) -> Optional[ModeShards]:
     """The ``ModeShards`` of ``model`` on the tp ``group``: its per-mode
-    parameters (``model.mode_axes()``) and the replicated ones that act
-    before the gather (``model.pre_gather_parameters()`` where the model
-    names them, else every other parameter: a wavefunction's are all
-    upstream of its output).  None without a group, or for a model with no
+    parameters and the replicated ones that act before the gather
+    (``mesh.mode_layout``).  None without a group, or for a model with no
     per-mode parameter, which the tp ranks then hold whole."""
-    axes = dict(getattr(model, "mode_axes", dict)())
+    axes, pre = mode_layout(model)
     if group is None or not axes:
         return None
-    names = [name for name, _ in model.named_parameters()]
-    pre = (model.pre_gather_parameters() if hasattr(model, "pre_gather_parameters")
-           else [name for name in names if name not in axes])
-    return ModeShards(group, n_modes, axes, frozenset(pre))
+    return ModeShards(group, n_modes, axes, pre)
 
 
 def shard_module(model: nn.Module, shards: ModeShards) -> nn.Module:

@@ -66,10 +66,15 @@ parameters used before the gather over tp, and the optimizer's norms are
 those of the whole tensors.  So the run is the one-process run up to
 reduction order.  The evals, the rescue and the checkpoints run on the
 gathered state (``eval_method``: the method on the whole model), and the
-rescue's edits are narrowed back into each rank's share in place.
+rescue's edits are narrowed back into each rank's share in place.  A
+method state with sharded leaves (SpIN's ``j_avg``, whose modes lie on the
+axis the method names in ``state_mode_axes``) is gathered only for a
+checkpoint, the rescue and the returned state: an eval reads only its
+replicated ``chol``.
 """
 from __future__ import annotations
 
+import dataclasses
 import logging
 import math
 import os
@@ -89,6 +94,7 @@ from neuralsvd_tpu_torch.parallel.mesh import (
     dp_group,
     half_rows,
     is_writer,
+    method_state_axes,
     require_capturable,
     tp_group,
 )
@@ -490,7 +496,7 @@ def train_operator(
     the evals and the rescue use (default: ``method``).
 
     Returns (final TrainState, all_eigvals, all_norms); under tp the
-    TrainState gathered from every rank's share.
+    TrainState gathered from every rank's share, the method state's too.
     """
     from neuralsvd_tpu_torch.methods.spectrum import (
         compute_spectrum_evd,
@@ -525,16 +531,31 @@ def train_operator(
                               use_graph=use_graph and use_scan, group=group,
                               tp_group=tp)
 
+    method_axes = method_state_axes(method)
+
     def whole_state() -> TrainState:
         """The TrainState of all modes: ``ts``, or under tp every rank's
-        share gathered (new tensors)."""
+        share gathered (new tensors) but the method state, which stays
+        this rank's (``with_method_state`` gathers it)."""
         if shards is None:
             return ts
         return TrainState(step=ts.step, method_state=ts.method_state,
                           **{name: shards.gather_tree(getattr(ts, name))
                              for name in ("params", "opt_state", "ema_params")})
+
+    def with_method_state(whole: TrainState) -> TrainState:
+        """``whole`` with the method state of all modes (gathered under tp)."""
+        if shards is None or whole.method_state is not ts.method_state:
+            return whole
+        return dataclasses.replace(
+            whole, method_state=shards.gather_state(ts.method_state, method_axes))
     path = "graph" if blocks.use_graph and device.type == "cuda" else "eager"
     log.info("train steps: %s blocks of %d", path, max(print_freq, 1))
+    if isinstance(ts.method_state, dict) and ts.method_state:
+        log.info("method state bytes on this rank: %s", {
+            k: sum(t.numel() * t.element_size() for t in tree_flatten(v)[0]
+                   if isinstance(t, torch.Tensor))
+            for k, v in ts.method_state.items()})
 
     all_eigvals, all_norms = [], []
 
@@ -563,10 +584,11 @@ def train_operator(
                      method.neigs)
         if (rescue_init_fn is not None and not health["healthy"].all()
                 and it_done <= rescue_until * num_iters):
-            run_rescue(whole, it_done, cov, np.asarray(outputs["quad"]))
+            whole = run_rescue(whole, it_done, cov, np.asarray(outputs["quad"]))
         timings.setdefault("eval", []).append(time.perf_counter() - t0)
         if checkpoint_fn is not None:
             t0 = time.perf_counter()
+            whole = with_method_state(whole)
             if writer:
                 checkpoint_fn(whole, it_done, outputs)
             barrier(everyone)
@@ -598,6 +620,7 @@ def train_operator(
                     if any(k.startswith("base.ws.") for k in whole.params)  # ParallelMLP
                     else None)
         pointers = state_pointers(ts)
+        whole = with_method_state(whole)
         generator = torch.Generator().manual_seed(
             block_seed(seed + 1, it_done, RESCUE_STREAM))
         _, info = rescue_modes(
@@ -606,8 +629,8 @@ def train_operator(
             scale_fn=scale_fn, clone_healthy_tail=scale_fn is not None,
             grace_slots=rescue_grace)
         if shards is not None:  # every rank's share of the rescued modes
-            load_state_tree(ts, {name: shards.narrow_tree(getattr(whole, name))
-                                 for name in STATE_FIELDS})
+            load_state_tree(ts, shards.narrow_fields(
+                {name: getattr(whole, name) for name in STATE_FIELDS}, method_axes))
         if state_pointers(ts) != pointers:
             raise RuntimeError("the rescue replaced a tensor of the TrainState")
         rescue_grace[:] = list(info["tail_slots"]) if info["n_spurious"] else []
@@ -619,6 +642,7 @@ def train_operator(
                      info["tail_slots"].tolist(),
                      np.asarray(info.get("clone_sources", [])).tolist(),
                      np.asarray(info["amplitude_factors"]).tolist())
+        return whole
 
     total_skips = 0
     start = time.time()
@@ -671,4 +695,4 @@ def train_operator(
             run_eval(it)
     if prof is not None:  # the loop ended inside the trace window
         _close_profile(prof, device, profile_dir)
-    return whole_state(), all_eigvals, all_norms
+    return with_method_state(whole_state()), all_eigvals, all_norms

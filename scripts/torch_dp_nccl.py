@@ -4,17 +4,22 @@ graphs.
 
 Run on a host with N cards (N >= 2), from the root of the repository:
 
-    torchrun --standalone --nproc-per-node N scripts/torch_dp_nccl.py [--mesh SPEC] [--out DIR]
+    torchrun --standalone --nproc-per-node N scripts/torch_dp_nccl.py [--mesh SPEC] [--loss LOSS] [--out DIR]
 
 ``--mesh`` defaults to ``dp`` (dp=N).  Every rank runs
-``neuralsvd_tpu_torch.cli.pde.main`` on the E4 flags with that mesh: on a
-mesh with dp above 1 the plain loss (``--neuralsvd.use_pallas false``,
-which the dp path takes), on a tp-only mesh the default, K1-K3 on the
-gathered modes; ITERS steps in graph blocks of BLOCK with one eval at the
-end, the second block traced by rank 0; then the same run as eager steps
-(the K1-K3 launches of which the wrappers count).  Under tp each rank
-holds its share of the modes and gathers them (all-gathers) before the
-loss; the run returns the gathered state.  It checks that
+``neuralsvd_tpu_torch.cli.pde.main`` with that mesh.  ``--loss neuralsvd``
+(the default) takes the E4 flags: on a mesh with dp above 1 the plain loss
+(``--neuralsvd.use_pallas false``, which the dp path takes), on a tp-only
+mesh the default, K1-K3 on the gathered modes; ITERS steps in graph blocks
+of BLOCK.  ``--loss spin`` or ``spinx`` takes the flags of
+``scripts/exps/pde/hydrogen.sh`` (L 36, finite differences) with that loss,
+SPIN_ITERS steps in graph blocks of SPIN_BLOCK; each rank reports the
+bytes of its method state (SpIN's ``j_avg``: its share under tp) and its
+peak device memory.  One eval at the end of each run, the second block
+traced by rank 0; then the same run as eager steps (the K1-K3 launches of
+which the wrappers count).  Under tp each rank holds its share of the modes
+and gathers them (all-gathers) before the loss; the run returns the
+gathered state.  It checks that
 
 - every rank ends the graph run with rank 0's (gathered) state, bit for
   bit;
@@ -38,6 +43,7 @@ import argparse
 import contextlib
 import io
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -67,6 +73,22 @@ E4_ARGV = ("--potential_type hydrogen --ndim 2 --neigs 16 --parallel true "
            "--overwrite true").split()
 PLAIN = ["--neuralsvd.use_pallas", "false"]
 ITERS, BLOCK = 1000, 250
+# scripts/exps/pde/hydrogen.sh's args=( ... ) list (chip_smoke.py's
+# HYDROGEN_ARGV), for --loss spin|spinx
+HYDROGEN_ARGV = ("--optimizer rmsprop --use_lr_scheduler true --ema_decay 0.995 "
+                 "--batch_size 512 --lr 1e-4 --momentum 0. --num_iters 500000 "
+                 "--laplacian_eps 0.01 --eval_freq 10000 --overwrite true "
+                 "--potential_type hydrogen --ndim 2 --lim 50 --val_eps 0.1 --neigs 36 "
+                 "--apply_boundary false --apply_exp_mask false "
+                 "--mlp_hidden_dims 128,128,128 --parallel true --nonlinearity softplus "
+                 "--sampling_mode gaussian_mixture --sampling_scales 0.5,2,6,16,32 "
+                 "--fourier_append_radial true "
+                 "--fourier_append_envelopes 2.0,0.6667,0.4,0.2857,0.2222,0.1818 "
+                 "--operator_scale 100 --rescue true --use_fourier_feature true "
+                 "--fourier_mapping_size 1024 --fourier_scale 0.1 --neuralsvd.step 1 "
+                 "--neuralsvd.sequential 0 --neuralef.unbiased true "
+                 "--neuralef.include_diag false --neuralef.batchnorm_mode unbiased").split()
+SPIN_ITERS, SPIN_BLOCK = 500, 125
 CPU_FLAGS = ("--fourier_mapping_size 16 --mlp_hidden_dims 16,16 --batch_size 64 "
              "--lim 4 --val_eps 0.5").split()
 CPU_ITERS, CPU_BLOCK = 40, 20
@@ -125,36 +147,72 @@ def _nccl_kernels_per_step(run_dir, steps):
     return names
 
 
+class _StateBytes(logging.Handler):
+    """Keeps train_operator's "method state bytes on this rank" record."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.bytes = {}
+
+    def emit(self, record):
+        if record.msg.startswith("method state bytes"):
+            self.bytes = dict(record.args)
+
+
 def _run(argv, log_dir, use_graph):
     cfg = parse_pde_config(argv + ["--log_dir", log_dir])
     timings = {}
+    state_bytes = _StateBytes()
+    port_log = logging.getLogger("neuralsvd_tpu_torch")
+    port_log.addHandler(state_bytes)
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(io.StringIO()):
-        ts, eigvals, _ = pde.main(cfg, timings=timings, use_graph=use_graph)
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            ts, eigvals, _ = pde.main(cfg, timings=timings, use_graph=use_graph)
+    finally:
+        port_log.removeHandler(state_bytes)
+    timings["method_state_bytes"] = state_bytes.bytes
     return ts, eigvals, timings, time.perf_counter() - t0, os.path.join(log_dir, run_name(cfg))
+
+
+def _per_rank(value):
+    """``value`` of every rank, in rank order."""
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, value)
+    return out
 
 
 def main():
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--device", default=None, help="default: this rank's card")
     p.add_argument("--mesh", default="dp", help="the CLI's --mesh (default: dp, all ranks)")
+    p.add_argument("--loss", default="neuralsvd", choices=("neuralsvd", "spin", "spinx"),
+                   help="neuralsvd: the E4 flags; spin, spinx: hydrogen.sh's")
     p.add_argument("--out", default=None, help="where the runs' log folders go "
                                                "(default: a temporary folder)")
     args = p.parse_args()
     cpu = args.device == "cpu"
     world = int(os.environ.get("WORLD_SIZE", "1"))
-    iters, block = (CPU_ITERS, CPU_BLOCK) if cpu else (ITERS, BLOCK)
+    spin = args.loss != "neuralsvd"
+    iters, block = ((CPU_ITERS, CPU_BLOCK) if cpu else (SPIN_ITERS, SPIN_BLOCK) if spin
+                    else (ITERS, BLOCK))
     sizes = dict(zip(*parse_mesh_spec(args.mesh, world)))
-    argv = (E4_ARGV + (PLAIN if sizes.get("dp", 1) > 1 else []) + (CPU_FLAGS if cpu else [])
+    base = (HYDROGEN_ARGV + ["--loss", args.loss] if spin
+            else E4_ARGV + (PLAIN if sizes.get("dp", 1) > 1 else []))
+    argv = (base + (CPU_FLAGS + (["--neigs", "4"] if spin else []) if cpu else [])
             + ["--mesh", args.mesh, "--num_iters", str(iters), "--print_freq", str(block),
                "--eval_freq", str(iters)] + (["--device", args.device] if args.device else []))
     traced = ["--profile", "true", "--profile_start", str(block),
               "--profile_steps", str(block)]
-    out = {"world": world, "mesh": sizes, "argv": argv, "iters": iters, "block": block}
+    out = {"world": world, "mesh": sizes, "loss": args.loss, "argv": argv, "iters": iters,
+           "block": block}
     with tempfile.TemporaryDirectory() as tmp:
         root = args.out or tmp
         if not cpu:
+            torch.cuda.reset_peak_memory_stats()
             gts, geig, gtimes, gsec, gdir = _run(argv + traced, os.path.join(root, "graph"), True)
+            out["method_state_bytes"] = _per_rank(gtimes["method_state_bytes"])
+            out["peak_bytes"] = _per_rank(torch.cuda.max_memory_allocated())
         cuda_gram.reset_launch_counts()
         ets, eeig, etimes, esec, _ = _run(argv, os.path.join(root, "eager"), False)
         device = ets.step.device

@@ -243,18 +243,19 @@ class _TpMesh:
 
 
 def test_train_operator_refuses_unported_options():
-    """On a tp mesh: SpIN and SpINx refuse a mode axis, naming their item,
-    [9c]; train_operator refuses a method not built for the mesh's groups (its
-    ``axis_name`` the dp group, its ``mode_axis`` the tp group of the
-    shards) before any step.  (The tp path itself: tests/test_torch_tp.py.)"""
+    """On a tp mesh: train_operator refuses a method not built for the
+    mesh's groups (its ``axis_name`` the dp group, its ``mode_axis`` the tp
+    group of the shards) before any step, SpIN and SpINx as NestedLoRA.
+    (The tp path itself: tests/test_torch_tp.py, test_torch_tp_spin.py.)"""
     model, op, sampler, imp, method, opt = _setup()
     mesh = _TpMesh()
+    shards = ModeShards(mesh.groups["tp"], L, {"base.ws.0": 0})
     for name in ("spin", "spinx"):
-        with pytest.raises(NotImplementedError, match=r"\[9c\]"):
-            get_evd_method(name, model, L, mode_axis=mesh.groups["tp"])
+        spin = get_evd_method(name, model, L, axis_name=mesh.groups["dp"])
+        with pytest.raises(ValueError, match="mode_axis"):
+            train_operator(spin, op, sampler, opt, model, 4, mesh=mesh, shards=shards)
     with pytest.raises(ValueError, match="axis_name"):
         train_operator(method, op, sampler, opt, model, 4, mesh=mesh)
-    shards = ModeShards(mesh.groups["tp"], L, {"base.ws.0": 0})
     method = NestedLoRA(model, neigs=L, sequential=True, axis_name=mesh.groups["dp"])
     with pytest.raises(ValueError, match="mode_axis"):
         train_operator(method, op, sampler, opt, model, 4, mesh=mesh, shards=shards)

@@ -75,9 +75,9 @@ def test_parse_mesh_spec_grammar():
 def test_mesh_refusals_without_a_group(monkeypatch):
     """The refusals that remain before a group of several ranks runs: bad
     specs, a mesh wider than the ranks (one here; four through a stand-in
-    rank count), a batch that does not split into 2·dp halves, and SpIN
-    and SpINx on a tp axis (item [9c]); a tp axis now parses and sizes,
-    given or absorbed (the 4-rank spanning check:
+    rank count) and a batch that does not split into 2·dp halves; a tp axis
+    parses and sizes, given or absorbed, for every loss, SpIN and SpINx
+    included (the 4-rank spanning check:
     tests/test_torch_tp.py::test_tp_step_at_dp2_tp2_matches_jax_gspmd)."""
     for spec in ("pp=2", "dp,tp", "dp=2,dp=2", ""):
         with pytest.raises(ValueError):
@@ -100,9 +100,11 @@ def test_mesh_refusals_without_a_group(monkeypatch):
         pde.check_ported(config.PDEConfig(mesh="dp=2,tp=2", batch_size=66))
     pde.check_ported(config.PDEConfig(mesh="dp=2,tp=2", batch_size=64))
     for name in ("spin", "spinx"):
-        for spec in ("tp=2", "dp=2,tp"):  # given, and absorbed from the 4 ranks
-            with pytest.raises(NotImplementedError, match=r"\[9c\]"):
-                pde.check_ported(config.PDEConfig(loss=config.LossConfig(name=name), mesh=spec))
+        for spec in ("tp=4", "dp=2,tp"):  # given, and absorbed from the 4 ranks
+            pde.check_ported(config.PDEConfig(loss=config.LossConfig(name=name), mesh=spec))
+        with pytest.raises(ValueError, match="needs 8 devices, only 4"):
+            pde.check_ported(config.PDEConfig(loss=config.LossConfig(name=name),
+                                              mesh="dp=2,tp=4"))
 
 
 def test_block_seed_rank_zero_keeps_the_stream():

@@ -443,8 +443,9 @@ def _float64_eigvals(cfg, model_kw, state):
     (dict(loss=config.LossConfig(name="spin")), None),
     (dict(loss=config.LossConfig(name="spinx")), None),
     (dict(problem="fp"), None),
-    # --mesh dp and tp run (test_torch_cli_mesh.py, test_torch_tp.py); SpIN on tp does not
-    (dict(mesh="tp=2", loss=config.LossConfig(name="spin")), r"\[9c\]"),
+    # --mesh dp and tp run, SpIN on tp too (test_torch_cli_mesh.py, test_torch_tp.py,
+    # test_torch_tp_spin.py); a tp=2 mesh in one process is refused before training
+    (dict(mesh="tp=2", loss=config.LossConfig(name="spin")), "needs 2 devices, only 1"),
     (dict(rescue=True, parallel=True), None),
     (dict(matmul_precision="high"), None),
     (dict(apply_exp_mask=True), None),
@@ -452,15 +453,16 @@ def _float64_eigvals(cfg, model_kw, state):
 ], ids=["neuralef", "spin", "spinx", "fp", "mesh", "rescue", "precision", "exp-mask",
         "cosine"])
 def test_unported_flags_raise_before_training(tmp_path, kw, match):
-    """An unported flag raises before any training, naming its ROADMAP
-    item; a ported one trains: finite eigenvalues and a checkpoint."""
+    """A flag that cannot run raises before any training (a mesh wider than
+    the ranks: ValueError); a ported one trains: finite eigenvalues and a
+    checkpoint."""
     cfg = config.PDEConfig(log_dir=str(tmp_path), device="cpu", **dict(TINY, **kw))
     if match is None:
         ts, eigvals, _ = pde.main(cfg)
         assert int(ts.step) == cfg.num_iters and np.isfinite(eigvals[0]).all()
         assert list(tmp_path.rglob(f"ckpt_{cfg.num_iters}"))
         return
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         pde.main(cfg)
     assert not list(tmp_path.rglob("ckpt_*"))
 

@@ -33,6 +33,7 @@ from neuralsvd_tpu_torch.cli import pde
 from neuralsvd_tpu_torch.convert import _named_leaves, method_state_from_jax, params_from_jax
 from neuralsvd_tpu_torch.data.samplers import get_sampler
 from neuralsvd_tpu_torch.methods.factories import get_evd_method
+from neuralsvd_tpu_torch.parallel import mesh as mesh_module
 from neuralsvd_tpu_torch.methods.spin import (
     SpIN,
     require_device_bytes,
@@ -467,12 +468,13 @@ def test_fokker_planck_vjp_with_graph_matches_jax():
 
 # -- refusals ---------------------------------------------------------------------
 
-def test_refusals_name_their_items():
-    """Only SpIN and SpINx on a tp mesh axis are refused now (item [9c]; the
-    axis itself runs for NestedLoRA and NeuralEF).  A graph through Tf on the
-    forward engine or the Hutchinson estimator runs and gives the default
-    route's values with a graph; check_ported passes SpIN and SpINx on
-    every Laplacian; loss_and_grad_kernel runs on a kernel operator."""
+def test_refusals_name_their_items(monkeypatch):
+    """Nothing of SpIN and SpINx is refused now (a tp mesh axis runs too:
+    tests/test_torch_tp_spin.py).  A graph through Tf on the forward engine
+    or the Hutchinson estimator runs and gives the default route's values
+    with a graph; check_ported passes SpIN and SpINx on every Laplacian and
+    on a tp axis (two ranks, through a stand-in rank count);
+    loss_and_grad_kernel runs on a kernel operator."""
     model = make_wavefunctions(**TINY_MODEL, device="cpu")
     x = torch.as_tensor(_x(0), dtype=torch.float32)
     for kw in (dict(laplacian_eps=-1.0), dict(laplacian_eps=-1.0, laplacian_probes=2)):
@@ -486,7 +488,8 @@ def test_refusals_name_their_items():
         for kw in (dict(laplacian_eps=-1.0), dict(laplacian_probes=2),
                    dict(laplacian_eps=-1.0, laplacian_mode="jvp", laplacian_probes=2)):
             pde.check_ported(config.PDEConfig(loss=config.LossConfig(name=name), **kw))
-        with pytest.raises(NotImplementedError, match=r"\[9c\]"):
+        with monkeypatch.context() as m:
+            m.setattr(mesh_module, "_world_size", lambda: 2)
             pde.check_ported(config.PDEConfig(loss=config.LossConfig(name=name), mesh="tp=2"))
         method = get_evd_method(name, model, L)
         params = dict(model.named_parameters())

@@ -1,73 +1,35 @@
 """Ranks of the data-parallel tests (tests/test_torch_parallel.py,
 tests/test_torch_cli_mesh.py).
 
-``run_ranks(fn, tmp_path, ...)`` spawns one process per rank; each joins a
-gloo group that meets through a ``FileStore`` under ``tmp_path`` (never a
-TCP port: several test workers run at once) and calls ``fn(rank, d,
-*args)`` with ``d`` a directory of its own.  Every spawn is joined with a
-timeout of its own; on timeout the ranks are killed and the test fails.  The
+``run_ranks(fn, tmp_path, ...)`` spawns one process per rank
+(``neuralsvd_tpu_torch.parallel.launch``): each joins a gloo group that
+meets through a ``FileStore`` under ``tmp_path`` (never a TCP port: several
+test workers run at once) and calls ``fn(rank, d, *args)`` with ``d`` a
+directory of its own.  Every spawn is joined with a timeout of its own; on
+timeout the ranks are killed and the test fails.  The
 functions here import only torch, numpy and the port: the JAX references
 are made in the test process and handed over as .npz files, and the ranks
 hand their results back the same way.
 """
 from __future__ import annotations
 
-import datetime
 import logging
-import multiprocessing as mp
 import os
-import tempfile
-import time
-import traceback
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from neuralsvd_tpu_torch.parallel import launch
+
 SPAWN_TIMEOUT_S = 120
-COLLECTIVE_TIMEOUT = datetime.timedelta(seconds=60)
 L = 4
 
 
 def run_ranks(fn, tmp_path, *args, world: int = 2, timeout: float = SPAWN_TIMEOUT_S):
-    """Run ``fn(rank, d, *args)`` on ``world`` gloo ranks; returns ``d``.
-    Raises AssertionError with the ranks' tracebacks if one fails or the
-    spawn outlives ``timeout`` seconds."""
-    d = tempfile.mkdtemp(prefix=f"{fn.__name__}_", dir=tmp_path)
-    ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=_rank_main, args=(fn, r, world, d, args))
-             for r in range(world)]
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + timeout
-    for p in procs:
-        p.join(max(0.0, deadline - time.monotonic()))
-    hung = [r for r, p in enumerate(procs) if p.is_alive()]
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-            p.join(10)
-    errors = [open(os.path.join(d, f"error.{r}")).read() for r in range(world)
-              if os.path.exists(os.path.join(d, f"error.{r}"))]
-    codes = [p.exitcode for p in procs]
-    if hung or errors or any(c != 0 for c in codes):
-        raise AssertionError(f"{fn.__name__}: ranks {hung} hung past {timeout} s, "
-                             f"exit codes {codes}\n" + "\n".join(errors))
-    return d
-
-
-def _rank_main(fn, rank, world, d, args):
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(d, "store"), world),
-                            rank=rank, world_size=world, timeout=COLLECTIVE_TIMEOUT)
-    try:
-        fn(rank, d, *args)
-    except BaseException:
-        with open(os.path.join(d, f"error.{rank}"), "w") as f:
-            f.write(f"rank {rank}:\n{traceback.format_exc()}")
-        raise
-    finally:
-        dist.destroy_process_group()
+    """Run ``fn(rank, d, *args)`` on ``world`` gloo ranks; returns ``d``
+    (``neuralsvd_tpu_torch.parallel.launch.run_ranks``)."""
+    return launch.run_ranks(fn, tmp_path, *args, world=world, timeout=timeout)
 
 
 def _save(path, tree):

@@ -152,9 +152,10 @@ def sketchy_rank(rank, d, log_dir, mesh):
 
 def pde_rank(rank, d, runs):
     """``cli.pde.main`` eagerly for each (tag, config kwargs, checkpoint to
-    resume from or None) of ``runs``; the gathered parameters and the
-    eigenvalues of each."""
+    resume from or None) of ``runs``; the gathered parameters, method state
+    and the eigenvalues of each."""
     from neuralsvd_tpu_torch.cli import pde
+    from neuralsvd_tpu_torch.training.rescue import named_leaves
     from neuralsvd_tpu_torch.utils.config import PDEConfig, run_name
 
     out = {}
@@ -168,6 +169,7 @@ def pde_rank(rank, d, runs):
             dist.barrier()
         ts, eigvals, _ = pde.main(cfg, use_graph=False)
         out.update({f"{tag}/param/{k}": p for k, p in ts.params.items()})
+        out.update({f"{tag}/state/{k}": v for k, v in named_leaves(ts.method_state)})
         out[f"{tag}/eigvals"] = np.asarray(eigvals)
     _save(os.path.join(d, f"out.{rank}.npz"), out)
 
@@ -216,4 +218,149 @@ def kernel_rank(rank, d, inputs):
         out[f"{tag}/loss"] = loss
         out.update({f"{tag}/grad/{k}": g for k, g in shards.gather_tree(grads).items()})
         out.update({f"{tag}/state/{k}": v for k, v in new.items()})
+    _save(os.path.join(d, f"out.{rank}.npz"), out)
+
+
+# -- SpIN and SpINx on the tp axis ------------------------------------------------------
+
+SPIN_L = 4  # the step against JAX's GSPMD step (the CLI runs take an odd L)
+SPIN_STEPS = 2
+SPIN_LOSSES = ("spin", "spinx")
+
+
+def spin_model(neigs=SPIN_L):
+    """tests/test_cli_mesh.py:35's wavefunction: 1D, per-mode 16x16
+    softplus towers, the box mask at lim 4."""
+    from neuralsvd_tpu_torch.models.wavefunctions import make_wavefunctions
+
+    return make_wavefunctions(ndim=1, neigs=neigs, mlp_hidden_dims=[16, 16],
+                              nonlinearity="softplus", parallel=True, apply_boundary=True,
+                              boundary_mode="dir_box_sqrt", lim=4.0, device="cpu")
+
+
+def _spin_steps(name, model, mesh, x, n_modes, steps=SPIN_STEPS):
+    """``steps`` SGD steps of ``make_mesh_train_step`` with SpIN or SpINx
+    (``name``) on this rank's share of ``model`` and the global batch
+    ``x``, then SpINx's refresh on the same batch: the losses, the gathered
+    parameters and method state, and the shapes of this rank's ``j_avg``."""
+    from neuralsvd_tpu_torch.methods.factories import get_evd_method
+    from neuralsvd_tpu_torch.parallel.mesh import (
+        dp_group,
+        half_rows,
+        method_state_axes,
+        tp_group,
+    )
+    from neuralsvd_tpu_torch.parallel.sharding import (
+        make_mesh_train_step,
+        mode_shards,
+        shard_module,
+    )
+    from neuralsvd_tpu_torch.training.optimizers import build_optimizer
+    from neuralsvd_tpu_torch.training.rescue import named_leaves
+    from neuralsvd_tpu_torch.training.train_state import init_train_state
+
+    dp, tp = dp_group(mesh), tp_group(mesh)
+    shards = mode_shards(model, tp, n_modes)
+    local = shard_module(model, shards)
+    method = get_evd_method(name, local, n_modes, axis_name=dp, mode_axis=tp)
+    opt = build_optimizer("sgd", 1e-3)
+    step = make_mesh_train_step(method, weighted_operator, opt, lambda g: x, mesh, shards,
+                                ema_decay=0.9)
+    ts = init_train_state(local, opt, method)
+    out = {}
+    for i in range(steps):
+        _, metrics = step(ts, torch.Generator())
+        out[f"{name}/loss{i}"] = metrics["loss"]
+    if name == "spinx":
+        method.refresh_weights(ts.params, ts.method_state, half_rows(x, dp),
+                               weighted_operator)
+    state = shards.gather_state(ts.method_state, method_state_axes(method))
+    out.update({f"{name}/param/{k}": p for k, p in shards.gather_tree(ts.params).items()})
+    out.update({f"{name}/state/{k}": v for k, v in named_leaves(state)})
+    if name == "spin":
+        out.update({f"{name}/held/{k}": np.array(j.shape)
+                    for k, j in ts.method_state["j_avg"].items()})
+        out[f"{name}/state_bytes"] = np.array(method.state_bytes(ts.params))
+    return out
+
+
+def spin_step_rank(rank, d, inputs):
+    """SpIN and SpINx (SPIN_LOSSES) on a dp=2 x tp=2 mesh: SPIN_STEPS steps
+    each from the inputs' parameters on their global batch (``_spin_steps``)."""
+    mesh, _, _ = _mesh("dp=2,tp=2")
+    z = np.load(inputs)
+    x = torch.tensor(z["x"])
+    out = {}
+    for name in SPIN_LOSSES:
+        model = spin_model()
+        model.load_state_dict({k[6:]: torch.tensor(z[k]) for k in z.files
+                               if k.startswith("param/")})
+        out.update(_spin_steps(name, model, mesh, x, SPIN_L))
+    _save(os.path.join(d, f"out.{rank}.npz"), out)
+
+
+class ScaledInput(torch.nn.Module):
+    """A wavefunction behind a learnable input scale: a replicated parameter
+    that acts before the modes are gathered, whose gradient each tp rank
+    holds only in part (no wavefunction of the package has one)."""
+
+    def __init__(self, inner, ndim):
+        super().__init__()
+        self.inner = inner
+        self.scale = torch.nn.Parameter(torch.linspace(0.8, 1.2, ndim))
+
+    def forward(self, x):
+        return self.inner(x * self.scale)
+
+    def per_mode_parameters(self):
+        return [f"inner.{k}" for k in self.inner.per_mode_parameters()]
+
+    def mode_axes(self):
+        return {f"inner.{k}": a for k, a in self.inner.mode_axes().items()}
+
+
+def upstream_model():
+    """``ScaledInput`` over kernel_model's L 5 wavefunction, in float64."""
+    return ScaledInput(kernel_model(), 2).double()
+
+
+SPIN_KERNEL_CASES = tuple((name, split) for name in SPIN_LOSSES for split in (False, True))
+
+
+def spin_local_rank(rank, d, inputs):
+    """At tp=2 in float64: (a) ``loss_and_grad_kernel`` of SpIN and SpINx
+    (SPIN_KERNEL_CASES) on this rank's share of kernel_model's uneven L 5
+    (the exponential mask's scales sharded): the loss, the gathered
+    gradients and new state, this rank's ``j_avg`` shapes and bytes; (b)
+    ``_spin_steps`` of both on ``upstream_model`` (a replicated leaf
+    upstream of the gather)."""
+    from neuralsvd_tpu_torch.methods.factories import get_evd_method
+    from neuralsvd_tpu_torch.operators.base import KernelOperator
+    from neuralsvd_tpu_torch.parallel.mesh import method_state_axes
+    from neuralsvd_tpu_torch.parallel.sharding import mode_shards, shard_module
+    from neuralsvd_tpu_torch.training.rescue import named_leaves
+
+    mesh, _, tp = _mesh("tp=2")
+    x = torch.tensor(np.load(inputs)["x"], dtype=torch.float64)
+    model = kernel_model().double()
+    shards = mode_shards(model, tp, 5)
+    local = shard_module(model, shards)
+    out = {}
+    for name, split in SPIN_KERNEL_CASES:
+        method = get_evd_method(name, local, 5, mode_axis=tp)
+        params = dict(local.named_parameters())
+        state = method.init_state(params)
+        tag = f"kernel/{name}/{int(split)}"
+        if name == "spin":
+            out[f"{tag}/held"] = np.array([j.shape[1] for j in state["j_avg"].values()])
+            out[f"{tag}/state_bytes"] = np.array(method.state_bytes(params))
+        loss, grads, _, new = method.loss_and_grad_kernel(
+            params, state, x, lambda lm: KernelOperator(rbf, lm), split_batch=split)
+        out[f"{tag}/loss"] = loss
+        out.update({f"{tag}/grad/{k}": g for k, g in shards.gather_tree(grads).items()})
+        new = shards.gather_state(new, method_state_axes(method))
+        out.update({f"{tag}/state/{k}": v for k, v in named_leaves(new)})
+    for name in SPIN_LOSSES:
+        out.update({f"upstream/{k}": v for k, v in
+                    _spin_steps(name, upstream_model(), mesh, x, 5).items()})
     _save(os.path.join(d, f"out.{rank}.npz"), out)
