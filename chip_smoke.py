@@ -2089,7 +2089,7 @@ def _range_device_ms(trace_path, names, steps):
                 if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}
     device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     ranges = [(e["name"], e["ts"], e["ts"] + e["dur"]) for e in events
-              if e.get("cat") == "user_annotation" and e.get("name") in names]
+              if e.get("cat") in ("user_annotation", "cpu_op") and e.get("name") in names]
     out = dict.fromkeys(names, 0.0)
     for e in device:
         t = launched.get(e.get("args", {}).get("correlation"))

@@ -84,6 +84,7 @@ from neuralsvd_tpu_torch.training.train_state import (
     load_state_tree,
     state_tree,
 )
+from neuralsvd_tpu_torch.utils import tracing
 from neuralsvd_tpu_torch.utils.config import PDEConfig, parse_pde_config, run_name
 from neuralsvd_tpu_torch.utils.logging import CSVLogger
 from neuralsvd_tpu_torch.utils.plotting import (
@@ -106,6 +107,7 @@ def check_ported(cfg: PDEConfig) -> None:
                 "(even per-rank metric half-batches)")
 
 
+@tracing.timed("setup.build")
 def build(cfg: PDEConfig, dev=None, axis_name=None, tp_axis=None) -> SimpleNamespace:
     """The run's parts as the JAX CLI wires them: operator, ground_truth,
     n_particles, model, sample, importance_train, val_data, val_batches,
@@ -327,6 +329,7 @@ def main(cfg: PDEConfig, timings=None, use_graph: bool = True):
                  all_eigvals=np.asarray(all_eigvals),
                  all_norms=np.asarray(all_norms))
     barrier(everyone)
+    log.info("set-up seconds %s; counters %s", tracing.timed_seconds(), tracing.counts())
     log.info("done; stats saved to %s", log_dir)
     return ts, all_eigvals, all_norms
 

@@ -78,6 +78,7 @@ from neuralsvd_tpu_torch.parallel.sharding import (
 from neuralsvd_tpu_torch.training.cdk_step import make_cdk_train_step
 from neuralsvd_tpu_torch.training.checkpoint import load_checkpoint, save_checkpoint
 from neuralsvd_tpu_torch.training.optimizers import build_optimizer, warmup_cosine_schedule
+from neuralsvd_tpu_torch.utils import tracing
 from neuralsvd_tpu_torch.utils.logging import CSVLogger
 from neuralsvd_tpu_torch.utils.plotting import plot_hist_ratios, spectrum_figure
 
@@ -163,6 +164,7 @@ class Trainer(NamedTuple):
     shards: object = None  # the ModeShards of a tp mesh, else None
 
 
+@tracing.timed("setup.build")
 def make_trainer(args, input_dim: int, steps_per_epoch: int) -> Trainer:
     """The two-tower model (initialised from ``args.seed``), the CDK method,
     the optimizer with its schedule, and the train step; with ``--mesh``
@@ -440,6 +442,7 @@ def run_training(args, train_loader, test_loader, valid_loader, input_dim,
                  trunc_results=json.dumps(trunc_results))
     barrier(everyone)
     log.info("seconds by part: %s", timings)
+    log.info("set-up seconds %s; counters %s", tracing.timed_seconds(), tracing.counts())
     return full, trunc_results
 
 

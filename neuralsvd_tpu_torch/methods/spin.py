@@ -68,11 +68,11 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 from torch.func import functional_call
-from torch.profiler import record_function
 
 from neuralsvd_tpu_torch.ops.gram import global_batch_size
 from neuralsvd_tpu_torch.parallel.collectives import axis_size, gather_modes, pmean
 from neuralsvd_tpu_torch.parallel.mesh import mode_range
+from neuralsvd_tpu_torch.utils.tracing import span
 
 JITTER = 1e-3
 # the profiler ranges of a step: the π channel (operator and its VJP), the
@@ -271,7 +271,7 @@ class SpIN:
         their graphs, the rows of σ's batch, the input of φ's rows)``."""
         names = list(params)
         pi_range, sigma_range, j_range = PROFILE_RANGES
-        with record_function(pi_range):
+        with span(pi_range):
             Tphi, phi, phi_sigma, x = pi_inputs()
             B = phi.shape[0]
             phi_d, Tphi_d = phi.detach(), Tphi.detach()
@@ -289,12 +289,12 @@ class SpIN:
                 [Tphi, phi], [params[k] for k in names],
                 [phi_d @ gpi / Bn, Tphi_d @ gpi / Bn],
                 allow_unused=True, materialize_grads=True)
-        with record_function(sigma_range):
+        with span(sigma_range):
             j_new = self._jacobian(params, x, phi_d)
         if self.mode_axis is not None and group is not None:
             gsigma = gsigma / axis_size(group)  # a dp rank's share (module docstring)
         grads = {}
-        with record_function(j_range), torch.no_grad():
+        with span(j_range), torch.no_grad():
             for k, g_pi in zip(names, grads_pi):
                 j = state["j_avg"][k].lerp_(j_new.pop(k), self.decay)
                 grads[k] = g_pi + self._contract(k, gsigma, j)

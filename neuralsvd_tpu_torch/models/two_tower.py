@@ -39,6 +39,7 @@ import torch
 from torch import nn
 
 from neuralsvd_tpu_torch.models.mlp import MLP
+from neuralsvd_tpu_torch.utils.tracing import spanned
 
 
 def normalize_embedding(z: torch.Tensor, r_up: float, mode: str) -> torch.Tensor:
@@ -123,6 +124,7 @@ class HeteroNetwork(nn.Module):
         head = self.head_x if side == "x" else self.head_y
         return emb, head(emb.detach())
 
+    @spanned("model.forward")
     def forward(self, x: torch.Tensor, y: torch.Tensor):
         return self.apply_single(x, "x"), self.apply_single(y, "y")
 
@@ -182,6 +184,7 @@ class SiamNetwork(nn.Module):
                             torch.ones_like(total))
         return rep, emb * scale
 
+    @spanned("model.forward")
     def forward(self, z1: torch.Tensor, z2: Optional[torch.Tensor] = None):
         rep1, emb1 = self.embed_single(z1)
         if z2 is None:

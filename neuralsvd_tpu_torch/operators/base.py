@@ -14,6 +14,8 @@ import contextlib
 import numpy as np
 import torch
 
+from neuralsvd_tpu_torch.utils.tracing import spanned
+
 
 class DeviceConstant:
     """A potential's constant array (``cs``, ``coords``, ``charges``, the
@@ -77,6 +79,7 @@ class OperatorWrapper:
         Laplacian), which want a probe generator bound by the train step."""
         return getattr(self.operator, "needs_key", False)
 
+    @spanned("op.apply")
     def __call__(self, f, x, importance=None, generator=None,
                  with_graph: bool = False):
         kw = {"with_graph": True} if with_graph else {}
@@ -110,6 +113,7 @@ class MatrixOperator:
     def __init__(self, A):
         self.A = _on_device(A)
 
+    @spanned("op.apply")
     def __call__(self, f, x, importance=None, generator=None,
                  with_graph: bool = False):
         fs = f(x)
@@ -132,6 +136,7 @@ class KernelOperator:
         self.kernel = kernel
         self.landmarks = _on_device(landmarks)
 
+    @spanned("op.apply")
     def __call__(self, f, x, importance=None, generator=None,
                  with_graph: bool = False):
         fs = f(x)

@@ -21,6 +21,7 @@ import torch
 
 from neuralsvd_tpu_torch.operators.base import device_constant, graph_mode
 from neuralsvd_tpu_torch.operators.diff_ops import VectorizedLaplacian, conjugate
+from neuralsvd_tpu_torch.utils.tracing import spanned
 
 
 def sin_of_cos_potential(xs, cs):
@@ -36,6 +37,7 @@ class NegativeLinearFokkerPlanck:
         self.local_potential_ftn = local_potential_ftn
         self.scale = scale
 
+    @spanned("op.apply")
     def __call__(self, f, xs, importance: Optional[Callable] = None,
                  with_graph: bool = False):
         xs = xs.reshape(xs.shape[0], -1)

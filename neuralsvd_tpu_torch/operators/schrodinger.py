@@ -21,6 +21,7 @@ import torch
 
 from neuralsvd_tpu_torch.operators.base import device_constant, graph_mode
 from neuralsvd_tpu_torch.operators.diff_ops import VectorizedLaplacian
+from neuralsvd_tpu_torch.utils.tracing import spanned
 
 
 def hydrogen_potential(x, charge: float = 1.0):
@@ -113,6 +114,7 @@ class NegativeHamiltonian:
         passes none and gets the exact engine."""
         return self.laplacian.needs_key
 
+    @spanned("op.apply")
     def __call__(self, f, xs, importance: Optional[Callable] = None,
                  generator: Optional[torch.Generator] = None,
                  with_graph: bool = False):

@@ -9,7 +9,10 @@ and written by an atomic rename, so parallel processes and rebuilds never
 see a half-written file.  ``nvcc``'s ``-Xptxas -v`` report (registers,
 shared memory, spills per kernel) is kept beside it as ``<library>.log``.
 
-Nothing here runs at import time.
+Nothing here runs at import time.  The first load runs in the set-up span
+``setup.kernels`` (``utils/tracing.py``), an nvcc run inside it in
+``setup.kernels.build``; the counters ``kernels.builds`` and
+``kernels.loads`` count nvcc runs and loads.
 """
 from __future__ import annotations
 
@@ -21,6 +24,8 @@ import shutil
 import subprocess
 import uuid
 from pathlib import Path
+
+from neuralsvd_tpu_torch.utils import tracing
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -76,9 +81,11 @@ def build(build_dir: Path = BUILD_DIR) -> Path:
     tmp = lib.with_name(f".{os.getpid()}.{uuid.uuid4().hex}.{lib.name}")
     cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
            *(str(CSRC / name) for name in SOURCES)]
+    tracing.count("kernels.builds")
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=NVCC_TIMEOUT_S)
+        with tracing.timed("setup.kernels.build"):
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  timeout=NVCC_TIMEOUT_S)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
                                f"{proc.stdout}\n{proc.stderr}")
@@ -90,9 +97,11 @@ def build(build_dir: Path = BUILD_DIR) -> Path:
 
 
 @functools.cache
+@tracing.timed("setup.kernels")
 def load_library() -> ctypes.CDLL:
     """Build if needed, load once per process, declare every signature."""
     lib = ctypes.CDLL(str(build()))
+    tracing.count("kernels.loads")
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

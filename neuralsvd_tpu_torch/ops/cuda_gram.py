@@ -14,10 +14,12 @@ metric_grads        _metric_grads_kernel :184, pallas_call :208  metric_grads_re
 Dispatch is by the tensors' device alone: CPU tensors take the plain
 version; CUDA tensors launch the kernel (``csrc/gram_kernels.cu``) or
 raise.  There is no fallback from a failed launch to the plain version.
-Each wrapper counts its launches in ``<wrapper>.launches``.  A call under
+Each wrapper counts its launches in the process counter
+``gram.<wrapper>`` (``utils/tracing.py``; ``launch_counts``).  A call under
 CUDA-graph capture records its kernel and launches nothing, so it counts
 nothing; the graph's replays launch the kernel without calling the wrapper,
-and only a profiler sees them.
+and only a profiler sees them.  The packagings' passes run in the profiler
+spans ``loss.forward`` and ``loss.backward``.
 
 Two packagings run them: ``nestedlora_evd_loss_kernels`` (the E4 path)
 and ``nestedlora_cdk_loss_kernels`` (the CDK two-tower path).
@@ -58,6 +60,8 @@ from neuralsvd_tpu_torch.ops.nestedlora import (
     cdk_inputs,
     density_ratios,
 )
+from neuralsvd_tpu_torch.utils import tracing
+from neuralsvd_tpu_torch.utils.tracing import spanned
 
 NUM_SMS = 132  # an H100 SXM; K1's chunking is planned for it
 K1_TILE = 64  # K1's output tile edge (csrc kSyrkTile)
@@ -133,11 +137,15 @@ def _check_sizes(B: int, L: int) -> None:
         raise ValueError(f"unsupported sizes B={B}, L={L}")
 
 
+COUNTER_PREFIX = "gram."
+
+
 def _count(wrapper) -> None:
-    """Add one to ``wrapper.launches`` unless the current stream is being
-    captured into a CUDA graph (the kernel is then recorded, not launched)."""
+    """Add one to the counter ``gram.<wrapper>`` unless the current stream is
+    being captured into a CUDA graph (the kernel is then recorded, not
+    launched)."""
     if not torch.cuda.is_current_stream_capturing():
-        wrapper.launches += 1
+        tracing.count(COUNTER_PREFIX + wrapper.__name__)
 
 
 def _launch(name: str, *args) -> None:
@@ -260,9 +268,6 @@ def masked_gram_pair(f1: torch.Tensor, f2: torch.Tensor, mmask: torch.Tensor):
     return loss, lam1, lam2, mlam1, mlam2
 
 
-masked_gram_pair.launches = 0
-
-
 # ---------------------------------------------------------------------------
 # K2: operator term, streaming weighted dot
 # ---------------------------------------------------------------------------
@@ -342,9 +347,6 @@ def weighted_dot(f: torch.Tensor, Tf: torch.Tensor, vmask: torch.Tensor):
     return out
 
 
-weighted_dot.launches = 0
-
-
 # ---------------------------------------------------------------------------
 # K3: fused backward, both metric gradients
 # ---------------------------------------------------------------------------
@@ -370,18 +372,17 @@ def metric_grads(f1, f2, mlam1, mlam2, scale1: float, scale2: float):
     return g1, g2
 
 
-metric_grads.launches = 0
-
 KERNELS = (masked_gram_pair, weighted_dot, metric_grads)
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS:
-        fn.launches = 0
+    tracing.reset_counts(COUNTER_PREFIX)
 
 
 def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in KERNELS}
+    """{wrapper name: launches since the last reset}."""
+    counts = tracing.counts()
+    return {fn.__name__: counts.get(COUNTER_PREFIX + fn.__name__, 0) for fn in KERNELS}
 
 
 # ---------------------------------------------------------------------------
@@ -397,6 +398,7 @@ class NestedLoRAEVDLossKernels(torch.autograd.Function):
     """
 
     @staticmethod
+    @spanned("loss.forward")
     def forward(ctx, f, Tf, f1, f2, vector_mask, matrix_mask):
         metric_loss, _, _, mlam1, mlam2 = masked_gram_pair(f1, f2, matrix_mask)
         op = weighted_dot(f, Tf, vector_mask)
@@ -405,6 +407,7 @@ class NestedLoRAEVDLossKernels(torch.autograd.Function):
         return loss
 
     @staticmethod
+    @spanned("loss.backward")
     def backward(ctx, g):
         Tf, f1, f2, mlam1, mlam2, vector_mask = ctx.saved_tensors
         operator_f = (-4.0 / Tf.shape[0]) * (vector_mask[None, :] * Tf)
@@ -430,6 +433,7 @@ class NestedLoRACDKLossKernels(torch.autograd.Function):
     """
 
     @staticmethod
+    @spanned("loss.forward")
     def forward(ctx, f, g, vector_mask, matrix_mask, batch_weights,
                 set_first_mode_const, return_ratios):
         f, g = cdk_inputs(f, g, set_first_mode_const, batch_weights)
@@ -445,6 +449,7 @@ class NestedLoRACDKLossKernels(torch.autograd.Function):
         return loss, loss_operator, loss_metric, *rs
 
     @staticmethod
+    @spanned("loss.backward")
     def backward(ctx, gout, *_):
         f, g, mlam_f, mlam_g, vector_mask = ctx.saved_tensors
         B = f.shape[0]

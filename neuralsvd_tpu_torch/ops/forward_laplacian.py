@@ -58,6 +58,11 @@ Rules, with the JAX rule each ports:
   its outputs keep their graphs too).  It counts its calls in
   ``fallback_rule.calls``; the E4 path makes none.
 
+Under a profiler each rule application but a property read runs in a
+span ``fwdlap.<function name>`` (``utils/tracing.py``), so a trace splits
+the engine's product calls (``fwdlap.matmul``, ``fwdlap.linear``,
+``fwdlap.einsum``, ``fwdlap.tower_product``) from its element-wise rules.
+
 In-place operations on a dual raise.
 
 Semantics match ``operators/diff_ops.exact_laplacian``: directions are
@@ -74,6 +79,8 @@ from typing import Callable, Optional
 import torch
 from torch.func import jvp
 from torch.utils._pytree import tree_flatten, tree_unflatten
+
+from neuralsvd_tpu_torch.utils import tracing
 
 __all__ = ["Dual", "fallback_rule", "forward_laplacian", "hutchinson_laplacian",
            "propagate", "rademacher"]
@@ -94,14 +101,18 @@ class Dual(torch.Tensor):
     def __torch_function__(cls, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         name = getattr(func, "__name__", "")
-        if name == "__get__":  # a property: shape, dtype, T, ...
+        getter = name == "__get__"
+        if getter:  # a property: shape, dtype, T, ...
             name = func.__self__.__name__
         rule = _RULES.get(name)
-        if rule is not None:
+        if rule is None:
+            if name in _INPLACE or (name.endswith("_") and not name.startswith("__")):
+                raise RuntimeError(f"in-place {name} on a forward-Laplacian dual")
+            rule = fallback_rule
+        if getter or not tracing.collecting():
             return rule(func, args, kwargs)
-        if name in _INPLACE or (name.endswith("_") and not name.startswith("__")):
-            raise RuntimeError(f"in-place {name} on a forward-Laplacian dual")
-        return fallback_rule(func, args, kwargs)
+        with tracing.span("fwdlap." + name):
+            return rule(func, args, kwargs)
 
 
 def make_dual(v: torch.Tensor, j: Optional[torch.Tensor] = None,

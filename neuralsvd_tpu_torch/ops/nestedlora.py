@@ -26,6 +26,7 @@ import torch
 
 from neuralsvd_tpu_torch.ops.gram import compute_loss_metric, off_diagonal
 from neuralsvd_tpu_torch.parallel.collectives import axis_size, pmean
+from neuralsvd_tpu_torch.utils.tracing import spanned
 
 
 class NestedLoRAEVDLoss(torch.autograd.Function):
@@ -35,6 +36,7 @@ class NestedLoRAEVDLoss(torch.autograd.Function):
     """
 
     @staticmethod
+    @spanned("loss.forward")
     def forward(ctx, f, Tf, f1, f2, vector_mask, matrix_mask, axis_name):
         loss_metric, lam_f1, lam_f2 = compute_loss_metric(f1, f2, matrix_mask,
                                                           axis_name)
@@ -47,6 +49,7 @@ class NestedLoRAEVDLoss(torch.autograd.Function):
         return loss
 
     @staticmethod
+    @spanned("loss.backward")
     def backward(ctx, g):
         Tf, f1, f2, lam_f1, lam_f2, vector_mask, matrix_mask = ctx.saved_tensors
         n = ctx.n
@@ -81,6 +84,7 @@ class NestedLoRASVDLoss(torch.autograd.Function):
     """
 
     @staticmethod
+    @spanned("loss.forward")
     def forward(ctx, f, Tg, g, Tadjf, vector_mask, matrix_mask, axis_name):
         loss_metric, lam_f, lam_g = compute_loss_metric(f, g, matrix_mask,
                                                         axis_name)
@@ -92,6 +96,7 @@ class NestedLoRASVDLoss(torch.autograd.Function):
         return loss
 
     @staticmethod
+    @spanned("loss.backward")
     def backward(ctx, gout):
         f, Tg, g, Tadjf, lam_f, lam_g, vector_mask, matrix_mask = ctx.saved_tensors
         Bf, Bg = f.shape[0] * ctx.n, g.shape[0] * ctx.n
@@ -161,6 +166,7 @@ class NestedLoRACDKLoss(torch.autograd.Function):
     """
 
     @staticmethod
+    @spanned("loss.forward")
     def forward(ctx, f, g, vector_mask, matrix_mask, batch_weights,
                 set_first_mode_const, return_ratios, axis_name):
         f, g = cdk_inputs(f, g, set_first_mode_const, batch_weights)
@@ -178,6 +184,7 @@ class NestedLoRACDKLoss(torch.autograd.Function):
         return loss, loss_operator, loss_metric, *rs
 
     @staticmethod
+    @spanned("loss.backward")
     def backward(ctx, gout, *_):
         f, g, lam_f, lam_g, vector_mask, matrix_mask = ctx.saved_tensors
         B = f.shape[0] * ctx.n

@@ -11,6 +11,7 @@ import torch
 from neuralsvd_tpu_torch.parallel.collectives import psum, psum_flat
 from neuralsvd_tpu_torch.parallel.mesh import check_method_axis
 from neuralsvd_tpu_torch.training.optimizers import grad_norm, select_state
+from neuralsvd_tpu_torch.utils.tracing import span, spanned
 
 __all__ = ["make_cdk_train_step"]
 
@@ -32,7 +33,9 @@ def make_cdk_train_step(method, optimizer, grad_clip: float = 0.0,
     group, or None; the method must be built with the same ``axis_name``
     (else ValueError).  With a group the gradients are summed over it in
     one flat all-reduce before the clip (``parallel.sharding.
-    make_mesh_cdk_step`` is the step on a mesh).
+    make_mesh_cdk_step`` is the step on a mesh).  Under a profiler the step
+    records the spans ``train.step``, ``train.loss_and_grad``,
+    ``train.clip`` and ``train.optimizer`` (``utils/tracing.py``).
 
     ``shards``: the ``ModeShards`` of a tp mesh, the towers' last layers
     held by mode columns (``parallel.sharding.make_mesh_cdk_step``).  The
@@ -44,29 +47,33 @@ def make_cdk_train_step(method, optimizer, grad_clip: float = 0.0,
     check_method_axis(method, dp_axis)
     pre_gather = [] if shards is None else sorted(shards.pre_gather)
 
+    @spanned("train.step")
     def step(params, opt_state, method_state, x, y, skip_count):
-        loss, grads, aux, method_state = method.loss_and_grad(
-            params, method_state, x, y)
+        with span("train.loss_and_grad"):
+            loss, grads, aux, method_state = method.loss_and_grad(
+                params, method_state, x, y)
         if pre_gather:
             grads.update(zip(pre_gather, psum_flat([grads[k] for k in pre_gather],
                                                    shards.group)))
         if dp_axis is not None:
             grads = dict(zip(grads, psum_flat(grads.values(), dp_axis)))
         with torch.no_grad():
-            if grad_clip > 0:
-                scale = torch.clamp(
-                    grad_clip / (grad_norm(grads, shards) + 1e-6), max=1.0)
-                grads = {k: g * scale for k, g in grads.items()}
-            finite = torch.stack([torch.isfinite(g).all()
-                                  for g in grads.values()]).all()
-            if shards is not None:
-                bad = psum(torch.logical_not(finite).to(torch.float32), shards.group)
-                finite = bad == 0
-            updates, new_opt_state = optimizer.update(grads, opt_state, params)
-            for k, p in params.items():
-                p.copy_(torch.where(finite, p + updates[k], p))
-            opt_state = select_state(finite, new_opt_state, opt_state)
-            skip_count = skip_count + torch.logical_not(finite).to(skip_count.dtype)
+            with span("train.clip"):
+                if grad_clip > 0:
+                    scale = torch.clamp(
+                        grad_clip / (grad_norm(grads, shards) + 1e-6), max=1.0)
+                    grads = {k: g * scale for k, g in grads.items()}
+                finite = torch.stack([torch.isfinite(g).all()
+                                      for g in grads.values()]).all()
+                if shards is not None:
+                    bad = psum(torch.logical_not(finite).to(torch.float32), shards.group)
+                    finite = bad == 0
+            with span("train.optimizer"):
+                updates, new_opt_state = optimizer.update(grads, opt_state, params)
+                for k, p in params.items():
+                    p.copy_(torch.where(finite, p + updates[k], p))
+                opt_state = select_state(finite, new_opt_state, opt_state)
+                skip_count = skip_count + torch.logical_not(finite).to(skip_count.dtype)
         return params, opt_state, method_state, loss, aux, skip_count
 
     return step

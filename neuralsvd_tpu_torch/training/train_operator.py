@@ -109,6 +109,8 @@ from neuralsvd_tpu_torch.training.train_state import (
     load_state_tree,
     state_pointers,
 )
+from neuralsvd_tpu_torch.utils import tracing
+from neuralsvd_tpu_torch.utils.tracing import span, spanned
 
 __all__ = ["ScannedTrainStep", "batch_stats", "block_seed", "global_norm",
            "make_scanned_train_step", "make_train_step", "train_operator"]
@@ -197,6 +199,10 @@ def make_train_step(method, operator, optimizer, sampler: Callable,
     of ``shards.pre_gather`` are summed over ``tp_axis`` (one flat
     all-reduce) before the dp sum, and the clip and the finite test read
     the whole gradient's norm.
+
+    Under a profiler the step and its parts record the spans ``train.step``,
+    ``train.sample``, ``train.loss_and_grad``, ``train.clip``,
+    ``train.optimizer`` and ``train.ema`` (``utils/tracing.py``).
     """
     check_method_axis(method, dp_axis)
     mode_group = None if shards is None else shards.group
@@ -214,42 +220,48 @@ def make_train_step(method, operator, optimizer, sampler: Callable,
                 block_seed(seed, 0, PROBE_STREAM))
         return own_probes[device]
 
+    @spanned("train.step")
     def step(ts: TrainState, generator, probes=None) -> tuple:
-        x = sampler(generator)
-        x = x.reshape(x.shape[0], -1)
-        if tp_axis is not None:
-            x = half_rows(x, dp_axis)
+        with span("train.sample"):
+            x = sampler(generator)
+            x = x.reshape(x.shape[0], -1)
+            if tp_axis is not None:
+                x = half_rows(x, dp_axis)
         op = operator
         if stochastic_op:
             gen = probes if probes is not None else default_probes(x.device, generator)
             op = lambda f, xv, importance=None, **kw: operator(  # noqa: E731
                 f, xv, importance, generator=gen, **kw)
-        loss, grads, aux, method_state = method.loss_and_grad(
-            ts.params, ts.method_state, x, op, importance)
+        with span("train.loss_and_grad"):
+            loss, grads, aux, method_state = method.loss_and_grad(
+                ts.params, ts.method_state, x, op, importance)
         if pre_gather:
             grads.update(zip(pre_gather, psum_flat([grads[k] for k in pre_gather],
                                                    shards.group)))
         if dp_axis is not None:
             grads = dict(zip(grads, psum_flat(grads.values(), dp_axis)))
             method_state = _mean_state(method_state, dp_axis)
-        gnorm = grad_norm(grads, shards)
-        finite = torch.isfinite(loss) & torch.isfinite(gnorm)
         with torch.no_grad():
-            if grad_clip > 0:
-                scale = torch.clamp(grad_clip / (gnorm + 1e-12), max=1.0)
-                grads = {k: g * scale for k, g in grads.items()}
-            grads = {k: torch.where(finite, g, torch.zeros_like(g))
-                     for k, g in grads.items()}
-            updates, opt_state = optimizer.update(grads, ts.opt_state, ts.params)
-            for k, p in ts.params.items():
-                p.copy_(torch.where(finite, p + updates[k], p))
-            assign_state(ts.opt_state, select_state(finite, opt_state, ts.opt_state))
-            assign_state(ts.ema_params, ema_update(ts.ema_params, ts.params,
-                                                   ema_decay, step=ts.step))
-            assign_state(ts.method_state, method_state)
-            ts.step.add_(1)
-        metrics = {"loss": loss, "gnorm": gnorm,
-                   "skipped": torch.logical_not(finite)}
+            with span("train.clip"):
+                gnorm = grad_norm(grads, shards)
+                finite = torch.isfinite(loss) & torch.isfinite(gnorm)
+                if grad_clip > 0:
+                    scale = torch.clamp(grad_clip / (gnorm + 1e-12), max=1.0)
+                    grads = {k: g * scale for k, g in grads.items()}
+                grads = {k: torch.where(finite, g, torch.zeros_like(g))
+                         for k, g in grads.items()}
+            with span("train.optimizer"):
+                updates, opt_state = optimizer.update(grads, ts.opt_state, ts.params)
+                for k, p in ts.params.items():
+                    p.copy_(torch.where(finite, p + updates[k], p))
+                assign_state(ts.opt_state, select_state(finite, opt_state, ts.opt_state))
+                skipped = torch.logical_not(finite)
+            with span("train.ema"):
+                assign_state(ts.ema_params, ema_update(ts.ema_params, ts.params,
+                                                       ema_decay, step=ts.step))
+                assign_state(ts.method_state, method_state)
+                ts.step.add_(1)
+        metrics = {"loss": loss, "gnorm": gnorm, "skipped": skipped}
         if monitor:
             f, Tf = aux["f"], aux["Tf"]
             metrics["quad_stats"] = pmean(batch_stats(f * Tf), dp_axis)  # local energies
@@ -275,7 +287,10 @@ class ScannedTrainStep:
     group that cannot be captured (gloo) raises ValueError.  ``tp_group``:
     the tensor-parallel group of a step made with ``tp_axis``; then the
     sample generator is seeded as without a mesh on every rank (the global
-    batch) and only the probe generator takes the dp rank.
+    batch) and only the probe generator takes the dp rank.  A block runs in
+    the span ``train.block``, a capture in the set-up interval
+    ``setup.capture``; the counters ``graph.captures`` and ``graph.replays``
+    count them (``utils/tracing.py``).
     """
 
     def __init__(self, step, steps_per_call: int, seed: int = 0,
@@ -318,13 +333,14 @@ class ScannedTrainStep:
         """One step, its metrics written into the traces' next row."""
         sample, probes, traces, pos = self.buffers(ts.step.device)
         _, metrics = self.step(ts, sample, probes)
-        with torch.no_grad():
+        with torch.no_grad(), span("train.metrics"):
             row = torch.stack([metrics["loss"], metrics["gnorm"],
                                metrics["skipped"].to(torch.float32)])
             traces.index_copy_(0, pos.reshape(1), row[None])
             pos.add_(1)
         return metrics
 
+    @tracing.timed("setup.capture")
     def _capture(self, ts: TrainState) -> None:
         if not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
             raise RuntimeError("this PyTorch cannot register a generator with "
@@ -353,6 +369,7 @@ class ScannedTrainStep:
             self.eager_step(ts)
         self.graph, self._graph_state = graph, ts
         self._graph_ptrs = state_pointers(ts)
+        tracing.count("graph.captures")
         log.info("captured a CUDA graph of one train step")
 
     def __call__(self, ts: TrainState, start: int, n: Optional[int] = None):
@@ -369,13 +386,15 @@ class ScannedTrainStep:
                 "a tensor of the TrainState was replaced after the block was "
                 "captured; the graph would go on writing the old one (update "
                 "the state in place, e.g. with train_state.assign_state)")
-        self.begin_block(device, start)
-        if graph:
-            for _ in range(n):
-                self.graph.replay()
-        else:
-            for _ in range(n):
-                self.eager_step(ts)
+        with span("train.block"):
+            self.begin_block(device, start)
+            if graph:
+                for _ in range(n):
+                    self.graph.replay()
+                tracing.count("graph.replays", n)
+            else:
+                for _ in range(n):
+                    self.eager_step(ts)
         traces = self.buffers(device)[2][:n]
         return ts, {"loss": traces[:, 0].clone(), "gnorm": traces[:, 1].clone(),
                     "skipped": traces[:, 2] > 0}
