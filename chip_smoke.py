@@ -22,30 +22,44 @@ seconds:
               backward) against the plain EVD loss at the E4, recipe,
               Fokker–Planck and kernel-path shapes, timed beside the sum of
               its kernels' bounds;
-4. trainer    the hydrogen-2D E4 configuration at full width (L = 16,
+4. update     the train steps' fused update (ops/cuda_update.py: the
+              norm pass grad_norm_kernel, the update pass apply_kernel) at
+              E4's parameter shapes (RMSprop on the cosine with the EMA, no
+              clip) and the CDK's (momentum SGD on its warmup-cosine, clip
+              1.0): UPDATE_STEPS steps fused and plain (the same chain
+              without its mark) from one state on preset gradients, the
+              second with a NaN entry (skipped by both): E4 bit for bit,
+              the CDK within UPDATE_RTOL of each leaf, one launch of each
+              wrapper a step; each pass's device ms and the whole fused and
+              plain update's, from replays of UPDATE_GRAPH_CALLS calls
+              captured in one CUDA graph, beside the bound of the bytes the
+              pass must move;
+5. trainer    the hydrogen-2D E4 configuration at full width (L = 16,
               B = 512, per-mode 128³ softplus towers, 1024 Fourier maps +
               radial + 4 envelopes, gaussian_mixture sampling with √w
               conjugation, the exact Laplacian by the forward-Laplacian
               engine (the JAX default, laplacian_mode="forward"),
-              operator_scale 100, sequential nesting, RMSprop, EMA): kernel
+              operator_scale 100, sequential nesting, RMSprop through the
+              fused update, EMA): kernel
               vs plain loss on one batch, forward vs nested-JVP Laplacian,
               gradient and fs on that batch, a GPU-vs-CPU check of the
               operator on a small batch, TRAIN_STEPS steps through the
               kernels with their launch counts and the engine's fallback
-              count (0), steps/s, the EMA model's 16 Rayleigh eigenvalues,
+              count (0), one launch of each update pass a step, steps/s,
+              the EMA model's 16 Rayleigh eigenvalues,
               and steps/s of the same number of steps on the nested-JVP
               Laplacian;
-5. hutchinson the Hutchinson Laplacian (Rademacher probes through the same
+6. hutchinson the Hutchinson Laplacian (Rademacher probes through the same
               engine) at that width: the mean of HUTCH_DRAWS estimates
               against the exact Laplacian on one batch, within HUTCH_Z
               standard errors at every entry, and HUTCH_STEPS train steps
               with laplacian_probes=2, every loss finite;
-6. cdk_loss   the CDK loss at the paper's width (B 4096, L 512 + the
+7. cdk_loss   the CDK loss at the paper's width (B 4096, L 512 + the
               constant mode) on the towers' outputs: kernel packaging vs
               plain loss, with and without batch weights, ratios included,
               and the CUDA-event ms of each one's forward + backward;
               the towers on the GPU vs a CPU copy on a small batch;
-7. pde_cli    the PDE entry point (neuralsvd_tpu_torch.cli.pde.main) on the
+8. pde_cli    the PDE entry point (neuralsvd_tpu_torch.cli.pde.main) on the
               E4 flags (PDE_E4_ARGV) for PDE_ITERS steps in graph blocks of
               PDE_BLOCK with an eval every PDE_EVAL: every loss finite, no
               skipped step, the checkpoints, CSV, stats.npz and health
@@ -64,7 +78,7 @@ seconds:
               launches measured in the same way; and steps/s of E4 CLI
               runs as eager steps and as graph blocks (cli.pde.main's
               use_graph), in turns (eager, graph, graph, eager);
-8. pde_recipes the paper's two PDE recipes (scripts/exps/pde/hydrogen.sh
+9. pde_recipes the paper's two PDE recipes (scripts/exps/pde/hydrogen.sh
               and oscillator.sh, --loss neuralsvd) through the PDE entry
               point at full width in graph blocks of RECIPE_BLOCK: hydrogen
               (L 36, the mode rescue) runs to a checkpoint at an eval, has
@@ -79,7 +93,7 @@ seconds:
               fallback call and agrees with nested JVPs.  For both: kernel
               vs plain loss and grads on one batch, each kernel's launches
               measured as in pde_cli (one a step), steps/s of a graph block;
-9. pde_methods NeuralEF on hydrogen.sh (its args=( ... ) list with --loss
+10. pde_methods NeuralEF on hydrogen.sh (its args=( ... ) list with --loss
               neuralef: L 36, finite differences, the batch-L2 norm and
               its EMAs) and the repo's 2D Fokker–Planck recipe
               (scripts/validate_fokker_planck.py: --problem fp, L 7,
@@ -96,7 +110,7 @@ seconds:
               steps/s and eval seconds; Nyström (an RBF kernel on 2000
               points of the FP domain, numpy samples and no device) runs
               on the card and equals the CPU run;
-10. pde_spin  SpIN and SpINx on hydrogen.sh (its args=( ... ) list with
+11. pde_spin  SpIN and SpINx on hydrogen.sh (its args=( ... ) list with
               --loss spin, then spinx: L 36, 10.67M parameters, B 512,
               finite differences at eps 0.01, --rescue true, --spin.decay
               0.01) through the PDE entry point in graph blocks of
@@ -112,17 +126,18 @@ seconds:
               with L 4; and where a SpIN step's time goes (the device time
               of its three profiler ranges over eager steps, and the busy
               share of a replayed block);
-11. cdk_train the Sketchy CDK trainer (cli/sketchy.py::run_training) at the
+12. cdk_train the Sketchy CDK trainer (cli/sketchy.py::run_training) at the
               paper's width (512-8192-512 lrelu0.2 towers, L 512, B 4096,
               SGD momentum 0.9, lr 5e-3 warmup-cosine, grad clip 1.0, joint
               nesting) on synthetic class-correlated 512-d features, two
               epochs of CDK_STEPS steps, with retrieval, spectrum and the
               truncation sweep; every loss finite, no skipped step, one
-              launch of each kernel per step; the run's seconds by part
+              launch of each kernel (K1-K3 and both update passes) per
+              step; the run's seconds by part
               (steps with loader and copies, eval, checkpoint, ratios,
               spectrum, truncation sweep); then steps/s of the train step
               alone on device-resident batches and its peak device memory;
-12. pde_tiers the PDE entry point on the E4 flags with --matmul_precision
+13. pde_tiers the PDE entry point on the E4 flags with --matmul_precision
               highest, high (3xTF32), default (one TF32 pass) and
               highest@1,high, one run each in graph blocks of RECIPE_BLOCK:
               every loss finite, no skipped step, one launch of each kernel
@@ -135,7 +150,7 @@ seconds:
               graph-block steps/s in turns; and the E4 towers in bf16
               (compute_dtype) on the card against a CPU copy, with their
               forward-engine Laplacian finite;
-13. pde_spin_exact  SpIN and SpINx on the E4 flags with the exact
+14. pde_spin_exact  SpIN and SpINx on the E4 flags with the exact
               Laplacian's forward engine in grad mode (--loss spin|spinx,
               --laplacian_eps -1 --laplacian_mode forward, full width),
               SPIN_EXACT_ITERS steps each in graph blocks of RECIPE_BLOCK
@@ -151,7 +166,7 @@ seconds:
               straight run, and load_pretrained of the run's ckpt EMA
               parameters into a fresh model whose eval outputs equal the
               run's (bytes and seconds of each);
-14. kernel_evd the kernel-operator EVD path: an RBF kernel on 2D
+15. kernel_evd the kernel-operator EVD path: an RBF kernel on 2D
               standard-normal samples at B KEVD_B, L KEVD_L, per-mode 128³
               towers and the weight-normalized bias-free shared trunk 128³:
               NestedLoRA's loss_and_grad_kernel with and without
@@ -162,7 +177,7 @@ seconds:
               blocks with one eval: losses finite, no skipped step,
               eigenvalues positive (the kernel is PSD), one capture, the
               kernels' launches measured as in pde_cli, steps/s;
-15. cdk_bf16  the Sketchy script as written (CDK_ARGV plus --compute_dtype
+16. cdk_bf16  the Sketchy script as written (CDK_ARGV plus --compute_dtype
               bf16) through run_training: every loss finite, no skipped
               step, one launch of each kernel a step, float32 master
               weights, P@100 and mAP beside the f32 run's; the card's bf16
@@ -173,7 +188,7 @@ seconds:
               only) and bf16 in turns on the same batches; and a few
               profiled steps of each (device ms, busy share, device ms by
               group: GEMMs, gram kernels, the rest; costliest kernels).
-16. sketchy_cli the Sketchy CLI's own entry point (cli/sketchy.py::main)
+17. sketchy_cli the Sketchy CLI's own entry point (cli/sketchy.py::main)
               on feature files at Sketchy Extended scale: (a) VGG16 (random
               weights, both towers on the card) through
               extract_features_main on made-up 224² images of 125
@@ -198,7 +213,7 @@ seconds:
               ResNet-20 and WRN-28-2 (32², batch 128) and SiamNetwork
               (512-8192-512, plain, separation, batch_l2norm; batch 4096)
               card vs CPU, then 5 SGD steps each: images or rows a second.
-17. dp        data parallelism (--mesh dp, parallel/sharding.py): (a) the
+18. dp        data parallelism (--mesh dp, parallel/sharding.py): (a) the
               E4 flags on the plain loss through cli.pde.main on a
               one-rank NCCL group, DP_ITERS steps in graph blocks of
               DP_BLOCK with one eval (on one rank NCCL reduces in place
@@ -222,7 +237,7 @@ seconds:
               CDK step against the single-process step on the same pairs,
               both with SGD and no grad clip, so the gradient's scale
               shows.
-18. tp        tensor parallelism (--mesh tp=2, parallel/sharding.py) on two
+19. tp        tensor parallelism (--mesh tp=2, parallel/sharding.py) on two
               gloo ranks on the one card (spawned, CUDA tensors; eager
               steps, as gloo refuses a CUDA graph): (a) the E4 flags on SGD
               through cli.pde.main, TP_E4_ITERS steps with one eval and a
@@ -248,15 +263,15 @@ seconds:
               j_avg bytes and peak memory, the tp checkpoint loaded in one
               process bit for bit, SpINx's refresh from it against the tp
               run's weights; no K1-K3 launch;
-19. export    the serving export (utils/export.py): the E4 wavefunction
+20. export    the serving export (utils/export.py): the E4 wavefunction
               (f32, and the `high` tier, its products tiered_einsum ops)
               and the paper-width CDK x tower (f32, bf16) saved to .pt2
               files, reloaded and evaluated at 3 and 4096 rows against the
               eager modules; the exported and eager calls' ms;
-20. dryrun    graft_entry.entry() (the flagship L 36 model on the card) and
+21. dryrun    graft_entry.entry() (the flagship L 36 model on the card) and
               graft_entry.dryrun_multichip(4) (a dp x tp PDE step and a dp
               CDK step on four gloo CPU ranks, in its subprocess).
-21. validate  the accuracy entry points (neuralsvd_tpu_torch/scripts/):
+22. validate  the accuracy entry points (neuralsvd_tpu_torch/scripts/):
               validate_northstar.main at the E4 recipe (its defaults,
               lap_eps -1) for NS_ITERS steps in chunks of NS_CHUNK with
               partial rows every NS_EVAL_EVERY and the full 64-round raw
@@ -278,7 +293,7 @@ seconds:
               NestedLoRA, the FP runs) launches each of K1-K3 once a
               step: the wrappers count each capture's warm-up, and one
               replayed block of each path is traced.
-22. plots     the figures, drawn by the port without matplotlib (none may be
+23. plots     the figures, drawn by the port without matplotlib (none may be
               imported): the hydrogen figure tool
               (scripts/plot_hydrogen_modes.py) on the north star's NS_CKPT
               checkpoint that phase validate trained through K1-K3 and
@@ -304,7 +319,10 @@ tp_e4 and tp_cdk, summed over phase tp's two ranks; the dp path takes the
 plain losses and launches none, nor do tp_spin and tp_spinx; the
 CLI paths' are the eager launches counted by the wrappers plus the
 replayed launches counted in the traced block, each also under "paths"),
-per-path numbers under "paths", every shape's under "shapes"), the
+per-path numbers under "paths", every shape's under "shapes"; then the
+fused update's two passes, grad_status and apply_update, with phase
+update's numbers at the CDK shape, the e4 trainer's and cdk run's
+launches, and its plain_ms the plain route's whole update), the
 nvidia-smi line and,
 last, {"ok": true, "device": {...}}.  Any failed check raises: the exit
 code is then non-zero and the last line is never printed.  Without a GPU it
@@ -357,7 +375,7 @@ from neuralsvd_tpu_torch.models.wavefunctions import make_wavefunctions
 from neuralsvd_tpu_torch.operators.base import KernelOperator
 from neuralsvd_tpu_torch.operators.diff_ops import VectorizedLaplacian
 from neuralsvd_tpu_torch.operators.problems import get_problem
-from neuralsvd_tpu_torch.ops import cuda_build, cuda_gram, forward_laplacian
+from neuralsvd_tpu_torch.ops import cuda_build, cuda_gram, cuda_update, forward_laplacian
 from neuralsvd_tpu_torch.ops.cuda_gram import (
     nestedlora_cdk_loss_kernels,
     nestedlora_evd_loss_kernels,
@@ -372,6 +390,7 @@ from neuralsvd_tpu_torch.scripts import plot_hydrogen_modes, rayleigh
 from neuralsvd_tpu_torch.scripts import validate_fokker_planck as vf
 from neuralsvd_tpu_torch.scripts import validate_methods as vm
 from neuralsvd_tpu_torch.scripts import validate_northstar as vn
+from neuralsvd_tpu_torch.training.cdk_step import make_cdk_train_step
 from neuralsvd_tpu_torch.training.checkpoint import (
     load_checkpoint,
     load_pretrained,
@@ -382,7 +401,9 @@ from neuralsvd_tpu_torch.training.checkpoint import (
 from neuralsvd_tpu_torch.training.optimizers import (
     build_optimizer,
     cosine_annealing,
+    fused_update,
     torch_rmsprop,
+    warmup_cosine_schedule,
 )
 from neuralsvd_tpu_torch.training.rescue import named_leaves
 from neuralsvd_tpu_torch.training.train_operator import (
@@ -396,12 +417,13 @@ from neuralsvd_tpu_torch.training.train_operator import (
     train_operator,
 )
 from neuralsvd_tpu_torch.training.train_state import (
+    TrainState,
     clone_tree,
     init_train_state,
     load_state_tree,
     state_tree,
 )
-from neuralsvd_tpu_torch.utils import export, plotting, raster
+from neuralsvd_tpu_torch.utils import export, plotting, raster, tracing
 from neuralsvd_tpu_torch.utils.config import parse_pde_config, run_name
 from neuralsvd_tpu_torch.utils.meters import accuracy
 
@@ -829,7 +851,7 @@ KERNEL_SOURCE = "neuralsvd_tpu_torch/csrc/gram_kernels.cu"
 # the kernels of csrc/gram_kernels.cu, as ptxas names them (mangled)
 CUDA_KERNELS = ("masked_gram_syrk_kernel", "masked_gram_finish_kernel",
                 "sum_partials_kernel", "weighted_dot_kernel",
-                "metric_grads_kernel")
+                "metric_grads_kernel", "grad_norm_kernel", "apply_kernel")
 # each wrapper's kernel as the profiler names it (K1: its SYRK pass)
 GRAM_KERNELS = {"masked_gram_pair": "masked_gram_syrk_kernel",
                 "weighted_dot": "weighted_dot_kernel",
@@ -844,6 +866,13 @@ REPLACES = {
     "weighted_dot": "neuralsvd_tpu/ops/pallas_gram.py:137",
     "metric_grads": "neuralsvd_tpu/ops/pallas_gram.py:184",
 }
+
+# the train steps' fused update (ops/cuda_update.py): each wrapper's kernel
+UPDATE_SOURCE = "neuralsvd_tpu_torch/csrc/update_kernels.cu"
+UPDATE_KERNELS = {"grad_status": "grad_norm_kernel", "apply_update": "apply_kernel"}
+UPDATE_STEPS = 3  # fused and plain from one state; the second has a NaN entry
+UPDATE_RTOL = 1e-6  # of a leaf's largest entry, where the clip's ‖g‖ is summed in another order
+UPDATE_GRAPH_CALLS = 20  # calls captured in one CUDA graph for a device time
 
 _T0 = time.perf_counter()
 
@@ -902,13 +931,14 @@ def phase_device():
 
 def ptxas_report(log_lines):
     """Registers, shared memory and spills of each kernel entry in nvcc's
-    -Xptxas -v output; a template's copy width is kept as <1> or <4>."""
+    -Xptxas -v output; a template's argument (K1-K3's copy width, 1 or 4;
+    apply_kernel's mode, 0-3) is kept as <n>."""
     report, current = [], None
     for ln in log_lines:
         if "Compiling entry function" in ln:
             mangled = ln.split("'")[1]
             short = next((k for k in CUDA_KERNELS if k in mangled), mangled)
-            for vec in ("1", "4"):
+            for vec in ("0", "1", "2", "3", "4"):
                 if f"ILi{vec}E" in mangled:
                     short += f"<{vec}>"
             current = {"kernel": short}
@@ -1060,6 +1090,168 @@ def _packaging_row(label, f, Tf, f2, vmask, mmask, rows):
                 bound_by=[r["bound_by"] for r in parts])
 
 
+class _FixedGrads:
+    """A method whose ``loss_and_grad`` hands out preset (loss, grads), the
+    next pair of ``script`` each call, the last one again once it runs out:
+    a step of it does no device work but its update."""
+
+    def __init__(self, script):
+        self.script, self.calls = script, 0
+
+    def loss_and_grad(self, params, method_state, *inputs):
+        loss, grads = self.script[min(self.calls, len(self.script) - 1)]
+        self.calls += 1
+        return loss, dict(grads), {}, method_state
+
+
+def _update_cases():
+    """{shape: (parameters, optimizer, grad clip)} of phase update: E4's
+    (the phase trainer model) on RMSprop at the CLI's cosine with the EMA
+    and no clip; the CDK's (CDK_ARGV's towers) on its momentum SGD,
+    warmup-cosine and clip 1.0, as make_trainer builds them."""
+    model = _e4_setup(DEVICE)[0]
+    e4 = build_optimizer("rmsprop", LR, rmsprop_decay=ALPHA,
+                         lr_schedule=cosine_annealing(LR, PDE_ITERS))
+    args = _cdk_args("")
+    cdk = build_optimizer(args.optimizer, args.base_lr, momentum=args.momentum,
+                          weight_decay=args.weight_decay, lr_schedule=warmup_cosine_schedule(
+                              args.base_lr, args.warmup_lr, args.final_lr,
+                              args.warmup_epochs * CDK_STEPS, args.num_epochs * CDK_STEPS))
+    return {"E4": (dict(model.named_parameters()), e4, 0.0),
+            "cdk": (make_trainer(args, CDK_DIM, CDK_STEPS).params, cdk, args.grad_clip)}
+
+
+def _update_runner(label, params, optimizer, grad_clip, script):
+    """A train step of ``optimizer`` on fresh copies of ``params`` whose
+    method hands out ``script``: E4's ``make_train_step`` with the EMA, or
+    the CDK's ``make_cdk_train_step``.  Returns (one(): a step, state():
+    the whole state, skips(): the skipped steps)."""
+    params = clone_tree({k: p.detach() for k, p in params.items()})
+    method = _FixedGrads(script)
+    x = torch.zeros((4, NDIM), device=DEVICE)
+    if label == "E4":
+        ts = TrainState(step=torch.zeros((), dtype=torch.int64, device=DEVICE), params=params,
+                        opt_state=optimizer.init(params), ema_params=clone_tree(params),
+                        method_state={})
+        step = make_train_step(method, None, optimizer, lambda gen: x, ema_decay=EMA_DECAY,
+                               grad_clip=grad_clip)
+        skipped = []
+        return (lambda: skipped.append(step(ts, None)[1]["skipped"]),
+                lambda: clone_tree(ts.__dict__), lambda: int(sum(skipped)))
+    state = {"opt": optimizer.init(params),
+             "skips": torch.zeros((), dtype=torch.int32, device=DEVICE)}
+    step = make_cdk_train_step(method, optimizer, grad_clip)
+
+    def one():
+        _, state["opt"], _, _, _, state["skips"] = step(params, state["opt"], {}, x, x,
+                                                        state["skips"])
+
+    return (one, lambda: clone_tree({"params": params, "opt_state": state["opt"]}),
+            lambda: int(state["skips"]))
+
+
+def _leaf_errors(got, want):
+    """{leaf: (max |got - want|, that over the leaf's largest |entry|)}."""
+    out = {}
+    for (name, a), (_, b) in zip(named_leaves(got), named_leaves(want)):
+        if a.is_floating_point():
+            err = (a.double() - b.double()).abs().max().item()
+            out[name] = (err, err / max(b.double().abs().max().item(), 1e-30))
+        else:
+            out[name] = (0.0 if torch.equal(a, b) else float("inf"),) * 2
+    return out
+
+
+def _graph_ms(fn, calls=UPDATE_GRAPH_CALLS):
+    """Device ms a call of ``fn`` (which writes its state in place), from
+    replays of ``calls`` calls captured in one CUDA graph: no host time
+    between the launches, as in E4's graph blocks."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return time_ms(graph.replay, iters=10, reps=7) / calls
+
+
+def phase_update():
+    """The train steps' fused update (ops/cuda_update.py) at E4's and the
+    CDK's parameter shapes: UPDATE_STEPS steps fused and plain (the same
+    chain without its mark) from one state on the same preset gradients,
+    the second with a NaN entry: E4 bit for bit, the CDK within
+    UPDATE_RTOL of each leaf; one launch of each wrapper a step; then each
+    pass's device ms, the fused and the plain update's, beside the bound
+    of the bytes the passes must move."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    rows = {k: [] for k in UPDATE_KERNELS}
+    for label, (params, optimizer, grad_clip) in _update_cases().items():
+        check(optimizer.fused is not None, f"{label}: the chain is not marked for the fused pass")
+        script = []
+        for i in range(UPDATE_STEPS):
+            grads = {k: 1e-2 * torch.randn(p.shape, generator=gen, device=DEVICE)
+                     for k, p in params.items()}
+            if i == 1:
+                next(iter(grads.values())).view(-1)[7] = float("nan")
+            script.append((torch.ones((), device=DEVICE), grads))
+        before, routes = cuda_update.launch_counts(), tracing.counts().get("update.fused", 0)
+        fused, fused_state, fused_skips = _update_runner(label, params, optimizer, grad_clip,
+                                                         script)
+        for _ in script:
+            fused()
+        torch.cuda.synchronize()
+        launches = {k: n - before[k] for k, n in cuda_update.launch_counts().items()}
+        check(launches == {k: UPDATE_STEPS for k in UPDATE_KERNELS}
+              and tracing.counts()["update.fused"] - routes == UPDATE_STEPS,
+              f"{label}: fused launches {launches} != {UPDATE_STEPS} each")
+        plain, plain_state, plain_skips = _update_runner(
+            label, params, optimizer._replace(fused=None), grad_clip, script)
+        for _ in script:
+            plain()
+        check(fused_skips() == plain_skips() == 1,
+              f"{label}: skipped {fused_skips()} fused, {plain_skips()} plain, not 1")
+        errors = _leaf_errors(fused_state(), plain_state())
+        worst = max(errors, key=lambda k: errors[k][1])
+        rtol = 0.0 if label == "E4" else UPDATE_RTOL
+        check(errors[worst][1] <= rtol,
+              f"{label}: fused vs plain {errors[worst]} at {worst} > rtol {rtol}")
+
+        # device times on the step's first (finite) gradients
+        grads = list(script[0][1].values())
+        n = sum(g.numel() for g in grads)
+        fresh = clone_tree({k: p.detach() for k, p in params.items()})
+        state = {"params": fresh, "opt": optimizer.init(fresh), "ema": clone_tree(fresh)}
+        step_t = torch.zeros((), dtype=torch.int64, device=DEVICE)
+        clip_eps = 1e-12 if label == "E4" else 1e-6
+        status = cuda_update.grad_status(grads, clip=grad_clip, clip_eps=clip_eps,
+                                         by_entries=label == "cdk")
+        ema = (state["ema"], EMA_DECAY, step_t) if label == "E4" else None
+        grad_dict = dict(zip(params, grads))
+        ms = {"grad_status": _graph_ms(lambda: cuda_update.grad_status(
+                  grads, clip=grad_clip, clip_eps=clip_eps, by_entries=label == "cdk")),
+              "apply_update": _graph_ms(lambda: fused_update(
+                  optimizer.fused, status, grad_dict, state["params"], state["opt"], ema))}
+        # with the EMA: g, p, ν, ema read, p, ν, ema written; else g, p, m read, p, m written
+        nbytes = {"grad_status": 4 * n, "apply_update": 4 * n * (7 if label == "E4" else 5)}
+        flops = {"grad_status": 2 * n, "apply_update": n * (13 if label == "E4" else 5)}
+        fused_ms = _graph_ms(_update_runner(label, params, optimizer, grad_clip, script[:1])[0])
+        plain_ms = _graph_ms(_update_runner(label, params, optimizer._replace(fused=None),
+                                            grad_clip, script[:1])[0])
+        for k in UPDATE_KERNELS:
+            bound_ms, bound_by = bound(nbytes[k], flops[k])
+            rows[k].append(dict(shape=label, elements=n, tensors=len(grads),
+                                max_abs_err=errors[worst][0], rel_err=errors[worst][1],
+                                worst_leaf=worst, ms=ms[k], fused_update_ms=fused_ms,
+                                plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                                bound_by=bound_by, bytes=nbytes[k]))
+    emit("update", steps=UPDATE_STEPS, rtol={"E4": 0.0, "cdk": UPDATE_RTOL}, results=rows)
+    return rows
+
+
 def _e4_setup(device, laplacian_mode="forward", laplacian_probes=0):
     model = make_wavefunctions(
         ndim=NDIM, neigs=NEIGS, mlp_hidden_dims=HIDDEN,
@@ -1132,7 +1324,7 @@ def phase_trainer():
     check(feature_dim == 2 * FOURIER + 1 + len(ENVELOPES), "feature width")
     method = NestedLoRA(model, neigs=NEIGS, sequential=True)  # kernels on CUDA
     plain = NestedLoRA(model, neigs=NEIGS, sequential=True, use_pallas=False)
-    optimizer = torch_rmsprop(LR, alpha=ALPHA)
+    optimizer = build_optimizer("rmsprop", LR, rmsprop_decay=ALPHA)  # the fused update
     ts = init_train_state(model, optimizer, method)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
 
@@ -1160,8 +1352,10 @@ def phase_trainer():
                            importance=importance, ema_decay=EMA_DECAY)
     cuda_gram.reset_launch_counts()
     forward_laplacian.fallback_rule.calls = 0
+    update_before = cuda_update.launch_counts()
     steps_per_s, losses = _steps_per_s(step, ts, gen, TRAIN_STEPS, WARMUP_STEPS)
     counts = cuda_gram.launch_counts()
+    counts.update({k: n - update_before[k] for k, n in cuda_update.launch_counts().items()})
     fallbacks = forward_laplacian.fallback_rule.calls
     check(all(n == TRAIN_STEPS for n in counts.values()),
           f"launch counts {counts} != {TRAIN_STEPS} each")
@@ -2292,6 +2486,7 @@ def phase_cdk_train(train, test, valid):
         args = _cdk_args(log_dir)
         torch.cuda.reset_peak_memory_stats()
         cuda_gram.reset_launch_counts()
+        update_before = cuda_update.launch_counts()
         timings = {}
         t0 = time.perf_counter()
         _, trunc = run_training(args, train, test, valid, input_dim=CDK_DIM,
@@ -2299,6 +2494,7 @@ def phase_cdk_train(train, test, valid):
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         counts = cuda_gram.launch_counts()
+        counts.update({k: n - update_before[k] for k, n in cuda_update.launch_counts().items()})
         run_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         rows = _csv_rows(log_dir)
         stats = np.load(os.path.join(log_dir, "best_stats.npz"))
@@ -4475,6 +4671,7 @@ def main():
     name, smi = phase_device()
     phase_build()
     rows, _ = phase_kernels()
+    update_rows = phase_update()
     e4_counts, model, importance, x = phase_trainer()
     pde_launches = phase_pde_cli()
     figures = []  # the CLI runs' PNGs, read in phase plots
@@ -4530,6 +4727,17 @@ def main():
             "max_abs_err": cdk["max_abs_err"], "ms": cdk["ms"],
             "plain_ms": cdk["plain_ms"], "bound_ms": cdk["bound_ms"],
             "bound_by": cdk["bound_by"], "library_ms": cdk["library_ms"],
+            "paths": paths, "shapes": results})
+    for kname, results in update_rows.items():  # the fused update's passes
+        at = {r["shape"]: r for r in results}
+        paths = {path: {"launches": counts[path][kname], **at[shape]}
+                 for path, shape in (("e4", "E4"), ("cdk", "cdk"))}
+        cdk = at["cdk"]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": UPDATE_SOURCE, "replaces": None,
+            "launches": sum(p["launches"] for p in paths.values()),
+            **{k: cdk[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")},
             "paths": paths, "shapes": results})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

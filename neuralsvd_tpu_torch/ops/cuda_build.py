@@ -29,7 +29,7 @@ from neuralsvd_tpu_torch.utils import tracing
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("gram_kernels.cu",)
+SOURCES = ("gram_kernels.cu", "update_kernels.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 NVCC_TIMEOUT_S = 600
@@ -44,6 +44,12 @@ _SIGNATURES = {
                               _I, _I, _I, _I, _P],
     "gram_weighted_dot": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gram_metric_grads": [_P, _P, _P, _P, _F, _F, _P, _P, _I, _I, _I, _P],
+}
+# and in csrc/update_kernels.cu
+_UPDATE_SIGNATURES = {
+    "update_grad_norm": [_P, _P, _I, _P, _I, _P, _P, _F, _F, _I, _P, _P, _P],
+    "update_apply": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _P, _F, _P, _P, _P,
+                     _P, _P],
 }
 
 
@@ -102,7 +108,7 @@ def load_library() -> ctypes.CDLL:
     """Build if needed, load once per process, declare every signature."""
     lib = ctypes.CDLL(str(build()))
     tracing.count("kernels.loads")
-    for name, argtypes in _SIGNATURES.items():
+    for name, argtypes in {**_SIGNATURES, **_UPDATE_SIGNATURES}.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

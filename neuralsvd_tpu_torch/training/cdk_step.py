@@ -8,9 +8,17 @@ from __future__ import annotations
 
 import torch
 
+from neuralsvd_tpu_torch.ops.cuda_update import grad_status
 from neuralsvd_tpu_torch.parallel.collectives import psum, psum_flat
 from neuralsvd_tpu_torch.parallel.mesh import check_method_axis
-from neuralsvd_tpu_torch.training.optimizers import grad_norm, select_state
+from neuralsvd_tpu_torch.training.optimizers import (
+    fused_rule,
+    fused_update,
+    grad_norm,
+    select_state,
+)
+from neuralsvd_tpu_torch.training.train_state import assign_state
+from neuralsvd_tpu_torch.utils import tracing
 from neuralsvd_tpu_torch.utils.tracing import span, spanned
 
 __all__ = ["make_cdk_train_step"]
@@ -33,8 +41,16 @@ def make_cdk_train_step(method, optimizer, grad_clip: float = 0.0,
     group, or None; the method must be built with the same ``axis_name``
     (else ValueError).  With a group the gradients are summed over it in
     one flat all-reduce before the clip (``parallel.sharding.
-    make_mesh_cdk_step`` is the step on a mesh).  Under a profiler the step
-    records the spans ``train.step``, ``train.loss_and_grad``,
+    make_mesh_cdk_step`` is the step on a mesh).  On CUDA, for the chains
+    ``build_optimizer`` marks (momentum SGD without weight decay, RMSprop
+    without momentum; not on a tp mesh), the update is the fused pass of
+    ``ops/cuda_update.py`` with the same semantics; elsewhere it is the
+    plain route (``training/optimizers.py``).  Either route writes the
+    parameters and the optimizer state in place: the returned ``params``
+    and ``opt_state`` are the ones passed in, so a caller that wants the
+    state before a step keeps a copy (``train_state.clone_tree``).  Each
+    call counts ``update.fused`` or ``update.plain``.  Under a profiler
+    the step records the spans ``train.step``, ``train.loss_and_grad``,
     ``train.clip`` and ``train.optimizer`` (``utils/tracing.py``).
 
     ``shards``: the ``ModeShards`` of a tp mesh, the towers' last layers
@@ -58,6 +74,17 @@ def make_cdk_train_step(method, optimizer, grad_clip: float = 0.0,
         if dp_axis is not None:
             grads = dict(zip(grads, psum_flat(grads.values(), dp_axis)))
         with torch.no_grad():
+            rule = fused_rule(optimizer, params, shards)
+            tracing.count("update.fused" if rule is not None else "update.plain")
+            if rule is not None:
+                with span("train.clip"):
+                    grads = {k: g.contiguous() for k, g in grads.items()}
+                    status = grad_status(list(grads.values()), clip=grad_clip, clip_eps=1e-6,
+                                         by_entries=True)
+                with span("train.optimizer"):
+                    fused_update(rule, status, grads, params, opt_state)
+                    skip_count = skip_count + status.skipped.to(skip_count.dtype)
+                return params, opt_state, method_state, loss, aux, skip_count
             with span("train.clip"):
                 if grad_clip > 0:
                     scale = torch.clamp(
@@ -72,7 +99,7 @@ def make_cdk_train_step(method, optimizer, grad_clip: float = 0.0,
                 updates, new_opt_state = optimizer.update(grads, opt_state, params)
                 for k, p in params.items():
                     p.copy_(torch.where(finite, p + updates[k], p))
-                opt_state = select_state(finite, new_opt_state, opt_state)
+                assign_state(opt_state, select_state(finite, new_opt_state, opt_state))
                 skip_count = skip_count + torch.logical_not(finite).to(skip_count.dtype)
         return params, opt_state, method_state, loss, aux, skip_count
 

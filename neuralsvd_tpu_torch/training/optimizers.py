@@ -31,14 +31,29 @@ the global norm of ``grad_clip`` and ``reject_spikes`` and LARS's per-leaf
 norms, sum the slices' squares over the tp group (one all-reduce each), and
 ``per_mode_lr`` scales a slice by its modes' factors.  So every rank of
 the group takes the one-process values, and the same skip decisions.
+
+The fused route.  ``build_optimizer`` marks the chains that one hand-written
+CUDA pass computes (``Optimizer.fused``, a ``FusedRule``): RMSprop without
+momentum, and SGD with momentum and without weight decay, each at a
+constant lr or on a schedule, without ``reject_spikes``.  On CUDA tensors
+off a tp mesh the train steps (``make_train_step``,
+``make_cdk_train_step``) take it for those chains (``fused_rule``): one
+launch for the gradient norm, the finite test and the clip scale, one for
+the clip, the rule, -lr·u, p + u, the kept state of a skipped step and the
+EMA (``fused_update``, ``ops/cuda_update.py``), each element read and
+written once, in the plain route's f32 arithmetic and order.  Every other
+chain (Adam, AdamW, LARS, RMSprop with momentum, ``reject_spikes``,
+``per_mode_lr`` chained by a caller, a tp mesh) and every CPU step keeps
+the plain route below, which is also the fused pass's test oracle.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
 
+from neuralsvd_tpu_torch.ops.cuda_update import apply_update
 from neuralsvd_tpu_torch.parallel.collectives import psum
 
 
@@ -105,9 +120,24 @@ def grad_norm(grads: dict, shards=None) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(sq)))
 
 
+class FusedRule(NamedTuple):
+    """The update the fused CUDA pass computes for a chain
+    (``ops/cuda_update.py``): ``kind`` "rmsprop" (decay α, ``eps``) or
+    "trace" (momentum β = ``decay``), at ``lr``, a constant or a
+    ``schedule(count)``; ``moments(state)`` and ``count(state)`` find ν or m
+    and the schedule's count (None at a constant lr) in the chain's state."""
+    kind: str
+    decay: float
+    eps: float
+    lr: Union[float, Callable]
+    moments: Callable
+    count: Callable
+
+
 class Optimizer(NamedTuple):
     init: Callable    # params -> state
     update: Callable  # (grads, state, params) -> (updates, state)
+    fused: Optional[FusedRule] = None  # set by build_optimizer (module docstring)
 
 
 def cosine_annealing(base_lr: float, num_iters: int, eta_min: float = 0.0):
@@ -352,9 +382,14 @@ def _build_base(name, learning_rate, momentum, weight_decay, rmsprop_decay,
                             eps=1e-10, momentum=momentum)
         core = Optimizer(rms.init, rms.update)
         if not callable(lr):
-            return core
-        # torch_rmsprop(1.0) gives -u; scale it by +lr(count)
-        return chain(core, _scale_by_lr(lambda c: -lr(c)))
+            opt, moments, count = core, lambda s: s.nu, lambda s: None
+        else:
+            # torch_rmsprop(1.0) gives -u; scale it by +lr(count)
+            opt = chain(core, _scale_by_lr(lambda c: -lr(c)))
+            moments, count = lambda s: s[0].nu, lambda s: s[1]["count"]
+        if momentum > 0:
+            return opt
+        return opt._replace(fused=FusedRule("rmsprop", rmsprop_decay, 1e-10, lr, moments, count))
     if name == "adam":
         return chain(_scale_by_adam(eps=adam_eps), _scale_by_lr(lr))
     if name == "adamw":
@@ -369,7 +404,11 @@ def _build_base(name, learning_rate, momentum, weight_decay, rmsprop_decay,
         if momentum:
             parts.append(_trace(momentum))
         parts.append(_scale_by_lr(lr))
-        return chain(*parts)
+        opt = chain(*parts)
+        if not momentum or weight_decay:
+            return opt
+        count = (lambda s: s[1]["count"]) if callable(lr) else (lambda s: None)
+        return opt._replace(fused=FusedRule("trace", momentum, 0.0, lr, lambda s: s[0], count))
     raise NotImplementedError(name)
 
 
@@ -385,3 +424,40 @@ def select_state(keep_new, new, old):
         items = (select_state(keep_new, n, o) for n, o in zip(new, old))
         return type(new)(*items) if hasattr(new, "_fields") else tuple(items)
     return new
+
+
+def fused_rule(optimizer: Optimizer, params: dict, shards=None) -> Optional[FusedRule]:
+    """``optimizer.fused`` where a step takes the fused CUDA update: a
+    chain ``build_optimizer`` marked, no tp mesh (``shards``: the fused
+    norm is one process's) and the parameters on CUDA; else None (the
+    plain route, also for any other object with ``init`` and ``update``,
+    such as a bare ``torch_rmsprop``).  The fused pass raises on
+    parameters that are not contiguous float32 (``cuda_update``)."""
+    rule = getattr(optimizer, "fused", None)
+    if rule is None or shards is not None or not _on_card(params):
+        return None
+    return rule
+
+
+def _on_card(params: dict) -> bool:
+    return all(p.is_cuda for p in params.values())
+
+
+def fused_update(rule: FusedRule, status, grads: dict, params: dict, opt_state,
+                 ema=None) -> None:
+    """A step's update by the fused CUDA pass (``cuda_update.apply_update``):
+    what ``optimizer.update``, ``p + u`` and ``select_state`` of the plain
+    route give, written in place into ``params`` and ``opt_state``.
+    ``status``: ``cuda_update.grad_status`` of ``grads``; ``ema``:
+    (ema params, decay, step counter) or None."""
+    count = rule.count(opt_state)
+    lr = rule.lr(count) if callable(rule.lr) else rule.lr
+    if isinstance(lr, torch.Tensor):
+        lr = lr.to(torch.float32)
+    moments = rule.moments(opt_state)
+    emas, ema_decay, step = ema if ema is not None else (None, 0.0, None)
+    names = list(params)
+    apply_update(status, [grads[k] for k in names], [params[k] for k in names],
+                 [moments[k] for k in names], None if emas is None else [emas[k] for k in names],
+                 rule=rule.kind, decay=rule.decay, eps=rule.eps, lr=lr, count=count, step=step,
+                 ema_decay=ema_decay)

@@ -87,6 +87,7 @@ import torch.distributed as dist
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from neuralsvd_tpu_torch.ops import cuda_gram
+from neuralsvd_tpu_torch.ops.cuda_update import grad_status
 from neuralsvd_tpu_torch.parallel.collectives import axis_index, pmean, psum_flat
 from neuralsvd_tpu_torch.parallel.mesh import (
     barrier,
@@ -98,7 +99,13 @@ from neuralsvd_tpu_torch.parallel.mesh import (
     require_capturable,
     tp_group,
 )
-from neuralsvd_tpu_torch.training.optimizers import global_norm, grad_norm, select_state
+from neuralsvd_tpu_torch.training.optimizers import (
+    fused_rule,
+    fused_update,
+    global_norm,
+    grad_norm,
+    select_state,
+)
 from neuralsvd_tpu_torch.training.train_state import (
     STATE_FIELDS,
     TrainState,
@@ -200,9 +207,17 @@ def make_train_step(method, operator, optimizer, sampler: Callable,
     all-reduce) before the dp sum, and the clip and the finite test read
     the whole gradient's norm.
 
-    Under a profiler the step and its parts record the spans ``train.step``,
-    ``train.sample``, ``train.loss_and_grad``, ``train.clip``,
-    ``train.optimizer`` and ``train.ema`` (``utils/tracing.py``).
+    On CUDA, for the chains ``build_optimizer`` marks (RMSprop without
+    momentum, momentum SGD without weight decay; not on a tp mesh), the
+    update is the fused pass of ``ops/cuda_update.py`` with the same
+    semantics: one launch for the norm, the finite test and the clip
+    scale, one for the clip, the rule, the parameters, the kept state of a
+    skipped step and the EMA; elsewhere it is the plain route
+    (``training/optimizers.py``).  Each call counts ``update.fused`` or
+    ``update.plain``.  Under a profiler the step and its parts record the
+    spans ``train.step``, ``train.sample``, ``train.loss_and_grad``,
+    ``train.clip`` (the norm pass), ``train.optimizer`` (the update pass,
+    with the EMA where fused) and ``train.ema`` (``utils/tracing.py``).
     """
     check_method_axis(method, dp_axis)
     mode_group = None if shards is None else shards.group
@@ -242,23 +257,36 @@ def make_train_step(method, operator, optimizer, sampler: Callable,
             grads = dict(zip(grads, psum_flat(grads.values(), dp_axis)))
             method_state = _mean_state(method_state, dp_axis)
         with torch.no_grad():
-            with span("train.clip"):
-                gnorm = grad_norm(grads, shards)
-                finite = torch.isfinite(loss) & torch.isfinite(gnorm)
-                if grad_clip > 0:
-                    scale = torch.clamp(grad_clip / (gnorm + 1e-12), max=1.0)
-                    grads = {k: g * scale for k, g in grads.items()}
-                grads = {k: torch.where(finite, g, torch.zeros_like(g))
-                         for k, g in grads.items()}
-            with span("train.optimizer"):
-                updates, opt_state = optimizer.update(grads, ts.opt_state, ts.params)
-                for k, p in ts.params.items():
-                    p.copy_(torch.where(finite, p + updates[k], p))
-                assign_state(ts.opt_state, select_state(finite, opt_state, ts.opt_state))
-                skipped = torch.logical_not(finite)
+            rule = fused_rule(optimizer, ts.params, shards)
+            tracing.count("update.fused" if rule is not None else "update.plain")
+            if rule is not None:
+                with span("train.clip"):
+                    grads = {k: g.contiguous() for k, g in grads.items()}
+                    status = grad_status(list(grads.values()), loss=loss, clip=grad_clip,
+                                         clip_eps=1e-12)
+                    gnorm, skipped = status.gnorm, status.skipped
+                with span("train.optimizer"):
+                    fused_update(rule, status, grads, ts.params, ts.opt_state,
+                                 ema=(ts.ema_params, ema_decay, ts.step))
+            else:
+                with span("train.clip"):
+                    gnorm = grad_norm(grads, shards)
+                    finite = torch.isfinite(loss) & torch.isfinite(gnorm)
+                    if grad_clip > 0:
+                        scale = torch.clamp(grad_clip / (gnorm + 1e-12), max=1.0)
+                        grads = {k: g * scale for k, g in grads.items()}
+                    grads = {k: torch.where(finite, g, torch.zeros_like(g))
+                             for k, g in grads.items()}
+                with span("train.optimizer"):
+                    updates, opt_state = optimizer.update(grads, ts.opt_state, ts.params)
+                    for k, p in ts.params.items():
+                        p.copy_(torch.where(finite, p + updates[k], p))
+                    assign_state(ts.opt_state, select_state(finite, opt_state, ts.opt_state))
+                    skipped = torch.logical_not(finite)
             with span("train.ema"):
-                assign_state(ts.ema_params, ema_update(ts.ema_params, ts.params,
-                                                       ema_decay, step=ts.step))
+                if rule is None:
+                    assign_state(ts.ema_params, ema_update(ts.ema_params, ts.params,
+                                                           ema_decay, step=ts.step))
                 assign_state(ts.method_state, method_state)
                 ts.step.add_(1)
         metrics = {"loss": loss, "gnorm": gnorm, "skipped": skipped}

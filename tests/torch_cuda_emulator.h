@@ -1,6 +1,7 @@
 // A CPU stand-in for the CUDA runtime, enough to run the kernels of
-// neuralsvd_tpu_torch/csrc/gram_kernels.cu on the host for
-// tests/test_torch_kernel_emulation.py.
+// neuralsvd_tpu_torch/csrc/gram_kernels.cu and update_kernels.cu on the
+// host for tests/test_torch_kernel_emulation.py and
+// tests/test_torch_fused_update.py.
 //
 // A launch runs its blocks one after another, in grid order or, with
 // emu_reverse = 1, in reverse (so the block that draws a kernel's last
@@ -49,10 +50,20 @@ inline float4 make_float4(float a, float b, float c, float d) {
   return {a, b, c, d};
 }
 typedef struct CUstream_st* cudaStream_t;
-enum cudaError_t { cudaSuccess = 0 };
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
+using std::isfinite;
 using std::min;
+
+// IEEE round-to-nearest operations, one rounding each (the tests compile
+// with -ffp-contract=off, so nothing is fused into an FMA)
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline float __frcp_rn(float a) { return 1.f / a; }
+inline float __fsqrt_rn(float a) { return std::sqrt(a); }
 
 inline thread_local uint3 threadIdx;
 inline uint3 blockIdx;
